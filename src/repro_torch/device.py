@@ -1,0 +1,19 @@
+"""Device selection shared by every entry point of the port."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the CUDA card.
+
+    Without a card, None raises instead of quietly running on the CPU:
+    callers that want the CPU (the tests) say ``device="cpu"``.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the port on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

@@ -1,0 +1,707 @@
+"""Slot-based continuous-batching serving engine over a paged KV cache
+(port of the paged, chunked path of ``repro/serving/engine.py``).
+
+A fixed decode batch of ``max_batch`` slots steps in lockstep, one batched
+``Model.serve_step_paged`` per tick with the argmax on the device.
+Arriving requests reserve a block table (prefix-trie hits are reused,
+copy-on-write protects shared pages) and are prefilled ``prefill_chunk``
+tokens at a time under a per-tick ``prefill_budget``, sharing ticks with
+the decode step.  Prompt chunks are right-padded to power-of-two buckets.
+``kv_dtype="int8"`` stores the pool quantized with fp32 row scales.
+Finished slots return their pages immediately.
+
+The host-side page bookkeeping (``kv_cache.py``) is the JAX package's,
+unchanged.  The engine's tensors live on ``device`` (``cuda`` unless the
+caller passes ``device="cpu"``); decode attention runs the CUDA paged
+decode kernel there and its plain version on the CPU.
+
+Not ported in this slice (each raises ``NotImplementedError`` naming its
+ROADMAP item): the dense cache backend (``paged=False``), monolithic
+prefill (``prefill_chunk=0``), speculative decoding (``draft_config``),
+tensor-parallel meshes (``mesh``), admission batching
+(``sorted_batch_sizes``), embedding-span (multimodal) prompts, and KV
+snapshot export/import (``export_kv``, ``evacuate``, imported requests).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.models.api import Model
+from repro_torch.serving import segments as sg
+from repro_torch.serving.kv_cache import (BlockPool, BlockTable, KVSnapshot,
+                                          OutOfPagesError, ceil_blocks,
+                                          full_blocks, kv_page_bytes)
+from repro_torch.serving.request import ContinuumRequest, StreamEvent
+from repro_torch.serving.telemetry import MetricsRegistry, latency_summary
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 {item})")
+
+
+def bucket_length(n: int, *, minimum: int = 16, maximum: int | None = None
+                  ) -> int:
+    """Smallest power-of-two >= n, clamped to [minimum, maximum]."""
+    if n < 1:
+        raise ValueError(f"bucket_length needs n >= 1, got {n}")
+    if maximum is not None and n > maximum:
+        raise ValueError(f"bucket_length: n={n} exceeds maximum={maximum}")
+    b = max(minimum, 1 << (n - 1).bit_length())
+    return b if maximum is None else min(b, maximum)
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    tokens: np.ndarray | None = None  # prompt token ids
+    max_new_tokens: int = 32
+    extra: dict | None = None
+    # ordered modality spans; prompts with media spans are not ported yet
+    segments: "list | None" = None
+    # filled during serving:
+    output: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    t_submit: float = 0.0
+    t_admit: float = 0.0  # when prefill work started (ends the queue span)
+    token_times: list = dataclasses.field(default_factory=list)
+    features: np.ndarray | None = dataclasses.field(default=None,
+                                                    repr=False)
+    embed_mask: np.ndarray | None = dataclasses.field(default=None,
+                                                      repr=False)
+    imported: "KVSnapshot | None" = dataclasses.field(default=None,
+                                                      repr=False)
+    # per-token delivery callback (one StreamEvent per decoded token)
+    stream: "Callable[[StreamEvent], None] | None" = \
+        dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        if self.segments is None:
+            return
+        self.tokens = sg.key_ids(self.segments)
+        media = sg.media_segments(self.segments)
+        if media:
+            d = np.asarray(media[0].features).shape[-1]
+            self.features, self.embed_mask = sg.dense_features(
+                self.segments, d)
+
+    def ttft_s(self) -> float:
+        """Time-to-first-token (prefill + queueing), on the engine clock."""
+        return self.token_times[0] - self.t_submit
+
+    def itl_s(self) -> list:
+        """Inter-token latencies of the decode phase (engine clock)."""
+        return [b - a for a, b in zip(self.token_times, self.token_times[1:])]
+
+    def e2e_s(self) -> float:
+        """Submit-to-last-token latency, on the engine clock."""
+        return self.token_times[-1] - self.t_submit
+
+
+@dataclasses.dataclass
+class _PrefillTask:
+    """In-flight chunked prefill of one slot (prompt partially in cache)."""
+    req: Request
+    done: int  # prompt tokens already in the cache (incl. prefix reuse)
+    reused: int = 0  # prefix-cache tokens among ``done``
+    logits: Any = None  # last chunk's next-token logits [1, V]
+
+
+class ServingEngine:
+    def __init__(self, model: Model, params, *, max_batch: int = 4,
+                 max_seq: int = 256, eos_id: int | None = None,
+                 greedy: bool = True, paged: bool | None = None,
+                 page_size: int = 16, num_pages: int | None = None,
+                 kv_dtype: str = "bf16", kv_budget_bytes: int | None = None,
+                 prefix_caching: bool = True, prefill_chunk: int = 64,
+                 prefill_budget: int | None = None,
+                 bucket_prompts: bool = True, min_bucket: int = 16,
+                 return_logits: bool = False,
+                 draft_config=None, draft_params=None, draft_seed: int = 0,
+                 spec_k: int = 3,
+                 sorted_batch_sizes: "list[int] | None" = None,
+                 max_live_batches: "int | None" = None,
+                 batching_wait_secs: float = 0.0,
+                 clock: "Callable[[], float] | None" = None,
+                 telemetry=None, trace_name: str = "engine",
+                 mesh=None, device=None):
+        """Arguments as in the JAX engine, plus ``device``.
+
+        ``prefill_chunk`` — prompt tokens appended per chunked prefill
+        call; ``prefill_budget`` — prefill tokens spent per tick before the
+        decode step (default ``2 * prefill_chunk``); ``bucket_prompts`` —
+        pad chunks to power-of-two buckets >= ``min_bucket``.
+        ``kv_dtype`` — ``"bf16"`` or ``"int8"`` pages; ``kv_budget_bytes``
+        sizes the pool to a byte budget instead of the worst case.
+        ``return_logits`` — the decode step returns [B, vocab] logits
+        instead of the on-device argmax.  ``clock`` — time source for
+        request timestamps (default ``time.perf_counter``).
+        ``telemetry`` — optional ``telemetry.Telemetry`` recording request
+        lifecycle spans and per-tick counters.  ``device`` — where the
+        cache and the steps run; None means the CUDA card and raises when
+        there is none.  ``params`` must already be on that device.
+        """
+        if paged is False:
+            raise _unported("the dense cache backend (paged=False)",
+                            "item 11")
+        if not model.supports_paged:
+            raise _unported(f"{model.cfg.name}: non-attention cache families",
+                            "item 11")
+        if prefill_chunk <= 0:
+            raise _unported("monolithic prefill (prefill_chunk=0)", "item 4")
+        if draft_config is not None:
+            raise _unported("speculative decoding (draft_config)", "item 8")
+        if mesh is not None:
+            raise _unported("tensor-parallel serving (mesh)", "item 12")
+        if sorted_batch_sizes is not None:
+            raise _unported("admission batching (sorted_batch_sizes)",
+                            "item 5")
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(
+                f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
+        self.device = resolve(device)
+        table = params["embed"]["table"]
+        if table.device.type != self.device.type:
+            raise ValueError(f"params are on {table.device}, the engine on "
+                             f"{self.device}")
+        self.model = model
+        self.params = params
+        self._now = clock if clock is not None else time.perf_counter
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.eos_id = eos_id
+        self.queue: deque[Request] = deque()
+        self.slots: list[Request | None] = [None] * max_batch
+        self.pos = np.zeros(max_batch, np.int64)  # next position per slot
+        self.budget = np.zeros(max_batch, np.int64)
+        self.paged = True
+        self.kv_dtype = kv_dtype
+        self.return_logits = return_logits
+        self.bucketing = bucket_prompts and model.supports_bucketed_prefill
+        self.chunked = True
+        self.prefill_chunk = prefill_chunk
+        self.prefill_budget = (prefill_budget if prefill_budget is not None
+                               else 2 * prefill_chunk)
+        self.min_bucket = min_bucket
+        self.prefill_tasks: list[_PrefillTask | None] = [None] * max_batch
+        # distinct shapes handed to each step: the JAX engine's trace
+        # counters, kept with their keys; eager torch compiles nothing, so
+        # they count shape buckets
+        self._traced: set = set()  # prefill chunk shapes
+        self._step_shapes: set = set()  # decode step shapes
+        self.telemetry = telemetry
+        self.metrics = m = MetricsRegistry()
+        self._c_prefill_computed = m.counter("prefill_tokens_computed")
+        self._c_prefill_padded = m.counter("prefill_tokens_padded")
+        self._c_prefix_reused = m.counter("prefix_tokens_reused")
+        self._c_submitted = m.counter("requests_submitted")
+        self._c_finished = m.counter("requests_finished")
+        self._c_decode_tokens = m.counter("decode_tokens")
+        # batched decode steps run: the kernel launch count of a tick is
+        # n_layers per step, which is how a run proves it used the kernel
+        self._c_decode_steps = m.counter("decode_steps")
+        self._c_trace_events = m.counter("xla_trace_events")
+        self._h_ttft = m.histogram("ttft_s")
+        self._h_itl = m.histogram("itl_s")
+        self._h_e2e = m.histogram("e2e_s")
+        self._h_queue = m.histogram("queue_s")
+        self._h_budget_util = m.histogram("prefill_budget_util")
+        self._c_stream_tokens = m.counter("stream_tokens")
+        self._g_queue_depth = m.gauge("queue_depth")
+        m.view("ticks", lambda: self.ticks)
+        m.view("kv_cache_bytes", self.kv_cache_bytes)
+        m.view("prefill_trace_count", self.prefill_trace_count)
+        tr = telemetry.tracer if telemetry is not None else None
+        self._tr = tr if (tr is not None and tr.enabled) else None
+        self._pid = self._tr.process(trace_name) if self._tr else 0
+        if telemetry is not None:
+            telemetry.register_metrics(trace_name, m)
+        self.page_size = page_size
+        self.max_blocks = ceil_blocks(max_seq, page_size)
+        if num_pages is None:
+            if kv_budget_bytes is not None:
+                num_pages = max(2, 1 + kv_budget_bytes // self.page_bytes())
+            else:  # worst case: admission/decode can never run out
+                num_pages = 1 + max_batch * self.max_blocks
+        self.prefix_caching = prefix_caching
+        self.pool = BlockPool(num_pages, page_size)
+        for key in ("num_pages", "block_size", "pages_in_use",
+                    "pages_cached", "prefix_hits", "prefix_misses",
+                    "evictions", "cow_copies"):
+            m.view(key, lambda k=key: self.pool.stats()[k])
+        abstract = model.abstract_paged_cache(num_pages, page_size,
+                                              kv_dtype=kv_dtype)
+        self.cache = {name: torch.zeros(s.shape, dtype=s.dtype,
+                                        device=self.device)
+                      for name, s in abstract.items()}
+        self.tables = np.full((max_batch, self.max_blocks), -1, np.int32)
+        self.block_tables: list[BlockTable | None] = [None] * max_batch
+        self.ticks = 0
+        self._progress = False
+        self.finished: list[Request] = []
+        self._auto_uid = 1_000_000_000
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def _step(self, batch):
+        """The per-tick decode step: logits, or their argmax computed on
+        the device so one int32 per slot crosses to the host."""
+        self._step_shapes.add(tuple(batch["block_tables"].shape))
+        logits, self.cache = self.model.serve_step_paged(
+            self.params, self.cache, batch)
+        if self.return_logits:
+            return logits
+        return torch.argmax(logits, -1).to(torch.int32)
+
+    def page_bytes(self) -> int:
+        """Bytes one page costs across all layers (K+V values plus int8
+        scale rows) — the ``kv_budget_bytes`` unit."""
+        cfg = self.model.cfg
+        return kv_page_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.hd,
+                             self.page_size, self.kv_dtype)
+
+    def _bucket(self, n: int, *, cap: int | None = None) -> int:
+        if not self.bucketing:
+            return n
+        return bucket_length(n, minimum=self.min_bucket,
+                             maximum=self.max_seq if cap is None else cap)
+
+    def _padded_prompt(self, toks: np.ndarray, n_pad: int) -> torch.Tensor:
+        out = np.zeros(n_pad, np.int64)
+        out[:len(toks)] = np.maximum(toks, 0)
+        return self._to_device(out)[None]
+
+    def _note_trace(self, key: tuple):
+        """Book a prefill shape; first sightings bump
+        ``xla_trace_events``."""
+        if key not in self._traced:
+            self._traced.add(key)
+            self._c_trace_events.inc()
+
+    # ----------------------------------------------------- paged internals
+    def _cow_page(self, table: BlockTable, blk: int):
+        """Make ``table.pages[blk]`` privately writable, copying if shared.
+        Every cache leaf is indexed by page id on axis 1 — int8 scales
+        included — so the copy moves values and scales together."""
+        old = table.pages[blk]
+        new, copied = self.pool.ensure_writable(old)
+        if copied:
+            for leaf in self.cache.values():
+                leaf[:, new] = leaf[:, old]
+            self.pool.release(old)
+            table.pages[blk] = new
+
+    def _total_blocks(self, req: Request) -> int:
+        """Worst-case pages this request can ever hold (prompt + decode)."""
+        horizon = min(len(req.tokens) + req.max_new_tokens, self.max_seq)
+        return ceil_blocks(horizon, self.page_size)
+
+    def _growth_outstanding(self) -> int:
+        """Pages occupied slots may still allocate: decode growth of active
+        requests plus the remaining horizon of mid-prefill slots."""
+        out = sum(self._total_blocks(r) - len(self.block_tables[i].pages)
+                  for i, r in enumerate(self.slots) if r is not None)
+        out += sum(self._total_blocks(t.req)
+                   - len(self.block_tables[i].pages)
+                   for i, t in enumerate(self.prefill_tasks)
+                   if t is not None)
+        return out
+
+    def _reserve_table(self, req: Request) -> "tuple[BlockTable, int] | None":
+        """Admission control + page reservation: returns ``(table,
+        n_reuse)`` with the prefix-hit pages retained and capacity for the
+        whole prompt allocated, or None when the pool cannot cover this
+        request's worst case on top of every occupied slot's growth."""
+        toks = np.asarray(req.tokens, np.int64)
+        T = len(toks)
+        bs = self.page_size
+        hit_pages = self.pool.peek_prefix(toks) if self.prefix_caching \
+            else []
+        # the chunked path keeps every reused token: the JAX engine rounds
+        # the reuse length down (_clip_reuse) only on its monolithic path
+        est = min(len(hit_pages) * bs, T - 1)
+        used = hit_pages[:ceil_blocks(est, bs)] if est else []
+        need = self._total_blocks(req) - len(used)
+        need += sum(1 for p in used if self.pool.ref[p] == 0)
+        if est and est % bs:
+            need += 1  # fully-cached prompt: copy-on-write of the last page
+        if self.pool.num_free() - self._growth_outstanding() < need:
+            return None
+        table = BlockTable(self.pool)
+        n_reuse = 0
+        if self.prefix_caching:
+            table.pages, n_hit = self.pool.lookup_prefix(toks)
+            # a fully-cached prompt still needs its last token recomputed
+            # for the next-token logits -> copy-on-write on the final page
+            n_reuse = min(n_hit, T - 1)
+            keep = ceil_blocks(n_reuse, bs)
+            for p in table.pages[keep:]:
+                self.pool.release(p)
+            table.pages = table.pages[:keep]
+        try:
+            first_blk = n_reuse // bs
+            if n_reuse and first_blk < len(table.pages):
+                self._cow_page(table, first_blk)
+            table.ensure_capacity(T)
+        except OutOfPagesError:  # admission control should prevent this
+            table.free()
+            return None
+        return table, n_reuse
+
+    def _free_slot(self, slot: int):
+        self.slots[slot] = None
+        self.block_tables[slot].free()
+        self.block_tables[slot] = None
+        self.tables[slot] = -1
+        self.pos[slot] = 0
+
+    # ------------------- KV snapshot export / import (disaggregation)
+    def export_kv(self, uid: int) -> KVSnapshot:
+        raise _unported("KV snapshot export (export_kv)", "item 5")
+
+    def evacuate(self, uid: int):
+        raise _unported("KV snapshot export (evacuate)", "item 5")
+
+    # -------------------------------------------------- chunked prefill
+    def _start_prefill(self, slot: int, req: Request) -> bool:
+        """Begin a chunked prefill in ``slot``; False => requeued (the pool
+        cannot cover the request yet)."""
+        reserved = self._reserve_table(req)
+        if reserved is None:
+            self.queue.appendleft(req)
+            return False
+        table, n_reuse = reserved
+        self.block_tables[slot] = table
+        self.tables[slot] = table.as_row(self.max_blocks)
+        self._c_prefix_reused.inc(n_reuse)
+        req.t_admit = self._now()
+        self.prefill_tasks[slot] = _PrefillTask(req, done=n_reuse,
+                                                reused=n_reuse)
+        return True
+
+    def _advance_prefill(self, slot: int) -> int:
+        """Run the next chunk of the slot's in-flight prefill; returns the
+        bucketed chunk length (charged against the tick's budget)."""
+        task = self.prefill_tasks[slot]
+        req = task.req
+        toks = np.asarray(req.tokens, np.int64)
+        T = len(toks)
+        n = min(self.prefill_chunk, T - task.done)
+        Cb = self._bucket(n, cap=self.prefill_chunk)
+        batch = {"tokens": self._padded_prompt(
+                     toks[task.done:task.done + n], Cb),
+                 "pos": task.done, "length": n,
+                 "block_tables": self._to_device(self.tables[slot][None])}
+        self._note_trace(("prefill_chunk", Cb))
+        t0 = self._now() if self._tr is not None else 0.0
+        task.logits, self.cache = self.model.prefill_chunk_paged(
+            self.params, self.cache, batch)
+        if self._tr is not None:
+            self._tr.span("prefill_chunk", "prefill", t0, self._now(),
+                          pid=self._pid, tid=req.uid,
+                          args={"tokens": n, "done": task.done + n,
+                                "total": T})
+        task.done += n
+        self._c_prefill_computed.inc(n)
+        self._c_prefill_padded.inc(Cb - n)
+        if self.prefix_caching:
+            # publish fully-written prompt blocks as they complete, so a
+            # request admitted later this tick already hits them
+            self.pool.register_prefix(
+                toks[:task.done],
+                self.block_tables[slot].pages[
+                    :full_blocks(task.done, self.page_size)])
+        if task.done >= T:  # prompt complete: promote to decoding
+            self.prefill_tasks[slot] = None
+            self._activate(slot, req, int(torch.argmax(task.logits[0])))
+        return Cb
+
+    def _schedule_prefill(self):
+        """Spend this tick's prefill token budget: advance in-flight chunked
+        prefills and admit queued requests into free slots, oldest first."""
+        budget = self.prefill_budget
+        blocked = False  # admission failed this tick: stop admitting
+        while budget > 0:
+            progressed = False
+            # admit at most one request per round, then advance every
+            # in-flight prefill, so a prompt admitted behind a finished one
+            # sees its freshly registered prefix blocks
+            if not blocked and self.queue:
+                free = next((i for i in range(self.max_batch)
+                             if self.slots[i] is None
+                             and self.prefill_tasks[i] is None), None)
+                if free is not None:
+                    req = self.queue.popleft()
+                    if self._start_prefill(free, req):
+                        progressed = True
+                    else:
+                        blocked = True
+            for slot in range(self.max_batch):
+                if budget <= 0:
+                    break
+                if self.prefill_tasks[slot] is None:
+                    continue
+                budget -= self._advance_prefill(slot)
+                progressed = True
+            self._progress |= progressed
+            if not progressed:
+                break
+        spent = self.prefill_budget - budget
+        if spent and self.telemetry is not None:
+            self._h_budget_util.observe(spent / self.prefill_budget)
+
+    def _emit_stream(self, req: Request, tok: int, t: float, final: bool):
+        """Deliver the token just appended to ``req.output``: a
+        ``first_token`` trace instant for the TTFT token and, when the
+        request streams, one ``StreamEvent`` to its callback."""
+        idx = len(req.output) - 1
+        if idx == 0 and self._tr is not None:
+            self._tr.instant("first_token", "lifecycle", t,
+                             pid=self._pid, tid=req.uid)
+        if req.stream is None:
+            return
+        self._c_stream_tokens.inc()
+        req.stream(StreamEvent(uid=req.uid, index=idx, token=tok, t_emit=t,
+                               first=idx == 0, final=final))
+
+    # ------------------------------------------------------------- public
+    def busy(self) -> bool:
+        """Any work left: queued, mid-chunked-prefill, or decoding."""
+        return bool(self.queue or any(s is not None for s in self.slots)
+                    or any(t is not None for t in self.prefill_tasks))
+
+    def make_request(self, creq: ContinuumRequest,
+                     uid: "int | None" = None) -> Request:
+        """Materialize a typed ``ContinuumRequest`` as an internal
+        ``Request`` (uid engine-assigned unless given)."""
+        if uid is None:
+            self._auto_uid += 1
+            uid = self._auto_uid
+        tokens = (None if creq.tokens is None
+                  else np.asarray(creq.tokens, np.int32))
+        return Request(uid, tokens, max_new_tokens=int(creq.max_new_tokens),
+                       extra=creq.extra, segments=creq.segments,
+                       stream=creq.stream if callable(creq.stream) else None)
+
+    def submit(self, req: "Request | ContinuumRequest") -> Request:
+        """Queue a request (internal ``Request`` or ``ContinuumRequest``);
+        returns the queued internal request."""
+        if isinstance(req, ContinuumRequest):
+            req = self.make_request(req)
+        if req.tokens is None:
+            raise ValueError(f"request {req.uid}: no tokens or segments")
+        if req.features is not None:
+            raise _unported("embedding-span (multimodal) prompts", "item 9")
+        if req.imported is not None:
+            raise _unported("admission from an imported KV snapshot",
+                            "item 5")
+        if len(req.tokens) > self.max_seq - 1:
+            raise ValueError(
+                f"request {req.uid}: prompt of {len(req.tokens)} tokens "
+                f"exceeds the engine's capacity — max_seq={self.max_seq} "
+                f"leaves room for at most {self.max_seq - 1} prompt tokens "
+                "plus one generated token; raise max_seq or truncate the "
+                "prompt")
+        if len(req.tokens) < 1:
+            raise ValueError(f"request {req.uid}: empty prompt")
+        if not req.token_times:
+            req.t_submit = self._now()
+        self._c_submitted.inc()
+        if self._tr is not None:
+            self._tr.instant("submit", "lifecycle", req.t_submit,
+                             pid=self._pid, tid=req.uid)
+        self.queue.append(req)
+        return req
+
+    def _finish(self, req: Request):
+        """Request complete: move to ``finished``, fold its latencies into
+        the registry histograms and emit its lifecycle spans."""
+        req.done = True
+        self.finished.append(req)
+        self._c_finished.inc()
+        tt = req.token_times
+        ta = req.t_admit if req.t_admit >= req.t_submit else req.t_submit
+        self._h_queue.observe(ta - req.t_submit)
+        self._h_ttft.observe(tt[0] - req.t_submit)
+        self._h_e2e.observe(tt[-1] - req.t_submit)
+        if len(tt) > 1:
+            self._h_itl.extend(b - a for a, b in zip(tt, tt[1:]))
+        tr = self._tr
+        if tr is not None:
+            pid, tid = self._pid, req.uid
+            tr.span("queue", "lifecycle", req.t_submit, ta, pid=pid, tid=tid)
+            tr.span("prefill", "lifecycle", ta, tt[0], pid=pid, tid=tid,
+                    args={"prompt_tokens": len(req.tokens)})
+            tr.span("decode", "lifecycle", tt[0], tt[-1], pid=pid, tid=tid,
+                    args={"new_tokens": len(req.output)})
+
+    def _activate(self, slot: int, req: Request, first_tok: int):
+        """Install a prefilled request into its decode slot; a request
+        whose first token already ends it finishes immediately."""
+        req.output.append(first_tok)
+        req.token_times.append(self._now())
+        ends = (req.max_new_tokens <= 1
+                or (self.eos_id is not None and first_tok == self.eos_id))
+        self._emit_stream(req, first_tok, req.token_times[-1], ends)
+        if ends:
+            self._finish(req)
+            self.block_tables[slot].free()
+            self.block_tables[slot] = None
+            self.tables[slot] = -1
+            return
+        self.slots[slot] = req
+        self.pos[slot] = len(req.tokens)
+        self.budget[slot] = req.max_new_tokens - 1
+
+    def step(self) -> int:
+        """One engine tick: spend the prefill budget, then one batched
+        decode step for every fully-prefilled slot.  Returns the number of
+        occupied slots; a no-op returning 0 when there is no work."""
+        self._progress = False
+        self._schedule_prefill()
+        self._g_queue_depth.set(len(self.queue))
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        n_prefilling = sum(t is not None for t in self.prefill_tasks)
+        if self._tr is not None and (active or n_prefilling or self.queue):
+            self._sample_tick(len(active), n_prefilling)
+        if not active:
+            if n_prefilling:
+                self.ticks += 1
+            return n_prefilling
+        tokens = np.zeros(self.max_batch, np.int64)
+        # slots without a decodable request (free, or still prefilling)
+        # get a null block table and position 0, so their write lands on
+        # the null page and their attention row is never read
+        pos = np.zeros(self.max_batch, np.int32)
+        for i in active:
+            tokens[i] = self.slots[i].output[-1]
+            pos[i] = self.pos[i]
+            bt = self.block_tables[i]  # grow tables across page boundaries
+            if self.pos[i] >= bt.num_tokens_capacity():
+                bt.ensure_capacity(self.pos[i] + 1)
+                self.tables[i] = bt.as_row(self.max_blocks)
+        tables = np.full_like(self.tables, -1)
+        for i in active:
+            tables[i] = self.tables[i]
+        batch = {"tokens": self._to_device(tokens),
+                 "pos": self._to_device(pos),
+                 "block_tables": self._to_device(tables)}
+        t0 = self._now() if self._tr is not None else 0.0
+        out = self._step(batch)
+        nxt = (torch.argmax(out, -1) if self.return_logits else out).cpu()
+        nxt = nxt.numpy()
+        self.ticks += 1
+        self._c_decode_steps.inc()
+        self._c_decode_tokens.inc(len(active))
+        t_now = self._now()
+        if self._tr is not None:
+            self._tr.span("decode_tick", "engine", t0, t_now, pid=self._pid,
+                          args={"active": len(active)})
+        for i in active:
+            req = self.slots[i]
+            tok = int(nxt[i])
+            req.output.append(tok)
+            req.token_times.append(t_now)
+            self.pos[i] += 1
+            self.budget[i] -= 1
+            ends = bool(self.budget[i] <= 0 or tok == self.eos_id
+                        or self.pos[i] >= self.max_seq - 1)
+            self._emit_stream(req, tok, t_now, ends)
+            if ends:
+                self._finish(req)
+                self._free_slot(i)  # free slot/pages (continuous batching)
+        return len(active) + n_prefilling
+
+    def _sample_tick(self, n_active: int, n_prefilling: int):
+        """Per-tick occupancy counter samples (tracing enabled only)."""
+        tr, now = self._tr, self._now()
+        tr.counter("batch_occupancy", now,
+                   {"decoding": n_active, "prefilling": n_prefilling},
+                   pid=self._pid)
+        tr.counter("queue_depth", now, {"queued": len(self.queue)},
+                   pid=self._pid)
+        tr.counter("kv_pages", now,
+                   {"in_use": self.pool.pages_in_use(),
+                    "cached": len(self.pool.lru)}, pid=self._pid)
+
+    def run_until_drained(self, max_ticks: int = 10_000,
+                          keep_finished: bool = False):
+        """Step until queue, prefill tasks and slots are all empty; returns
+        the finished requests (``keep_finished=True`` also leaves them on
+        ``self.finished``).  ``max_ticks`` bounds the ticks of this call."""
+        drain_deadline = self.ticks + max_ticks
+        while self.busy():
+            if self.step() == 0 and self.queue and not self._progress:
+                # nothing active yet admission failed: the head request can
+                # never fit (its worst case exceeds the whole pool)
+                head = self.queue[0]
+                raise OutOfPagesError(
+                    f"request {head.uid} needs {self._total_blocks(head)} "
+                    f"pages but the pool only has {self.pool.num_pages - 1}")
+            if self.ticks > drain_deadline:
+                raise RuntimeError("engine did not drain")
+        if keep_finished:
+            return list(self.finished)
+        out, self.finished = self.finished, []
+        return out
+
+    def reset_prefix_cache(self):
+        """Drop every parked prefix block: the next admission sees a cold
+        cache.  Pages are only read through block tables, so the stale
+        device tensors need no zeroing.  Requires an idle engine."""
+        if self.busy():
+            raise RuntimeError("reset_prefix_cache needs an idle engine")
+        self.pool = BlockPool(self.pool.num_pages, self.page_size)
+
+    # -------------------------------------------------------------- stats
+    @property
+    def prefill_tokens_computed(self) -> int:
+        return self._c_prefill_computed.value
+
+    @property
+    def prefill_tokens_padded(self) -> int:
+        return self._c_prefill_padded.value
+
+    @property
+    def prefix_tokens_reused(self) -> int:
+        return self._c_prefix_reused.value
+
+    def kv_cache_bytes(self) -> int:
+        """Current KV-cache footprint (allocated device tensors)."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
+
+    def prefill_trace_count(self) -> int:
+        """Distinct prefill shapes handed to the model so far (bounded by
+        the bucket count)."""
+        return len(self._traced)
+
+    def jit_cache_sizes(self) -> dict:
+        """Distinct input shapes per step function, under the JAX
+        engine's keys."""
+        sizes = {"_prefill_chunk": len(self._traced),
+                 "_step": len(self._step_shapes)}
+        return {name: n for name, n in sizes.items() if n}
+
+    def latency_stats(self) -> dict:
+        """TTFT / inter-token / end-to-end latency percentiles (seconds,
+        on the engine clock)."""
+        return latency_summary(self._h_ttft.values, self._h_itl.values,
+                               self._h_e2e.values)
+
+    def stats(self) -> dict:
+        """Static configuration, a metrics-registry snapshot and the
+        latency percentiles under ``"latency"``."""
+        out = {"paged": self.paged, "kv_dtype": self.kv_dtype,
+               "bucketed": self.bucketing, "chunked": self.chunked,
+               "speculative": False, "spec_k": 0, "acceptance_rate": None}
+        out.update(self.metrics.snapshot())
+        out["latency"] = self.latency_stats()
+        return out

@@ -1,0 +1,184 @@
+"""Port serving engine against the JAX package's: the same fp32 weights and
+the same request streams give identical ``Request.output`` and identical
+page-bookkeeping stats, with bf16 and int8 pools.  int8 runs are held to
+the JAX int8 engine, never to a bf16 one.  Also: unported knobs raise
+``NotImplementedError``, the port imports neither JAX nor the JAX package,
+and an engine with no device named needs a CUDA card."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jget_config
+    from repro.configs import reduced as jreduced
+    from repro.models import build_model as jbuild
+    from repro.serving.engine import Request as JRequest
+    from repro.serving.engine import ServingEngine as JEngine
+except ImportError:  # JAX (the reference) is not installed
+    jax = None
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.models.api import build_model
+from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.weights import from_jax_params
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+STATS = ("prefix_hits", "prefix_tokens_reused", "prefill_tokens_computed",
+         "prefill_tokens_padded", "cow_copies", "pages_in_use")
+
+
+@pytest.fixture
+def need_jax():
+    """JAX, with the reference computed on the CPU on any host: JAX on a
+    GPU computes fp32 products at a lower default precision than these
+    tolerances allow for."""
+    if jax is None:
+        pytest.skip("JAX (the reference package) is not installed here")
+    with jax.default_device(jax.devices("cpu")[0]):
+        yield
+
+
+def _mixed(vocab):
+    """The mixed-length stream of test_kv_cache.py:188-206."""
+    rng = np.random.default_rng(3)
+    return [rng.integers(0, vocab, n).astype(np.int32)
+            for n in (6, 21, 33, 9, 16)], 5, {}
+
+
+def _shared_prefix(vocab):
+    """The shared-prefix stream of test_kv_cache.py:209-230."""
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, vocab, 24).astype(np.int32)
+    return [np.concatenate([shared,
+                            rng.integers(0, vocab, 4).astype(np.int32)])
+            for _ in range(4)], 4, {}
+
+
+def _small_chunks(vocab):
+    """Several chunks per prompt under a one-chunk-per-tick budget."""
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, vocab, n).astype(np.int32)
+            for n in (40, 7, 23, 50)], 6, dict(prefill_chunk=16,
+                                               prefill_budget=16)
+
+
+def _run(engine_cls, request_cls, model, params, prompts, new, **kw):
+    eng = engine_cls(model, params, max_batch=2, max_seq=64, paged=True,
+                     page_size=8, **kw)
+    reqs = [request_cls(i, p, max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    return eng, [tuple(r.output) for r in reqs]
+
+
+@pytest.mark.parametrize("workload", [_mixed, _shared_prefix, _small_chunks])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma3-1b"])
+def test_engine_matches_jax(need_jax, arch, kv_dtype, workload):
+    cfg = jreduced(jget_config(arch), act_dtype="float32")
+    jmodel = jbuild(cfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0), param_dtype=jnp.float32)
+    model = build_model(reduced(get_config(arch), act_dtype="float32"))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams),
+                             device="cpu")
+    prompts, new, kw = workload(cfg.vocab)
+    jeng, want = _run(JEngine, JRequest, jmodel, jparams, prompts, new,
+                      kv_dtype=kv_dtype, **kw)
+    eng, got = _run(ServingEngine, Request, model, params, prompts, new,
+                    kv_dtype=kv_dtype, device="cpu", **kw)
+    assert got == want
+    assert all(len(o) == new for o in got)
+    js, ts = jeng.stats(), eng.stats()
+    assert {k: ts[k] for k in STATS} == {k: js[k] for k in STATS}
+    if workload is _shared_prefix:
+        assert ts["prefix_hits"] > 0 and ts["prefix_tokens_reused"] >= 3 * 24
+
+
+def _reduced_engine(**kw):
+    model = build_model(reduced(get_config("qwen2-0.5b"),
+                                act_dtype="float32"))
+    params = model.init(0, param_dtype=torch.float32, device="cpu")
+    return ServingEngine(model, params, max_batch=2, max_seq=64,
+                         page_size=8, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(paged=False), dict(prefill_chunk=0), dict(draft_config=object()),
+    dict(mesh=object()), dict(sorted_batch_sizes=[1, 2])])
+def test_unported_knobs_raise(knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _reduced_engine(**knob)
+
+
+def test_unported_requests_raise():
+    from repro_torch.serving.segments import EmbedSegment, TextSegment
+    eng = _reduced_engine()
+    media = Request(0, segments=[EmbedSegment(np.zeros((3, 64),
+                                                       np.float32)),
+                                 TextSegment(np.arange(4))])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.submit(media)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.export_kv(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.evacuate(0)
+
+
+def test_engine_counts_decode_steps_and_streams():
+    eng = _reduced_engine()
+    events = []
+    reqs = [Request(i, np.arange(5 + 7 * i) % 97, max_new_tokens=4,
+                    stream=events.append) for i in range(3)]
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_drained()
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    st = eng.stats()
+    assert st["decode_tokens"] == 3 * 3 and st["decode_steps"] >= 3
+    assert st["requests_finished"] == 3 and len(events) == 12
+    sizes = eng.jit_cache_sizes()  # distinct shapes per step function
+    assert sizes["_step"] == 1
+    assert st["prefill_trace_count"] == sizes["_prefill_chunk"] >= 1
+    assert eng.latency_stats()["n_requests"] == 3
+    assert not eng.busy()
+    eng.reset_prefix_cache()
+    assert eng.pool.pages_in_use() == 0
+
+
+def test_engine_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    params = model.init(0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(0)
+    with pytest.raises(ValueError, match="params are on"):
+        ServingEngine(model, params, device="meta")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
