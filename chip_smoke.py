@@ -7,32 +7,46 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
   1. device: the card's name and ``nvidia-smi`` name and power limit;
-  2. build: compiles ``kernels/csrc/paged_decode.cu`` for sm_90a (seconds,
+  2. build: compiles ``kernels/csrc/paged_decode.cu`` and
+     ``paged_verify.cu`` for sm_90a, both nvcc runs at once (seconds,
      registers, shared memory, spills);
-  3. the paged decode kernel against its plain PyTorch version on the
-     card, bf16 and int8 pools, bf16 and fp32 queries, at qwen2-0.5b,
-     gemma3-1b and llama3.2-3b head layouts;
+  3. each kernel against its plain PyTorch version on the card, bf16 and
+     int8 pools, bf16 and fp32 queries: paged decode at qwen2-0.5b,
+     gemma3-1b and llama3.2-3b head layouts; paged verify at the CPU
+     tests' cases and at those layouts for T = 4 and T = 64;
   4. kernel, plain version and ``scaled_dot_product_attention`` times at
-     the main path's shapes, beside the least time the card could take,
-     and the kernel held to its plain version at those shapes;
+     the main path's shapes (decode: B 8; verify: the speculative B 8,
+     T 4 and the prefill chunk B 1, T 64), beside the least time the card
+     could take, and the kernel held to its plain version there;
   5. the main path: qwen2-0.5b at full width and depth (random seeded
      bf16 weights) serves 12 requests through ``ServingEngine`` with a
-     bf16 and an int8 pool; the kernel launch counts must equal
-     n_layers x decode steps;
-  6. a window of PROFILE_STEPS engine steps of the bf16 main path, run
+     bf16 and an int8 pool; decode launches must equal n_layers x decode
+     steps, verify launches (chunked-prefill attention) n_layers x
+     prefill chunks;
+  6. speculation: the same 12 requests with ``spec_k=3``, a bf16 pool
+     drafted by the target's own weights and an int8 pool drafted by a
+     4-layer cut of the target; verify launches must equal n_layers x
+     (verify passes + prefill chunks), the self-draft must accept half its
+     drafts or more;
+  7. a window of PROFILE_STEPS engine steps of the bf16 main path, run
      once plainly and once under ``torch.profiler`` with the engine's trace
      spans: device busy share, engine-span totals, top kernels by device
      time;
-  7. reduced qwen2-0.5b and gemma3-1b in fp32: the engine on the CPU
-     (plain versions) and on the card (kernel) give identical tokens;
-  8. one JSON line for the kernels, then the result line.
+  8. reduced qwen2-0.5b and gemma3-1b in fp32: the engine on the CPU
+     (plain versions) and on the card (kernels) give identical tokens,
+     speculative engines included, and speculation on the card gives the
+     tokens of plain decode;
+  9. one JSON line for the kernels, then the result line.
 
 Needs a CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
 ``src`` directory beside this file.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -47,8 +61,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import paged_verify  # noqa: E402
 from repro_torch.kernels.paged_decode import (  # noqa: E402
     paged_decode_quant_ref, paged_decode_ref, smem_bytes)
+from repro_torch.kernels.paged_verify import (  # noqa: E402
+    paged_verify_quant_ref, paged_verify_ref)
 from repro_torch.kernels.quant import quantize_kv  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -74,14 +91,30 @@ EXACT_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7),
 #    keeps them in fp32) and test_kv_quant.py:85 (int8: both dequantize to
 #    the same fp32 values).  max_abs_err in the kernels line is this error.
 TOL = {"paged_decode": dict(atol=5e-2, rtol=5e-2),
-       "paged_decode_quant": dict(atol=5e-3, rtol=5e-3)}
-SOURCE = "src/repro_torch/kernels/csrc/paged_decode.cu"
+       "paged_decode_quant": dict(atol=5e-3, rtol=5e-3),
+       "paged_verify": dict(atol=5e-2, rtol=5e-2),
+       "paged_verify_quant": dict(atol=5e-3, rtol=5e-3)}
+SOURCES = {"paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
+           "paged_verify": "src/repro_torch/kernels/csrc/paged_verify.cu"}
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:92",
-            "paged_decode_quant": "src/repro/kernels/paged_decode.py:137"}
+            "paged_decode_quant": "src/repro/kernels/paged_decode.py:137",
+            "paged_verify": "src/repro/kernels/paged_verify.py:95",
+            "paged_verify_quant": "src/repro/kernels/paged_verify.py:147"}
 WRAPPERS = {"paged_decode": ops.paged_decode,
-            "paged_decode_quant": ops.paged_decode_quant}
+            "paged_decode_quant": ops.paged_decode_quant,
+            "paged_verify": ops.paged_verify,
+            "paged_verify_quant": ops.paged_verify_quant}
 PLAINS = {"paged_decode": paged_decode_ref,
-          "paged_decode_quant": paged_decode_quant_ref}
+          "paged_decode_quant": paged_decode_quant_ref,
+          "paged_verify": paged_verify_ref,
+          "paged_verify_quant": paged_verify_quant_ref}
+# the pool whose main-path run each kernel serves
+POOL = {"paged_decode": "bf16", "paged_decode_quant": "int8",
+        "paged_verify": "bf16", "paged_verify_quant": "int8"}
+SPEC_K = 3
+# the model layouts the kernels are held at: (arch, H, Hkv, D, window)
+WIDTHS = [("qwen2-0.5b", 14, 2, 64, 0), ("gemma3-1b", 4, 1, 256, 512),
+          ("llama3.2-3b", 24, 8, 128, 0)]
 # the profiled window of the main path: engine steps SKIP .. SKIP + STEPS
 PROFILE_SKIP, PROFILE_STEPS = 30, 10
 
@@ -106,13 +139,17 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def paged_case(rng, B, H, Hkv, D, bs, NB, ctx, *, layers=1, inactive=()):
+def paged_case(rng, B, H, Hkv, D, bs, NB, ctx, *, T=0, layers=1,
+               inactive=()):
     """Random pools [layers, P, bs, Hkv, D] (fp32, on the card), a block
-    table with -1 tails covering each slot's context, positions ctx - 1;
-    slots in ``inactive`` get an all -1 row and position 0."""
+    table with -1 tails covering each slot's context, and q [B, H, D] at
+    positions ctx - 1 or, with T, q [B, T, H, D] whose first token sits
+    at ctx - T (the last one at ctx - 1); slots in ``inactive`` get an all
+    -1 row and position 0."""
     P = 1 + B * NB
     dev = torch.device("cuda")
-    q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    shape = (B, T, H, D) if T else (B, H, D)
+    q = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
     k = torch.randn(layers, P, bs, Hkv, D, device=dev)
     v = torch.randn(layers, P, bs, Hkv, D, device=dev)
     bt = np.full((B, NB), -1, np.int32)
@@ -124,7 +161,7 @@ def paged_case(rng, B, H, Hkv, D, bs, NB, ctx, *, layers=1, inactive=()):
         nb = -(-int(n) // bs)
         bt[b, :nb] = perm[used:used + nb]
         used += nb
-    pos = np.asarray([0 if b in inactive else n - 1
+    pos = np.asarray([0 if b in inactive else n - max(T, 1)
                       for b, n in enumerate(ctx)], np.int32)
     return (q.to(dev), k, v, torch.from_numpy(bt).to(dev),
             torch.from_numpy(pos).to(dev))
@@ -135,9 +172,10 @@ def within(a, w, tol) -> bool:
 
 
 def hold(name, out, args, window, rows, where) -> tuple:
-    """Holds one kernel output (rows ``rows``) to its plain version both
-    ways (see EXACT_TOL, TOL); returns the largest error against the fp32
-    plain version and in the working type (0.0 for an fp32 query)."""
+    """Holds one kernel output (rows ``rows``: slots, or a [B, T] mask) to
+    its plain version both ways (see EXACT_TOL, TOL); returns the largest
+    error against the fp32 plain version and in the working type (0.0 for
+    an fp32 query)."""
     q = args[0]
     check(out.dtype == q.dtype and out.shape == q.shape,
           f"{name} {where}: output {out.dtype} {tuple(out.shape)}")
@@ -188,26 +226,32 @@ def phase_device() -> str:
 
 
 def phase_build():
-    info = build.build("paged_decode")
-    build.load("paged_decode")
-    print(f"[build] paged_decode.cu -> sm_90a in {info['seconds']:.2f} s"
-          f"{'' if info['built'] else ' (already built)'}")
-    for line in info["ptxas"].splitlines():
-        if "Used" in line or "spill" in line or "smem" in line:
-            print("[build]   " + line.strip())
-    for arch, G, D in (("qwen2-0.5b", 7, 64), ("gemma3-1b", 4, 256),
-                       ("llama3.2-3b", 3, 128)):
+    """Both sources at once, one nvcc each."""
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        infos = dict(zip(SOURCES, pool.map(build.build, SOURCES)))
+    for name, info in infos.items():
+        build.load(name)
+        print(f"[build] {name}.cu -> sm_90a in {info['seconds']:.2f} s"
+              f"{'' if info['built'] else ' (already built)'}")
+        for line in info["ptxas"].splitlines():
+            if "Used" in line or "spill" in line or "smem" in line:
+                print("[build]   " + line.strip())
+    rows = paged_verify.tile_rows()
+    for arch, H, Hkv, D, _ in WIDTHS:
+        G = H // Hkv
         print(f"[build]   dynamic shared memory per CTA, {arch} (G={G}, "
-              f"D={D}, page 16): {smem_bytes(G, D, 16)} bytes")
+              f"D={D}, page 16): decode {smem_bytes(G, D, 16)} bytes; "
+              f"verify {paged_verify.smem_bytes(D, 16)} bytes at T = 4 and "
+              f"at T = 64 alike ({rows} query rows per CTA: "
+              f"{-(-4 * G // rows) * Hkv * 8} CTAs at B 8, T 4; "
+              f"{-(-64 * G // rows) * Hkv} CTAs at B 1, T 64)")
 
 
 def phase_compare(rng) -> dict:
     """Kernel vs plain version; returns the largest error per kernel."""
-    widths = [("qwen2-0.5b", 14, 2, 64, 0), ("gemma3-1b", 4, 1, 256, 512),
-              ("llama3.2-3b", 24, 8, 128, 0)]
-    worst = {"paged_decode": 0.0, "paged_decode_quant": 0.0}
+    worst = {name: 0.0 for name in WRAPPERS}
     bs, NB = 16, 128  # contexts up to 2048
-    for arch, H, Hkv, D, window in widths:
+    for arch, H, Hkv, D, window in WIDTHS:
         for B in (1, 8):
             ctx = rng.integers(1, NB * bs + 1, B)
             ctx[0] = NB * bs
@@ -232,83 +276,157 @@ def phase_compare(rng) -> dict:
                   f"B={B}: bf16 and int8 pool, bf16 and fp32 q agree with "
                   f"the plain version; max |err| vs fp32 plain: "
                   + ", ".join(errs))
+    # verify: the CPU tests' cases (tests/test_torch_speculative.py CASES:
+    # B, last context, H, Hkv, D, page, T, window), then the three model
+    # layouts at the speculative T = 4 (B 8) and a 64-token chunk (B 2)
+    cases = [(2, 96, 8, 2, 64, 16, 4, 0), (1, 64, 4, 4, 32, 8, 3, 24),
+             (2, 72, 8, 1, 64, 8, 5, 0), (2, 128, 14, 2, 64, 16, 4, 0),
+             (1, 160, 14, 2, 64, 16, 64, 0), (2, 96, 4, 1, 256, 16, 6, 40)]
+    for arch, H, Hkv, D, window in WIDTHS:
+        cases += [(8, 2048, H, Hkv, D, 16, 4, window),
+                  (2, 1024, H, Hkv, D, 16, 64, window)]
+    for B, S, H, Hkv, D, bs, T, window in cases:
+        NB = S // bs
+        ctx = rng.integers(T, S + 1, B)
+        ctx[0] = S
+        inactive = (B - 1,) if B > 1 else ()
+        q, k, v, bt, pos = paged_case(rng, B, H, Hkv, D, bs, NB, ctx, T=T,
+                                      inactive=inactive)
+        rows = torch.ones(B, T, dtype=torch.bool, device=q.device)
+        rows[list(inactive)] = False
+        kb, vb = k.bfloat16(), v.bfloat16()
+        k8, v8, ks, vs = (t[0] for t in quantized(kb, vb))
+        kb, vb = kb[0], vb[0]
+        errs = []
+        for qd in (q.bfloat16(), q):
+            runs = {"paged_verify": (qd, kb, vb, bt, pos),
+                    "paged_verify_quant": (qd, k8, v8, ks, vs, bt, pos)}
+            for name, args in runs.items():
+                out = WRAPPERS[name](*args, window=window)
+                err32, err = hold(name, out, args, window, rows,
+                                  f"B={B} T={T} H={H} D={D} q {qd.dtype}")
+                check(not out.float()[~rows].any(),
+                      f"{name}: rows with no key are not zero")
+                worst[name] = max(worst[name], err)
+                errs.append(f"{name} q {str(qd.dtype)[6:]} {err32:.3g}")
+        print(f"[compare] verify B={B} T={T} H={H} Hkv={Hkv} D={D} page "
+              f"{bs} window={window}, contexts up to {S}: bf16 and int8 "
+              f"pool, bf16 and fp32 q agree with the plain version; max "
+              f"|err| vs fp32 plain: " + ", ".join(errs))
     return worst
 
 
-def phase_timing(rng, smi: str) -> dict:
-    """Times at the main path's shapes: qwen2-0.5b heads, B=8, page 16,
-    max_seq 1024 tables, mixed contexts; one pool per layer (24, as the
-    model has) so consecutive calls read memory the way the decode step
-    does instead of a pool that stays in the 50 MB L2."""
-    L, B, H, Hkv, D, bs, NB = 24, 8, 14, 2, 64, 16, 64
-    ctx = np.asarray([60, 150, 290, 400, 520, 640, 760, 1000])
-    q, k, v, bt, pos = paged_case(rng, B, H, Hkv, D, bs, NB, ctx, layers=L)
-    q = q.bfloat16()
-    kb, vb = k.bfloat16(), v.bfloat16()
-    k8, v8, ks, vs = quantized(kb, vb)
-    del k, v
-    keys = int(ctx.sum())
+def _gathered(pool, bt, S):
+    """[L, P, bs, Hkv, D] pool -> [L, B, Hkv, S, D] contiguous through the
+    block table (the library yardstick's input; never timed)."""
+    B = bt.shape[0]
+    idx = bt.long().clamp(min=0)
+    L, _, _, Hkv, D = pool.shape
+    return torch.stack([pool[l][idx].reshape(B, S, Hkv, D)
+                        .transpose(1, 2).contiguous() for l in range(L)])
+
+
+def _time_kernel(name, label, q, pools, bt, pos, mask, keys, row_keys,
+                 smi) -> dict:
+    """Kernel, plain version and one SDPA call on the pre-gathered cache
+    (int8: dequantized to bf16 first; gather and dequantization not
+    timed), with ``mask`` [B, 1, rows, S] the keys each query row sees;
+    one pool per layer so consecutive calls read HBM as the model does.
+    ``keys`` distinct keys read per kv head and ``row_keys`` (query row,
+    key) pairs per query head: the bound is the larger of the bytes
+    (each K/V row once, q in, out, tables, positions) over the HBM rate
+    and the q.k plus p.v multiply-adds over the peak rate."""
+    L = pools[0].shape[0]
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    Hkv = pools[0].shape[3]
+    wrapper, ref = WRAPPERS[name], PLAINS[name]
+    kv_bytes = 2 * keys * Hkv * D * pools[0].element_size()
+    if len(pools) == 4:
+        kv_bytes += 2 * keys * Hkv * 4  # fp32 row scales
+        kg = _gathered(pools[0].float() * pools[2][..., None],
+                       bt, mask.shape[-1]).bfloat16()
+        vg = _gathered(pools[1].float() * pools[3][..., None],
+                       bt, mask.shape[-1]).bfloat16()
+    else:
+        kg = _gathered(pools[0], bt, mask.shape[-1])
+        vg = _gathered(pools[1], bt, mask.shape[-1])
     io_bytes = 2 * q.numel() * q.element_size() + bt.numel() * 4 + B * 4
-    ops_count = 4 * H * D * keys  # q.k and p.v multiply-adds
-    # the library yardstick reads the cache already gathered contiguous
-    # [B, Hkv, S, D] (the gather is not timed), with a key mask
-    S = NB * bs
-    mask = (torch.arange(S, device=q.device)[None, :]
-            < torch.from_numpy(ctx).to(q.device)[:, None])[:, None, None]
+    ops_count = 4 * H * D * row_keys
+    layer = [tuple(p[l] for p in pools) for l in range(L)]
 
-    def gathered(pool):
-        idx = bt.long().clamp(min=0)
-        return torch.stack([pool[l][idx].reshape(B, S, Hkv, D)
-                            .transpose(1, 2).contiguous() for l in range(L)])
+    def kernel(i=0):
+        wrapper(q, *layer[i % L], bt, pos)
 
+    def plain(i=0):
+        ref(q, *layer[i % L], bt, pos)
+
+    # [B, H, rows, D]: decode has one row, verify T
+    qs = (q[:, :, None] if q.dim() == 3 else q.transpose(1, 2)).contiguous()
+
+    def library(i=0):
+        F.scaled_dot_product_attention(qs, kg[i % L], vg[i % L],
+                                       attn_mask=mask, enable_gqa=True)
+
+    err32, err = hold(name, wrapper(q, *layer[0], bt, pos),
+                      (q,) + layer[0] + (bt, pos), 0, slice(None),
+                      f"{label} shapes")
+    bytes_s = (kv_bytes + io_bytes) / HBM_BYTES_PER_S
+    ops_s = ops_count / PEAK_OPS_PER_S[pools[0].dtype]
+    row = {"ms": cuda_ms(kernel, 240), "plain_ms": cuda_ms(plain, 48),
+           "library_ms": cuda_ms(library, 240),
+           "bound_ms": max(bytes_s, ops_s) * 1e3,
+           "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+           "main_shapes_max_abs_err": err}
+    print(f"[timing] {name} at the {label} shapes: max |err| {err:.3g} vs "
+          f"the plain version, {err32:.3g} vs the fp32 plain version")
+    print(f"[timing] {name} ({label}): kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, sdpa on the gathered cache "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}; {kv_bytes + io_bytes} bytes, {ops_count} "
+          f"operations), {row['bound_ms'] / row['ms']:.2%} of bound ({smi})")
+    return row
+
+
+def phase_timing(rng, smi: str) -> dict:
+    """Times at the main path's shapes, qwen2-0.5b heads (14/2, D 64),
+    page 16, 24 pools: the decode kernels at B 8 over the mixed contexts
+    below (max_seq 1024 tables); the verify kernels at the speculative
+    shape (B 8, T 4, the same contexts: 3820 keys) and at a prefill chunk
+    (B 1, T 64, the chunk's last query at key 700).  Returns the
+    kernels-line numbers: decode at its shape, verify at the speculative
+    one (the chunk's are printed)."""
+    L, H, Hkv, D, bs = 24, 14, 2, 64, 16
     out = {}
-    for name, pools in (("paged_decode", (kb, vb)),
-                        ("paged_decode_quant", (k8, v8, ks, vs))):
-        wrapper = WRAPPERS[name]
-        ref = (paged_decode_ref if name == "paged_decode"
-               else paged_decode_quant_ref)
-        elem = pools[0].element_size()
-        kv_bytes = 2 * keys * Hkv * D * elem
-        if name == "paged_decode_quant":
-            kv_bytes += 2 * keys * Hkv * 4  # fp32 row scales
-            kg = gathered(pools[0].float() * pools[2][..., None]).bfloat16()
-            vg = gathered(pools[1].float() * pools[3][..., None]).bfloat16()
-        else:
-            kg, vg = gathered(pools[0]), gathered(pools[1])
-        layer = [tuple(p[l] for p in pools) for l in range(L)]
-
-        def kernel(i=0):
-            wrapper(q, *layer[i % L], bt, pos)
-
-        def plain(i=0):
-            ref(q, *layer[i % L], bt, pos)
-
-        qs = q[:, :, None, :]
-
-        def library(i=0):
-            F.scaled_dot_product_attention(qs, kg[i % L], vg[i % L],
-                                           attn_mask=mask, enable_gqa=True)
-
-        err32, err = hold(name, wrapper(q, *layer[0], bt, pos),
-                          (q,) + layer[0] + (bt, pos), 0, slice(None),
-                          "main-path shapes")
-        bytes_s = (kv_bytes + io_bytes) / HBM_BYTES_PER_S
-        ops_s = ops_count / PEAK_OPS_PER_S[pools[0].dtype]
-        row = {"ms": cuda_ms(kernel, 240), "plain_ms": cuda_ms(plain, 48),
-               "library_ms": cuda_ms(library, 240),
-               "bound_ms": max(bytes_s, ops_s) * 1e3,
-               "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-               "main_shapes_max_abs_err": err}
-        print(f"[timing] {name} at these shapes: max |err| {err:.3g} vs the "
-              f"plain version, {err32:.3g} vs the fp32 plain version")
-        print(f"[timing] {name}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, sdpa on the gathered cache "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-              f"({row['bound_by']}; {kv_bytes + io_bytes} bytes), "
-              f"{row['bound_ms'] / row['ms']:.2%} of bound; B={B} "
-              f"contexts {ctx.tolist()} ({smi})")
-        out[name] = row
-        del kg, vg
+    for shape, B, T, NB, ctx in (
+            ("decode", 8, 0, 64,
+             np.asarray([60, 150, 290, 400, 520, 640, 760, 1000])),
+            ("speculative", 8, SPEC_K + 1, 64,
+             np.asarray([60, 150, 290, 400, 520, 640, 760, 1000])),
+            ("chunk", 1, 64, 64, np.asarray([700]))):
+        q, k, v, bt, pos = paged_case(rng, B, H, Hkv, D, bs, NB, ctx, T=T,
+                                      layers=L)
+        q = q.bfloat16()
+        kb, vb = k.bfloat16(), v.bfloat16()
+        del k, v
+        k8, v8, ks, vs = quantized(kb, vb)
+        S = NB * bs
+        rows = max(T, 1)
+        # query row t of slot b sees keys <= pos + t
+        qpos = pos[:, None].long() + torch.arange(rows, device=q.device)
+        mask = (torch.arange(S, device=q.device)[None, None, None, :]
+                <= qpos[:, None, :, None])
+        keys = int(ctx.sum())
+        row_keys = int((qpos + 1).sum())
+        kind = "decode" if shape == "decode" else "verify"
+        for name, pools in ((f"paged_{kind}", (kb, vb)),
+                            (f"paged_{kind}_quant", (k8, v8, ks, vs))):
+            label = f"{shape} (B={B}{f', T={T}' if T else ''}, contexts " \
+                    f"{ctx.tolist()})"
+            row = _time_kernel(name, label, q, pools, bt, pos, mask, keys,
+                               row_keys, smi)
+            if shape != "chunk":
+                out[name] = row
+        del kb, vb, k8, v8
     return out
 
 
@@ -326,14 +444,15 @@ def _prompts(rng, vocab):
     return prompts
 
 
-def _warm_engine(model, params, kv_dtype, telemetry=None):
+def _warm_engine(model, params, kv_dtype, telemetry=None, **kw):
     """An engine for the main path whose first cuBLAS calls and caches are
     already warm (one short request, then metrics and prefix cache reset),
-    and the 12 requests it is to serve."""
+    and the 12 requests it is to serve; ``kw`` reaches the engine (the
+    speculation knobs)."""
     vocab = model.cfg.vocab
     eng = ServingEngine(model, params, max_batch=8, page_size=16,
                         max_seq=1024, kv_dtype=kv_dtype, device="cuda",
-                        telemetry=telemetry)
+                        telemetry=telemetry, **kw)
     eng.submit(Request(-1, np.arange(40) % vocab, max_new_tokens=4))
     eng.run_until_drained()
     eng.metrics.reset()
@@ -345,13 +464,37 @@ def _warm_engine(model, params, kv_dtype, telemetry=None):
     return eng, reqs
 
 
-def _drain(eng, reqs) -> float:
+def _drive(eng, reqs) -> "tuple[float, dict, dict]":
+    """Serve ``reqs`` with every launch count set to 0 just before; returns
+    the wall time, the counts read just after, and the engine's stats.
+    Every request must get its full budget of in-vocabulary tokens."""
+    torch.cuda.reset_peak_memory_stats()
+    for w in WRAPPERS.values():
+        w.launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     eng.run_until_drained()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in WRAPPERS.items()}
+    vocab = eng.model.cfg.vocab
+    for r in reqs:
+        check(r.done and len(r.output) == 32,
+              f"request {r.uid}: {len(r.output)} tokens, done={r.done}")
+        check(all(0 <= t < vocab for t in r.output),
+              f"request {r.uid}: token id out of range")
+    return wall, counts, eng.stats()
+
+
+def _latency_line(st, wall) -> str:
+    lat = st["latency"]
+    return (f"TTFT p50 {lat['ttft_p50_s'] * 1e3:.1f} ms p95 "
+            f"{lat['ttft_p95_s'] * 1e3:.1f} ms; e2e p50 "
+            f"{lat['e2e_p50_s']:.3f} s p95 {lat['e2e_p95_s']:.3f} s; ITL "
+            f"p50 {lat['itl_p50_s'] * 1e3:.2f} ms; decode "
+            f"{st['decode_tokens'] / wall:.1f} tokens/s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def main_model():
@@ -369,45 +512,98 @@ def main_model():
 
 
 def phase_main_path(model, params, smi: str):
-    """Returns the launch count of each kernel in its pool's run."""
-    cfg = model.cfg
-    launches = {}
-    for kv_dtype, name in (("bf16", "paged_decode"),
-                           ("int8", "paged_decode_quant")):
+    """Returns the launch count of each kernel in its pool's run and the
+    streams each pool's run gave (phase 6 compares speculation to them).
+    Decode launches n_layers per decode step, verify (the chunked-prefill
+    attention) n_layers per prefill chunk; the other pool's kernels
+    never."""
+    L = model.cfg.n_layers
+    launches, streams = {}, {}
+    for kv_dtype in ("bf16", "int8"):
         eng, reqs = _warm_engine(model, params, kv_dtype)
-        torch.cuda.reset_peak_memory_stats()
-        for w in WRAPPERS.values():
-            w.launches = 0
-        wall = _drain(eng, reqs)
-        counts = {n: w.launches for n, w in WRAPPERS.items()}
-        st = eng.stats()
-        for r in reqs:
-            check(r.done and len(r.output) == 32,
-                  f"request {r.uid}: {len(r.output)} tokens, done={r.done}")
-            check(all(0 <= t < cfg.vocab for t in r.output),
-                  f"request {r.uid}: token id out of range")
+        wall, counts, st = _drive(eng, reqs)
         check(st["prefix_hits"] > 0, "no prefix-cache hit on the main path")
-        steps = st["decode_steps"]
-        check(counts[name] == cfg.n_layers * steps,
-              f"{name}: {counts[name]} launches for {steps} decode steps of "
-              f"{cfg.n_layers} layers")
-        other = [n for n in counts if n != name]
-        check(all(counts[n] == 0 for n in other),
-              f"{kv_dtype} pool launched {counts}")
-        launches[name] = counts[name]
-        lat = st["latency"]
+        steps, chunks = st["decode_steps"], st["prefill_chunks"]
+        want = {n: 0 for n in WRAPPERS}
+        q = "_quant" if kv_dtype == "int8" else ""
+        want[f"paged_decode{q}"] = L * steps
+        want[f"paged_verify{q}"] = L * chunks
+        check(counts == want, f"{kv_dtype} pool launched {counts}, want "
+              f"{want} ({steps} decode steps, {chunks} prefill chunks)")
+        launches.update({n: c for n, c in counts.items()
+                         if POOL[n] == kv_dtype})
+        streams[kv_dtype] = [tuple(r.output) for r in reqs]
         print(f"[main] {kv_dtype} pool: 12 requests, prompts "
               f"{sum(len(r.tokens) for r in reqs)} tokens "
               f"({st['prefix_tokens_reused']} reused, {st['prefix_hits']} "
-              f"prefix hits), {st['decode_tokens']} decode tokens in "
-              f"{steps} decode steps, {wall:.3f} s wall; TTFT p50 "
-              f"{lat['ttft_p50_s'] * 1e3:.1f} ms p95 "
-              f"{lat['ttft_p95_s'] * 1e3:.1f} ms; e2e p50 "
-              f"{lat['e2e_p50_s']:.3f} s p95 {lat['e2e_p95_s']:.3f} s; ITL "
-              f"p50 {lat['itl_p50_s'] * 1e3:.2f} ms; decode "
-              f"{st['decode_tokens'] / wall:.1f} tokens/s; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-              f"{name} launches {counts[name]} = {cfg.n_layers} x {steps} "
+              f"prefix hits) in {chunks} prefill chunks, "
+              f"{st['decode_tokens']} decode tokens in {steps} decode "
+              f"steps, {wall:.3f} s wall; {_latency_line(st, wall)}; "
+              f"launches: paged_decode{q} {want[f'paged_decode{q}']} = "
+              f"{L} x {steps}, paged_verify{q} {want[f'paged_verify{q}']} "
+              f"= {L} x {chunks} ({smi})")
+    return launches, streams
+
+
+def _cut_draft(cfg, params, n_layers):
+    """A draft made of the target's embed, first ``n_layers`` layers and
+    final norm (views of the same weights)."""
+    layers = _tree_map(lambda t: t[:n_layers], params["layers"])
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            {**params, "layers": layers})
+
+
+def phase_speculation(model, params, streams, smi: str) -> dict:
+    """The speculative path at full width: the 12 requests with spec_k=3,
+    a bf16 pool drafted by the target itself and an int8 pool drafted by a
+    4-layer cut of it.  Returns each verify kernel's launches in its
+    pool's run."""
+    cfg = model.cfg
+    L = cfg.n_layers
+    launches = {}
+    for kv_dtype, label, (dcfg, dparams) in (
+            ("bf16", "self-draft (the target's own weights)",
+             (cfg, params)),
+            ("int8", "4-layer draft (the target's embed, layers 0-3, "
+             "final norm)", _cut_draft(cfg, params, 4))):
+        tel = Telemetry(trace=True)
+        eng, reqs = _warm_engine(model, params, kv_dtype, tel,
+                                 draft_config=dcfg, draft_params=dparams,
+                                 spec_k=SPEC_K)
+        wall, counts, st = _drive(eng, reqs)
+        ticks, chunks = st["verify_steps"], st["prefill_chunks"]
+        q = "_quant" if kv_dtype == "int8" else ""
+        want = {n: 0 for n in WRAPPERS}
+        want[f"paged_verify{q}"] = L * (ticks + chunks)
+        check(counts == want, f"speculative {kv_dtype} pool launched "
+              f"{counts}, want {want} ({ticks} verify passes, {chunks} "
+              "prefill chunks)")
+        launches[f"paged_verify{q}"] = counts[f"paged_verify{q}"]
+        rate = eng.acceptance_rate()
+        if dparams is params:
+            check(rate >= 0.5, f"self-draft acceptance {rate:.3f} < 0.5: "
+                  "the verify path disagrees with decode")
+        spans = {}
+        for ev in tel.tracer.events:
+            if ev.get("ph") == "X" and ev["name"] in ("draft_tick",
+                                                      "verify_tick"):
+                n, t = spans.get(ev["name"], (0, 0.0))
+                spans[ev["name"]] = (n + 1, t + ev["dur"] / 1e6)
+        same = sum(tuple(r.output) == o
+                   for r, o in zip(reqs, streams[kv_dtype]))
+        slot_ticks = st["spec_tokens_drafted"] // SPEC_K
+        print(f"[spec] {kv_dtype} pool, {label}, spec_k={SPEC_K}: "
+              f"{st['decode_tokens']} decode tokens in {ticks} verify "
+              f"passes ({st['decode_tokens'] / ticks:.2f} tokens per pass, "
+              f"{st['decode_tokens'] / slot_ticks:.2f} per slot per pass), "
+              f"acceptance {rate:.3f} ({st['spec_tokens_accepted']} of "
+              f"{st['spec_tokens_drafted']} drafts), {wall:.3f} s wall; "
+              f"{_latency_line(st, wall)}; spans (host clock): " +
+              "; ".join(f"{n} {c} x {t:.4f} s"
+                        for n, (c, t) in sorted(spans.items())) +
+              f"; streams equal to the spec-off run: {same} of "
+              f"{len(reqs)}; paged_verify{q} launches "
+              f"{counts[f'paged_verify{q}']} = {L} x ({ticks} + {chunks}) "
               f"({smi})")
     return launches
 
@@ -477,11 +673,15 @@ def phase_profile(model, params, smi: str):
 
 
 def phase_reduced_parity():
+    """fp32 at reduced size, where greedy tokens are sound to compare: the
+    CPU engine (plain versions) and the CUDA engine (kernels) agree, plain
+    and speculative (self-draft, spec_k=3), and speculation on the card
+    gives the tokens of plain decode."""
     for arch in ("qwen2-0.5b", "gemma3-1b"):
         cfg = reduced(get_config(arch), act_dtype="float32")
         model = build_model(cfg)
         cpu_params = model.init(0, param_dtype=torch.float32, device="cpu")
-        gpu_params = _tree_to(cpu_params, "cuda")
+        gpu_params = _tree_map(lambda t: t.to("cuda"), cpu_params)
         rng = np.random.default_rng(2)
         shared = rng.integers(0, cfg.vocab, 24)
         prompts = [rng.integers(0, cfg.vocab, n) for n in (6, 21, 33, 9, 50)]
@@ -489,28 +689,39 @@ def phase_reduced_parity():
                     for _ in range(3)]
         for kv_dtype in ("bf16", "int8"):
             outs = {}
-            for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            for (dev, params), spec in itertools.product(
+                    (("cpu", cpu_params), ("cuda", gpu_params)),
+                    (False, True)):
+                kw = dict(draft_config=cfg, draft_params=params,
+                          spec_k=SPEC_K) if spec else {}
                 eng = ServingEngine(model, params, max_batch=3, max_seq=128,
                                     page_size=8, kv_dtype=kv_dtype,
-                                    prefill_chunk=16, device=dev)
+                                    prefill_chunk=16, device=dev, **kw)
                 reqs = [Request(i, p, max_new_tokens=8)
                         for i, p in enumerate(prompts)]
                 for r in reqs:
                     eng.submit(r)
                 eng.run_until_drained()
-                outs[dev] = [tuple(r.output) for r in reqs]
-            check(outs["cpu"] == outs["cuda"],
-                  f"{arch} {kv_dtype}: CPU and CUDA engines disagree:\n"
-                  f"{outs['cpu']}\n{outs['cuda']}")
+                outs[dev, spec] = [tuple(r.output) for r in reqs]
+            for a, b, what in (
+                    (("cpu", False), ("cuda", False), "CPU and CUDA engines"),
+                    (("cpu", True), ("cuda", True),
+                     "CPU and CUDA speculative engines"),
+                    (("cuda", False), ("cuda", True),
+                     "CUDA plain and speculative engines")):
+                check(outs[a] == outs[b], f"{arch} {kv_dtype}: {what} "
+                      f"disagree:\n{outs[a]}\n{outs[b]}")
             print(f"[parity] reduced {arch} fp32, {kv_dtype} pool: CPU "
-                  f"(plain) and CUDA (kernel) engines give identical tokens "
-                  f"for {len(prompts)} requests")
+                  f"(plain) and CUDA (kernels) engines give identical tokens "
+                  f"for {len(prompts)} requests, plain and speculative "
+                  f"(spec_k={SPEC_K}); on the card speculation gives the "
+                  f"tokens of plain decode")
 
 
-def _tree_to(tree, device):
+def _tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def main():
@@ -525,16 +736,21 @@ def main():
     worst = phase_compare(rng)
     timing = phase_timing(rng, smi)
     model, params = main_model()
-    launches = phase_main_path(model, params, smi)
+    launches, streams = phase_main_path(model, params, smi)
+    spec_launches = phase_speculation(model, params, streams, smi)
     phase_profile(model, params, smi)
     del params
     phase_reduced_parity()
     kernels = []
     for name in WRAPPERS:
         t = timing[name]
+        # decode kernels: the main path's launches; verify kernels: the
+        # speculative path's (verify passes and prefill chunks)
+        n = spec_launches.get(name, launches[name])
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda",
+            "source": SOURCES[name.removesuffix("_quant")],
+            "replaces": REPLACES[name], "launches": n,
             "max_abs_err": max(worst[name], t["main_shapes_max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -4,3 +4,5 @@ its plain PyTorch version on CPU tensors (the dispatch is inside the
 wrapper, keyed by the tensors' device)."""
 from repro_torch.kernels.paged_decode import paged_decode  # noqa: F401
 from repro_torch.kernels.paged_decode import paged_decode_quant  # noqa: F401
+from repro_torch.kernels.paged_verify import paged_verify  # noqa: F401
+from repro_torch.kernels.paged_verify import paged_verify_quant  # noqa: F401

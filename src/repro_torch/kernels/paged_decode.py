@@ -28,8 +28,8 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 16  # query heads per kv head
 MAX_SMEM_BYTES = 227 * 1024  # per-block dynamic shared memory on Hopper
 
-_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PAGE_DTYPES = {torch.bfloat16: 0, torch.int8: 1}  # the serving pools
+Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PAGE_DTYPES = {torch.bfloat16: 0, torch.int8: 1}  # the serving pools
 
 
 def paged_decode_ref(q, k_pages, v_pages, block_tables, pos, *, window=0):
@@ -67,60 +67,67 @@ def smem_bytes(G: int, D: int, bs: int) -> int:
     return _lib().paged_decode_smem_bytes(G, D, bs)
 
 
-def _on_cpu(*tensors) -> bool:
+def on_cpu(what: str, *tensors) -> bool:
+    """True when every tensor lies on the CPU (run the plain version),
+    False when all are on one CUDA device (launch the kernel); raises for
+    a mix or another device."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
-        raise ValueError(f"paged decode: tensors on several devices {devs}")
+        raise ValueError(f"{what}: tensors on several devices {devs}")
     dev = devs.pop()
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"paged decode: unsupported device {dev}")
+        raise ValueError(f"{what}: unsupported device {dev}")
     return dev.type == "cpu"
 
 
-def _check(q, k_pages, v_pages, block_tables, pos, window, scales):
-    if q.dim() != 3 or k_pages.dim() != 4:
-        raise ValueError(f"paged decode: q {tuple(q.shape)} must be [B,H,D] "
+def check_paged_args(what, q_layout, q, k_pages, v_pages, block_tables, pos,
+                     window, scales):
+    """Raise ValueError for what the paged kernels do not take.  q has
+    ``q_layout`` ("B,H,D" for decode, "B,T,H,D" for verify); pages
+    [P, bs, Hkv, D] bf16, or int8 with fp32 ``scales`` (k, v)
+    [P, bs, Hkv]."""
+    if q.dim() != len(q_layout.split(",")) or k_pages.dim() != 4:
+        raise ValueError(f"{what}: q {tuple(q.shape)} must be [{q_layout}] "
                          f"and pages {tuple(k_pages.shape)} [P,bs,Hkv,D]")
-    B, H, D = q.shape
+    B, (H, D) = q.shape[0], q.shape[-2:]
     P, bs, Hkv, Dk = k_pages.shape
     if v_pages.shape != k_pages.shape or Dk != D:
-        raise ValueError("paged decode: k/v pages and q disagree: "
+        raise ValueError(f"{what}: k/v pages and q disagree: "
                          f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}, "
                          f"D={D}")
     if H % Hkv or H // Hkv > MAX_GROUP:
-        raise ValueError(f"paged decode: H={H}, Hkv={Hkv}: the kernel takes "
+        raise ValueError(f"{what}: H={H}, Hkv={Hkv}: the kernel takes "
                          f"G = H/Hkv integral and <= {MAX_GROUP}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"paged decode: head dim {D} not in {HEAD_DIMS}")
-    if q.dtype not in _Q_DTYPES:
-        raise ValueError(f"paged decode: q dtype {q.dtype} not fp32/bf16")
+        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    if q.dtype not in Q_DTYPES:
+        raise ValueError(f"{what}: q dtype {q.dtype} not fp32/bf16")
     quant = bool(scales)
-    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in _PAGE_DTYPES \
+    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in PAGE_DTYPES \
             or quant != (k_pages.dtype == torch.int8):
-        raise ValueError(f"paged decode: page dtype {k_pages.dtype} does not "
+        raise ValueError(f"{what}: page dtype {k_pages.dtype} does not "
                          "fit this wrapper (the kernel takes bf16 pages, or "
                          "int8 pages through the quant wrapper)")
     if block_tables.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise ValueError("paged decode: block_tables and pos must be int32")
+        raise ValueError(f"{what}: block_tables and pos must be int32")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or tuple(pos.shape) != (B,):
-        raise ValueError(f"paged decode: block_tables "
+        raise ValueError(f"{what}: block_tables "
                          f"{tuple(block_tables.shape)} / pos "
                          f"{tuple(pos.shape)} do not match B={B}")
     for s in scales:
         if s.dtype != torch.float32 or tuple(s.shape) != (P, bs, Hkv):
-            raise ValueError(f"paged decode: scales {tuple(s.shape)} "
+            raise ValueError(f"{what}: scales {tuple(s.shape)} "
                              f"{s.dtype} must be fp32 [P, bs, Hkv]")
     tensors = (q, k_pages, v_pages, block_tables, pos) + tuple(scales)
     for t in tensors:
         if not t.is_contiguous():
-            raise ValueError("paged decode: every tensor must be contiguous")
+            raise ValueError(f"{what}: every tensor must be contiguous")
     for t in (q, k_pages, v_pages):
         if t.data_ptr() % 16:
-            raise ValueError("paged decode: q and pages must be 16-byte "
-                             "aligned")
+            raise ValueError(f"{what}: q and pages must be 16-byte aligned")
     if window < 0:
-        raise ValueError(f"paged decode: window {window} < 0")
+        raise ValueError(f"{what}: window {window} < 0")
 
 
 def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
@@ -137,7 +144,7 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.paged_decode_launch(
-            _Q_DTYPES[q.dtype], _PAGE_DTYPES[k_pages.dtype], q.data_ptr(),
+            Q_DTYPES[q.dtype], PAGE_DTYPES[k_pages.dtype], q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(),
             None if k_scales is None else k_scales.data_ptr(),
             None if v_scales is None else v_scales.data_ptr(),
@@ -152,10 +159,11 @@ def paged_decode(q, k_pages, v_pages, block_tables, pos, *, window=0):
     """q [B,H,D] fp32/bf16; k_pages/v_pages [P,bs,Hkv,D] bf16 (the plain
     version on the CPU also takes fp32); block_tables [B,NB] int32
     (-1 = unallocated); pos [B] int32.  Returns [B,H,D] in q's dtype."""
-    if _on_cpu(q, k_pages, v_pages, block_tables, pos):
+    if on_cpu("paged decode", q, k_pages, v_pages, block_tables, pos):
         return paged_decode_ref(q, k_pages, v_pages, block_tables, pos,
                                 window=window)
-    _check(q, k_pages, v_pages, block_tables, pos, window, ())
+    check_paged_args("paged decode", "B,H,D", q, k_pages, v_pages,
+                     block_tables, pos, window, ())
     out = _launch(q, k_pages, v_pages, None, None, block_tables, pos,
                   window)
     paged_decode.launches += 1
@@ -166,12 +174,13 @@ def paged_decode_quant(q, k_pages, v_pages, k_scales, v_scales,
                        block_tables, pos, *, window=0):
     """``paged_decode`` over int8 pages with fp32 row scales
     k_scales/v_scales [P,bs,Hkv], dequantized right after the load."""
-    if _on_cpu(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos):
+    if on_cpu("paged decode", q, k_pages, v_pages, k_scales, v_scales,
+              block_tables, pos):
         return paged_decode_quant_ref(q, k_pages, v_pages, k_scales,
                                       v_scales, block_tables, pos,
                                       window=window)
-    _check(q, k_pages, v_pages, block_tables, pos, window,
-           (k_scales, v_scales))
+    check_paged_args("paged decode", "B,H,D", q, k_pages, v_pages,
+                     block_tables, pos, window, (k_scales, v_scales))
     out = _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables,
                   pos, window)
     paged_decode_quant.launches += 1

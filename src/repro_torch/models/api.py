@@ -1,11 +1,21 @@
 """Public model API of the attention family: spec/init, the paged KV cache
-layout, chunked paged prefill and the batched paged decode step (ports of
-``repro/models/api.py``).
+layout, chunked paged prefill, the batched paged decode step and the
+speculative verify step, plus the dense cache, monolithic prefill and
+dense decode step that the draft model of speculative decoding runs
+(ports of ``repro/models/api.py``).
 
 Paged cache layout: ``k_pages``/``v_pages`` [L, P, bs, Hkv, Dh] bf16, or
 int8 with fp32 row scales ``k_scales``/``v_scales`` [L, P, bs, Hkv]
 (``kv_dtype="int8"``); a per-slot block table [B, NB] int32 maps logical
-block ``j`` to a page id (-1 = unallocated).
+block ``j`` to a page id (-1 = unallocated).  Dense cache layout: ``k``/
+``v`` [L, B, Sa, Hkv, Dh] bf16 and ``pos_map`` [B, Sa] int32 (the position
+held by each cache entry, -1 = empty).
+
+Where the JAX package drops a write through an out-of-bounds index (a
+parked slot at ``pos = max_seq``, a verify row past the block table), the
+port writes the entry's old value back through a clamped index instead
+(``_masked_write``): torch raises on such indices, and the clamped rows
+never collide with a live row's write.
 
 The JAX package scans over the stacked layers; here a Python loop walks
 them, each layer taking its (rope, window) from
@@ -25,8 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import quantize_kv
 from repro_torch.models import lm
-from repro_torch.models.attention import (
-    paged_chunk_prefill_attention, paged_chunk_prefill_attention_quant)
+from repro_torch.models.attention import decode_attention
 from repro_torch.nn.layers import apply_rope
 from repro_torch.nn.spec import init_params
 
@@ -56,6 +65,21 @@ class Model:
         return init_params(self.spec, seed, param_dtype, device)
 
     # ------------------------------------------------------------- caches
+    def abstract_cache(self, B: int, Sa: int):
+        """The dense cache's leaves as ``meta`` tensors: k/v
+        [L, B, Sa, Hkv, Dh] bf16 and pos_map [B, Sa] int32."""
+        cfg = self.cfg
+        if cfg.block_kind != "attn" or cfg.cross_attention:
+            raise NotImplementedError(
+                f"{cfg.name}: dense caches of recurrent, hybrid and "
+                "encoder-decoder families are not ported to repro_torch yet "
+                "(ROADMAP queue 1 item 11)")
+        shape = (cfg.n_layers, B, Sa, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.empty(shape, dtype=torch.bfloat16, device="meta"),
+                "v": torch.empty(shape, dtype=torch.bfloat16, device="meta"),
+                "pos_map": torch.empty((B, Sa), dtype=torch.int32,
+                                       device="meta")}
+
     @property
     def supports_paged(self) -> bool:
         """Paged KV serving covers the pure-attention family."""
@@ -106,6 +130,32 @@ class Model:
         cfg = self.cfg
         return (cfg.n_layers, cfg.n_kv_heads, cfg.hd)
 
+    # ------------------------------------------------------------ prefill
+    def prefill(self, params, batch):
+        """Monolithic prefill of a whole prompt batch: (last-token logits
+        [B, V], dense cache {k, v [L, B, S, Hkv, Dh], pos_map [B, S]}).
+
+        ``batch["length"]`` [B] int32 optionally carries the true prompt
+        lengths of a batch right-padded to a shape bucket: pos_map marks
+        the padding empty (-1) and the logits are taken at ``length - 1``;
+        causal masking keeps the padding out of every real position.
+        """
+        cfg = self.cfg
+        tokens, length = batch["tokens"], batch.get("length")
+        B, S = tokens.shape
+        if not self.supports_bucketed_prefill:
+            raise NotImplementedError(
+                f"{cfg.name}: prefill of non-attention families is not "
+                "ported to repro_torch yet (ROADMAP queue 1 item 11)")
+        if length is None:
+            pos_map = torch.arange(S, dtype=torch.int32,
+                                   device=tokens.device).expand(B, S)
+        else:
+            pos_map = lm.prompt_pos_map(length, S)
+        h, (k, v) = lm.attn_forward(cfg, params, tokens, return_cache=True)
+        logits = lm.last_logits(cfg, params, lm.last_hidden(h, length))
+        return logits, {"k": k, "v": v, "pos_map": pos_map}
+
     # ------------------------------------------------------------- layers
     def _decode_layer(self, pl, x, kv, pos, rope, window, attend):
         """One decode layer; ``attend(q1, k1, v1, kv, window) -> o`` owns
@@ -153,13 +203,46 @@ class Model:
         rope_l, rope_g = self._rope(rope_len, x.device)
         layers = params["layers"]
         for i, is_global in enumerate(lm.static_layer_windows(cfg)):
-            pl = _layer_slice(layers, i)
+            pl = lm.layer_slice(layers, i)
             x = layer_fn(pl, x, tuple(c[i] for c in kv_all), pos,
                          rope_g if is_global else rope_l,
                          0 if is_global else cfg.window, attend)
         return x
 
     # ------------------------------------------------------------- decode
+    def serve_step(self, params, cache, batch):
+        """One token for the whole batch against the dense cache (the draft
+        model's step). batch = {tokens [B], pos [B]}; a slot parked at
+        ``pos >= Sa`` writes nothing (the JAX package's out-of-bounds
+        drop) and its logits are garbage nobody reads.  The cache is
+        updated in place; returns (logits [B, V] fp32, cache)."""
+        cfg = self.cfg
+        if cfg.block_kind != "attn" or cfg.cross_attention:
+            raise NotImplementedError(
+                f"{cfg.name}: dense decode of non-attention families is not "
+                "ported to repro_torch yet (ROADMAP queue 1 item 11)")
+        tokens, pos = batch["tokens"], batch["pos"].long()
+        x = lm.embed_tokens(cfg, params, tokens)  # [B, d]
+        B = x.shape[0]
+        Sa = cache["k"].shape[2]
+        rows = torch.arange(B, device=pos.device)
+        live = pos < Sa
+        wpos = pos.clamp(max=Sa - 1)
+        pos_map = cache["pos_map"]
+        _masked_write(pos_map, (rows, wpos), pos.to(pos_map.dtype), live)
+
+        def attend(q1, k1, v1, kv, window):
+            kc, vc = kv
+            _masked_write(kc, (rows, wpos), k1, live)
+            _masked_write(vc, (rows, wpos), v1, live)
+            return decode_attention(q1, kc, vc, pos_map, pos, window=window)
+
+        # rope positions clamp into the table, as a JAX gather does
+        x = self._run_layers(params, x, wpos, (cache["k"], cache["v"]), Sa,
+                             attend, self._decode_layer)
+        x = lm._norm(params, x, cfg.norm, "final")
+        return lm.last_logits(cfg, params, x), cache
+
     def serve_step_paged(self, params, cache, batch):
         """One token for the whole batch against the paged KV cache.
 
@@ -211,6 +294,65 @@ class Model:
         x = lm._norm(params, x, cfg.norm, "final")
         return lm.last_logits(cfg, params, x), cache
 
+    # ---------------------------------------------------------- verify
+    def verify_step_paged(self, params, cache, batch):
+        """Score T candidate tokens per slot in one pass (the speculative
+        verify) against the paged KV cache.
+
+        batch = {tokens [B, T], pos [B] int32, block_tables [B, NB] int32}:
+        ``tokens[:, 0]`` is the last accepted token, landing at ``pos``,
+        and ``tokens[:, 1:]`` the draft's k = T-1 candidates.
+        Write-then-attend: token t's K/V goes to page
+        ``tables[b, (pos+t)//bs]`` (int8 pools: quantized first), except
+        rows whose block runs past the table or is unallocated (parked
+        slots), which write nothing; then the T queries attend causally
+        through ``ops.paged_verify(_quant)`` (the CUDA kernel on the card,
+        its plain version on the CPU).  Returns (logits [B, T, V] fp32,
+        cache): ``argmax(logits[:, t])`` is the target's next token given
+        ``tokens[:, :t+1]``.  Rejected drafts leave their K/V past the
+        accepted position, masked by every later read and overwritten as
+        decoding reaches them.
+        """
+        cfg = self.cfg
+        tokens, pos = batch["tokens"], batch["pos"]
+        tables = batch["block_tables"]
+        B, T = tokens.shape
+        bs = cache["k_pages"].shape[2]
+        NB = tables.shape[1]
+        quant = "k_scales" in cache
+        x = lm.embed_tokens(cfg, params, tokens)  # [B, T, d]
+        positions = pos.long()[:, None] + torch.arange(T,
+                                                       device=pos.device)
+        blk = positions // bs
+        page = tables.gather(1, blk.clamp(0, NB - 1)).long()
+        live = (page >= 0) & (blk < NB)
+        # dead rows point at the null page, which no live row writes
+        idx = (torch.where(live, page, 0), positions % bs)
+
+        def attend(q, k, v, kv, window):
+            q = q.contiguous()
+            if quant:
+                kp, vp, ksc, vsc = kv
+                k8, k1s = quantize_kv(k)  # [B,T,Hkv,D] -> int8 + [B,T,Hkv]
+                v8, v1s = quantize_kv(v)
+                for leaf, new in ((kp, k8), (vp, v8), (ksc, k1s),
+                                  (vsc, v1s)):
+                    _masked_write(leaf, idx, new, live)
+                return ops.paged_verify_quant(q, kp, vp, ksc, vsc, tables,
+                                              pos, window=window)
+            kp, vp = kv
+            _masked_write(kp, idx, k, live)
+            _masked_write(vp, idx, v, live)
+            return ops.paged_verify(q, kp, vp, tables, pos, window=window)
+
+        names = _QUANT_NAMES if quant else _NAMES
+        # rope positions clamp into the table, as a JAX gather does
+        x = self._run_layers(params, x, positions.clamp(max=NB * bs - 1),
+                             tuple(cache[n] for n in names), NB * bs,
+                             attend, self._chunk_layer)
+        x = lm._norm(params, x, cfg.norm, "final")
+        return lm.last_logits(cfg, params, x), cache
+
     # ------------------------------------------------------- chunked prefill
     def prefill_chunk_paged(self, params, cache, batch):
         """One bucketed prefill chunk into a paged-cache block table.
@@ -222,9 +364,14 @@ class Model:
 
         Write-then-attend: the first ``length`` columns' K/V are written
         into their pages (int8 pools: quantized first) and the chunk
-        attends back through the block table.  The JAX package drops the
-        padded columns' writes through an out-of-bounds page id; here they
-        are sliced off before the write, which stores the same rows.
+        attends back through the block table with ``ops.paged_verify
+        (_quant)``: chunk column t sits at ``pos + t``, the verify
+        kernel's query layout, so the CUDA kernel runs here on the card
+        (its plain version on the CPU is the JAX package's chunked-prefill
+        attention).  The JAX package drops the padded columns' writes
+        through an out-of-bounds page id; here they are sliced off before
+        the write, which stores the same rows.  The padded columns' rows
+        read stale keys; only column ``length - 1`` reaches the logits.
         Returns (logits [1, V] of the chunk's last real token, cache).
         """
         cfg = self.cfg
@@ -242,8 +389,10 @@ class Model:
         page = tables[0, blk].long().clamp(min=0)
         off = positions[:n] % bs
         qpos = positions[None]  # [1, C]
+        pos = torch.tensor([pos0], dtype=torch.int32, device=dev)
 
         def attend(q, k, v, kv, window):
+            q = q.contiguous()
             if quant:
                 kp, vp, ksc, vsc = kv
                 k8, k1s = quantize_kv(k[0, :n])  # [n, Hkv, D] + [n, Hkv]
@@ -252,27 +401,32 @@ class Model:
                 vp[page, off] = v8
                 ksc[page, off] = k1s
                 vsc[page, off] = v1s
-                return paged_chunk_prefill_attention_quant(
-                    q, kp, vp, ksc, vsc, tables, qpos, window=window)
+                return ops.paged_verify_quant(q, kp, vp, ksc, vsc, tables,
+                                              pos, window=window)
             kp, vp = kv
             kp[page, off] = k[0, :n].to(kp.dtype)
             vp[page, off] = v[0, :n].to(vp.dtype)
-            return paged_chunk_prefill_attention(q, kp, vp, tables, qpos,
-                                                 window=window)
+            return ops.paged_verify(q, kp, vp, tables, pos, window=window)
 
         names = _QUANT_NAMES if quant else _NAMES
-        x = self._run_layers(params, x, qpos,
+        # rope positions clamp into the table, as a JAX gather does: a
+        # padded chunk may run past max_seq (a prefix hit leaves pos0 off
+        # the chunk grid)
+        x = self._run_layers(params, x, qpos.clamp(max=NB * bs - 1),
                              tuple(cache[n_] for n_ in names), NB * bs,
                              attend, self._chunk_layer)
         x = lm._norm(params, x[:, n - 1], cfg.norm, "final")
         return lm.last_logits(cfg, params, x), cache
 
 
-def _layer_slice(tree, i: int):
-    """Layer ``i`` of a layer-stacked parameter dict (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: _layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+def _masked_write(leaf, idx, new, live):
+    """``leaf[idx] = new`` where ``live``, the old value elsewhere: a
+    write that drops the rows a JAX scatter drops out of bounds, without
+    a host sync.  ``idx`` must keep dead rows off every live row's
+    target; dead rows that share a target all write its old value."""
+    old = leaf[idx]
+    mask = live.reshape(live.shape + (1,) * (old.dim() - live.dim()))
+    leaf[idx] = torch.where(mask, new.to(leaf.dtype), old)
 
 
 def build_model(cfg: ArchConfig) -> Model:

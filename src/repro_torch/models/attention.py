@@ -8,8 +8,11 @@ Layouts: q [B, H, D] (decode) or [B, C, H, D] (chunk); caches
 The softmax runs in fp32 and the probabilities are cast to the cache's
 type before the value product, as the JAX functions do; a row with no
 visible key gets the uniform softmax of ``NEG_INF`` fills (garbage the
-callers never read).  Chunked-prefill attention stays plain torch here
-because the JAX package runs it as plain jnp.
+callers never read).  These are the plain versions of the CUDA kernels
+(``kernels/paged_decode.py``, ``kernels/paged_verify.py``), which the
+serving path calls for decode, speculative verify and chunked-prefill
+attention; ``flash_attention`` is the plain prefill attention of the
+draft model, as the JAX package runs it.
 """
 from __future__ import annotations
 
@@ -18,6 +21,34 @@ import torch
 from repro_torch.kernels.quant import dequantize_kv
 
 NEG_INF = -1e30
+
+
+def flash_attention(q, k, v, *, window: int = 0,
+                    scale: float | None = None):
+    """Causal (optionally windowed) GQA attention, forward only: what
+    ``repro/models/attention.py:flash_attention`` computes with
+    ``causal=True``, in one masked softmax instead of its blocked scan.
+
+    q [B, Sq, H, D]; k/v [B, Sk, Hkv, D].  Query i sits at position
+    ``Sk - Sq + i`` (the JAX default ``q_offset``) and sees keys ``<=`` it
+    and, with a window, less than ``window`` behind it.  Scores, softmax
+    and the value product run in fp32; the output has q's type.
+    """
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg, k.float()) * scale
+    qpos = Sk - Sq + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    live = kpos <= qpos
+    if window:
+        live &= (qpos - kpos) < window
+    s = torch.where(live, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqs,bshd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_positions, pos, *,
@@ -126,6 +157,39 @@ def paged_chunk_prefill_attention_quant(q, k_pages, v_pages, k_scales,
                               v_scales)
     return chunk_prefill_attention(q, kc, vc, cpos, qpos, window=window,
                                    scale=scale, softcap=softcap)
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_tables, pos, *,
+                           window: int = 0, scale: float | None = None,
+                           softcap: float = 0.0):
+    """Multi-token verify attention against a paged KV cache (one layer):
+    ``paged_chunk_prefill_attention`` with query ``t`` at ``pos + t``.
+
+    q [B, T, H, D]; k_pages/v_pages [P, bs, Hkv, D]; block_tables [B, NB];
+    pos [B] the position of each slot's first query.  The T tokens' K/V
+    must already be in their pages (write-then-attend); row t then sees
+    exactly what a sequential decode at ``pos + t`` would.  The plain
+    version of ``kernels/csrc/paged_verify.cu``.
+    """
+    T = q.shape[1]
+    qpos = pos[:, None] + torch.arange(T, device=pos.device)[None, :]
+    return paged_chunk_prefill_attention(q, k_pages, v_pages, block_tables,
+                                         qpos, window=window, scale=scale,
+                                         softcap=softcap)
+
+
+def paged_verify_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
+                                 block_tables, pos, *, window: int = 0,
+                                 scale: float | None = None,
+                                 softcap: float = 0.0):
+    """``paged_verify_attention`` over an int8 pool with fp32 row scales:
+    the same dequantized values the JAX function attends over (it
+    dequantizes the whole pool, this the gathered rows)."""
+    T = q.shape[1]
+    qpos = pos[:, None] + torch.arange(T, device=pos.device)[None, :]
+    return paged_chunk_prefill_attention_quant(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, qpos,
+        window=window, scale=scale, softcap=softcap)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,

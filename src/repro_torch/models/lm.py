@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.nn.layers import rope_frequencies
+from repro_torch.models.attention import flash_attention
+from repro_torch.nn.layers import apply_rope, rope_frequencies
 from repro_torch.nn.spec import TensorSpec
 
 Tree = Any
@@ -230,6 +231,67 @@ def _ffn(pl, cfg, x):
     if cfg.post_norms:
         y = _norm(pl, y, cfg.norm, "pn2")
     return x + y
+
+
+# ------------------------------------------------------ monolithic forward
+
+
+def _attn_layer(cfg: ArchConfig, pl, x, rope, window: int, positions):
+    """One layer over a whole prompt (forward only): causal plain
+    attention over the prompt's own K/V.  Returns (x, (k, v)), the K/V
+    already rope'd, as the cache stores them."""
+    cos, sin = rope
+    B, S, _ = x.shape
+    xn = _norm(pl, x, cfg.norm, "ln1")
+    q, k, v = _qkv(pl["attn"], cfg, xn, B, S)
+    q = apply_rope(q, cos, sin, positions)
+    k = apply_rope(k, cos, sin, positions)
+    o = flash_attention(q, k, v, window=window)
+    o = _attn_out(pl["attn"], cfg, o.reshape(B, S, -1), x.dtype)
+    if cfg.post_norms:
+        o = _norm(pl, o, cfg.norm, "pn1")
+    return _ffn(pl, cfg, x + o), (k, v)
+
+
+def attn_forward(cfg: ArchConfig, params, tokens, *, return_cache=False):
+    """tokens [B, S] -> final-normed hidden [B, S, d], plus the stacked
+    cache (k, v) [L, B, S, Hkv, Dh] with ``return_cache``.  Layers walk in
+    order, each with its window from ``static_layer_windows``."""
+    B, S = tokens.shape
+    x = embed_inputs(cfg, params, tokens)
+    positions = torch.arange(S, device=tokens.device)
+    rope_l, rope_g = _rope_tables(cfg, S, tokens.device)
+    ks, vs = [], []
+    for i, is_global in enumerate(static_layer_windows(cfg)):
+        pl = layer_slice(params["layers"], i)
+        x, (k, v) = _attn_layer(cfg, pl, x, rope_g if is_global else rope_l,
+                                0 if is_global else cfg.window, positions)
+        ks.append(k)
+        vs.append(v)
+    x = _norm(params, x, cfg.norm, "final")
+    return (x, (torch.stack(ks), torch.stack(vs))) if return_cache else x
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i`` of a layer-stacked parameter dict (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def last_hidden(h, length=None):
+    """The true last-token hidden state of a (possibly padded) batch:
+    h [B, S, d]; ``length`` [B] true lengths, or None for ``h[:, -1]``."""
+    if length is None:
+        return h[:, -1]
+    return h[torch.arange(h.shape[0], device=h.device), length.long() - 1]
+
+
+def prompt_pos_map(length, S: int):
+    """pos_map rows [B, S] int32 for bucket-padded prompts: the position
+    for the first ``length`` entries, -1 (empty, masked) for the padding."""
+    pos = torch.arange(S, dtype=torch.int32, device=length.device)[None]
+    return torch.where(pos < length[:, None], pos, -1).to(torch.int32)
 
 
 # ------------------------------------------------------------------ head

@@ -15,12 +15,19 @@ unchanged.  The engine's tensors live on ``device`` (``cuda`` unless the
 caller passes ``device="cpu"``); decode attention runs the CUDA paged
 decode kernel there and its plain version on the CPU.
 
-Not ported in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): the dense cache backend (``paged=False``), monolithic
-prefill (``prefill_chunk=0``), speculative decoding (``draft_config``),
-tensor-parallel meshes (``mesh``), admission batching
-(``sorted_batch_sizes``), embedding-span (multimodal) prompts, and KV
-snapshot export/import (``export_kv``, ``evacuate``, imported requests).
+With ``draft_config`` the engine decodes speculatively: each tick a
+draft model (dense cache, plain attention) proposes ``spec_k`` tokens per
+active slot, ``Model.verify_step_paged`` scores them all in one pass
+through the paged verify kernel, and each slot emits the longest agreeing
+prefix plus the target's correction, the tokens plain greedy decode would
+give.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): the dense cache backend (``paged=False``), monolithic prefill
+(``prefill_chunk=0``), tensor-parallel meshes (``mesh``), admission
+batching (``sorted_batch_sizes``), embedding-span (multimodal) prompts,
+KV snapshot export/import (``export_kv``, ``evacuate``, imported
+requests), and draft models outside the dense attention family.
 """
 from __future__ import annotations
 
@@ -33,13 +40,19 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
-from repro_torch.models.api import Model
+from repro_torch.models.api import Model, build_model
 from repro_torch.serving import segments as sg
 from repro_torch.serving.kv_cache import (BlockPool, BlockTable, KVSnapshot,
                                           OutOfPagesError, ceil_blocks,
                                           full_blocks, kv_page_bytes)
 from repro_torch.serving.request import ContinuumRequest, StreamEvent
 from repro_torch.serving.telemetry import MetricsRegistry, latency_summary
+
+
+# batch and sequence dims of the dense cache leaves (Model.abstract_cache);
+# the leaves of the other families come with ROADMAP queue 1 item 11
+_BATCH_DIM = {"k": 1, "v": 1, "pos_map": 0}
+_SEQ_DIM = {"k": 2, "v": 2, "pos_map": 1}
 
 
 def _unported(what: str, item: str):
@@ -148,6 +161,14 @@ class ServingEngine:
         cache and the steps run; None means the CUDA card and raises when
         there is none.  ``params`` must already be on that device.
         """
+        if draft_config is not None:
+            if paged is False:
+                raise ValueError(
+                    "speculative decoding needs the paged cache backend "
+                    "(the verify pass writes draft K/V through block "
+                    "tables); use paged=True")
+            if int(spec_k) < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if paged is False:
             raise _unported("the dense cache backend (paged=False)",
                             "item 11")
@@ -156,8 +177,6 @@ class ServingEngine:
                             "item 11")
         if prefill_chunk <= 0:
             raise _unported("monolithic prefill (prefill_chunk=0)", "item 4")
-        if draft_config is not None:
-            raise _unported("speculative decoding (draft_config)", "item 8")
         if mesh is not None:
             raise _unported("tensor-parallel serving (mesh)", "item 12")
         if sorted_batch_sizes is not None:
@@ -207,6 +226,17 @@ class ServingEngine:
         # batched decode steps run: the kernel launch count of a tick is
         # n_layers per step, which is how a run proves it used the kernel
         self._c_decode_steps = m.counter("decode_steps")
+        # prefill chunks and speculative verify passes run: each launches
+        # the paged verify kernel once per layer on the card
+        self._c_prefill_chunks = m.counter("prefill_chunks")
+        self._c_verify_steps = m.counter("verify_steps")
+        # speculative decoding: drafted = spec_k per active slot per tick;
+        # accepted = drafts consumed into the output stream; wasted =
+        # drafted - accepted (verify compute spent on rejected tokens)
+        self._c_spec_drafted = m.counter("spec_tokens_drafted")
+        self._c_spec_accepted = m.counter("spec_tokens_accepted")
+        self._c_spec_wasted = m.counter("spec_tokens_wasted")
+        self._g_accept_rate = m.gauge("spec_acceptance_rate")
         self._c_trace_events = m.counter("xla_trace_events")
         self._h_ttft = m.histogram("ttft_s")
         self._h_itl = m.histogram("itl_s")
@@ -243,6 +273,34 @@ class ServingEngine:
                       for name, s in abstract.items()}
         self.tables = np.full((max_batch, self.max_blocks), -1, np.int32)
         self.block_tables: list[BlockTable | None] = [None] * max_batch
+        # ---- speculative decoding (draft model + multi-token verify)
+        self.spec_k = int(spec_k)
+        self.speculative = draft_config is not None
+        if self.speculative:
+            self.draft_model = build_model(draft_config)
+            if not self.draft_model.supports_paged:
+                raise ValueError(
+                    f"{draft_config.name}: the draft model must be "
+                    "attention-family (dense-cache decode)")
+            if draft_config.vocab != model.cfg.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_config.vocab} != target vocab "
+                    f"{model.cfg.vocab}: token-level rejection sampling "
+                    "needs a shared vocabulary")
+            if draft_config.n_experts:
+                raise _unported("MoE draft models", "item 10")
+            self.draft_params = (draft_params if draft_params is not None
+                                 else self.draft_model.init(
+                                     int(draft_seed), device=self.device))
+            # the draft runs a plain dense cache: its KV is small, it never
+            # shares pages, and stale entries past a rejection are masked
+            # by position then overwritten by the next draft chain
+            dab = self.draft_model.abstract_cache(max_batch, max_seq)
+            self._draft_cache = {
+                k: torch.full(v.shape, -1, dtype=v.dtype, device=self.device)
+                if k == "pos_map" else torch.zeros(v.shape, dtype=v.dtype,
+                                                   device=self.device)
+                for k, v in dab.items()}
         self.ticks = 0
         self._progress = False
         self.finished: list[Request] = []
@@ -300,8 +358,13 @@ class ServingEngine:
             table.pages[blk] = new
 
     def _total_blocks(self, req: Request) -> int:
-        """Worst-case pages this request can ever hold (prompt + decode)."""
-        horizon = min(len(req.tokens) + req.max_new_tokens, self.max_seq)
+        """Worst-case pages this request can ever hold (prompt + decode;
+        speculation adds ``spec_k`` scratch positions so the verify pass
+        can always write its draft K/V one tick ahead of acceptance)."""
+        horizon = len(req.tokens) + req.max_new_tokens
+        if self.speculative:
+            horizon += self.spec_k
+        horizon = min(horizon, self.max_seq)
         return ceil_blocks(horizon, self.page_size)
 
     def _growth_outstanding(self) -> int:
@@ -410,6 +473,7 @@ class ServingEngine:
                           args={"tokens": n, "done": task.done + n,
                                 "total": T})
         task.done += n
+        self._c_prefill_chunks.inc()
         self._c_prefill_computed.inc(n)
         self._c_prefill_padded.inc(Cb - n)
         if self.prefix_caching:
@@ -560,6 +624,45 @@ class ServingEngine:
         self.slots[slot] = req
         self.pos[slot] = len(req.tokens)
         self.budget[slot] = req.max_new_tokens - 1
+        if self.speculative:
+            self._draft_install(slot, req.tokens)
+
+    @staticmethod
+    def _splice_cache(cache: dict, slot: int, req_cache: dict) -> dict:
+        """Insert a one-request prefill cache into slot ``slot`` of a dense
+        batch cache (in place), padding its sequence dim to the cache's
+        with zeros (pos_map: -1, empty)."""
+        for name, leaf in cache.items():
+            rc = req_cache[name]
+            sdim = _SEQ_DIM[name]
+            pad = list(rc.shape)
+            pad[sdim] = leaf.shape[sdim] - rc.shape[sdim]
+            fill = rc.new_full(pad, -1 if name == "pos_map" else 0)
+            leaf.narrow(_BATCH_DIM[name], slot, 1).copy_(
+                torch.cat([rc, fill], sdim))
+        return cache
+
+    def _draft_install(self, slot: int, tokens):
+        """(Re)build the draft model's dense-cache state for ``slot`` by
+        prefilling ``tokens`` with the draft weights."""
+        toks = np.asarray(tokens, np.int64)
+        T = len(toks)
+        Sb = self._bucket(T)
+        batch = {"tokens": self._padded_prompt(toks, Sb)}
+        if self.bucketing:
+            batch["length"] = self._to_device(np.asarray([T], np.int32))
+        self._note_trace(("draft_prefill", Sb))
+        _, rc = self.draft_model.prefill(self.draft_params, batch)
+        self._draft_cache = self._splice_cache(self._draft_cache, slot, rc)
+
+    def acceptance_rate(self, default: float = 0.6) -> float:
+        """Live draft-token acceptance rate (accepted / drafted) since the
+        last ``metrics.reset()``; ``default`` until any tokens have been
+        drafted."""
+        drafted = self._c_spec_drafted.value
+        if drafted <= 0:
+            return float(default)
+        return self._c_spec_accepted.value / drafted
 
     def step(self) -> int:
         """One engine tick: spend the prefill budget, then one batched
@@ -576,6 +679,10 @@ class ServingEngine:
             if n_prefilling:
                 self.ticks += 1
             return n_prefilling
+        if self.speculative:
+            self._spec_tick(active)
+            self.ticks += 1
+            return len(active) + n_prefilling
         tokens = np.zeros(self.max_batch, np.int64)
         # slots without a decodable request (free, or still prefilling)
         # get a null block table and position 0, so their write lands on
@@ -619,6 +726,116 @@ class ServingEngine:
                 self._finish(req)
                 self._free_slot(i)  # free slot/pages (continuous batching)
         return len(active) + n_prefilling
+
+    def _spec_tick(self, active: "list[int]"):
+        """One speculative decode tick: the draft model proposes ``spec_k``
+        tokens per active slot (``spec_k`` dense decode steps), the target
+        scores the last accepted token plus all drafts in one verify pass,
+        and each slot emits the longest agreeing prefix plus the target's
+        correction token: 1 to ``spec_k + 1`` tokens, the ones plain
+        greedy decode would give.
+
+        Rejected drafts leave stale K/V past the new ``pos`` in both
+        caches; every read masks ``cache_pos <= query_pos`` and the next
+        tick's writes overwrite them in order, so rollback costs nothing.
+        Stream events are emitted per token with contiguous indices and
+        timestamps spread across the tick, ``final`` only on the true last
+        token."""
+        k = self.spec_k
+        B = self.max_batch
+        t0 = self._now()
+        # parked slots (free / mid-prefill) sit at pos = max_seq: their
+        # dense draft writes and, with a null block table, their verify
+        # writes are dropped, and their outputs are never read
+        cur = np.zeros(B, np.int64)
+        base = np.full(B, self.max_seq, np.int64)
+        for i in active:
+            cur[i] = self.slots[i].output[-1]
+            base[i] = self.pos[i]
+        ids = self._to_device(cur)
+        proposals = []
+        for t in range(k):  # drafts stay on the device until all k are in
+            logits, self._draft_cache = self.draft_model.serve_step(
+                self.draft_params, self._draft_cache,
+                {"tokens": ids,
+                 "pos": self._to_device(np.minimum(base + t, self.max_seq))})
+            ids = torch.argmax(logits, -1)
+            proposals.append(ids)
+        drafts = torch.stack(proposals, 1).cpu().numpy()  # [B, k]
+        t_draft = self._now() if self._tr is not None else t0
+        # grow block tables to cover the k+1 verify positions; admission
+        # reserved spec_k slack in _total_blocks, so this cannot exhaust
+        # the pool (positions past max_seq simply drop their writes)
+        for i in active:
+            bt = self.block_tables[i]
+            cap = min(int(base[i]) + k + 1, self.max_seq)
+            if cap > bt.num_tokens_capacity():
+                bt.ensure_capacity(cap)
+                self.tables[i] = bt.as_row(self.max_blocks)
+        vt = np.zeros((B, k + 1), np.int64)
+        tables = np.full_like(self.tables, -1)
+        for i in active:
+            vt[i, 0] = self.slots[i].output[-1]
+            vt[i, 1:] = drafts[i]
+            tables[i] = self.tables[i]
+        logits, self.cache = self.model.verify_step_paged(
+            self.params, self.cache,
+            {"tokens": self._to_device(vt),
+             "pos": self._to_device(np.minimum(base, self.max_seq)
+                                    .astype(np.int32)),
+             "block_tables": self._to_device(tables)})
+        # [B, k+1] target argmax per verify position, on the device
+        ids = torch.argmax(logits, -1).cpu().numpy()
+        self._c_verify_steps.inc()
+        t_now = self._now()
+        if self._tr is not None:
+            self._tr.span("draft_tick", "engine", t0, t_draft,
+                          pid=self._pid, args={"active": len(active),
+                                               "k": k})
+            self._tr.span("verify_tick", "engine", t_draft, t_now,
+                          pid=self._pid, args={"active": len(active),
+                                               "k": k})
+        n_tok = tick_acc = 0
+        for i in active:
+            req = self.slots[i]
+            # ids[i, j] is the target's token after consuming vt[i, :j+1];
+            # draft j (= vt[i, j+1]) is accepted iff it equals ids[i, j]
+            n_acc = 0
+            while n_acc < k and drafts[i, n_acc] == ids[i, n_acc]:
+                n_acc += 1
+            emit = [int(x) for x in ids[i, :n_acc + 1]]
+            emitted = 0
+            for tok in emit:
+                emitted += 1
+                req.output.append(tok)
+                ts = t0 + (t_now - t0) * emitted / len(emit)
+                req.token_times.append(ts)
+                self.pos[i] += 1
+                self.budget[i] -= 1
+                ends = bool(self.budget[i] <= 0 or tok == self.eos_id
+                            or self.pos[i] >= self.max_seq - 1)
+                self._emit_stream(req, tok, ts, ends)
+                if ends:
+                    self._finish(req)
+                    self._free_slot(i)
+                    break
+            # drafts consumed into the stream; accepted-but-unemitted
+            # drafts past an eos/budget stop count as wasted
+            acc = emitted - 1
+            self._c_spec_drafted.inc(k)
+            self._c_spec_accepted.inc(acc)
+            self._c_spec_wasted.inc(k - acc)
+            n_tok += emitted
+            tick_acc += acc
+        self._c_decode_tokens.inc(n_tok)
+        drafted = self._c_spec_drafted.value
+        if drafted:
+            self._g_accept_rate.set(self._c_spec_accepted.value / drafted)
+        if self._tr is not None:
+            self._tr.counter("spec_tokens", t_now,
+                             {"drafted": k * len(active),
+                              "accepted": tick_acc,
+                              "emitted": n_tok}, pid=self._pid)
 
     def _sample_tick(self, n_active: int, n_prefilling: int):
         """Per-tick occupancy counter samples (tracing enabled only)."""
@@ -701,7 +918,10 @@ class ServingEngine:
         latency percentiles under ``"latency"``."""
         out = {"paged": self.paged, "kv_dtype": self.kv_dtype,
                "bucketed": self.bucketing, "chunked": self.chunked,
-               "speculative": False, "spec_k": 0, "acceptance_rate": None}
+               "speculative": self.speculative,
+               "spec_k": self.spec_k if self.speculative else 0,
+               "acceptance_rate": (self.acceptance_rate()
+                                   if self.speculative else None)}
         out.update(self.metrics.snapshot())
         out["latency"] = self.latency_stats()
         return out

@@ -102,6 +102,38 @@ def test_engine_matches_jax(need_jax, arch, kv_dtype, workload):
         assert ts["prefix_hits"] > 0 and ts["prefix_tokens_reused"] >= 3 * 24
 
 
+def test_padded_chunk_past_max_seq_matches_jax(need_jax):
+    """A prefix hit of 56 tokens leaves 7 to prefill, padded to a 16-token
+    chunk at positions 56..71, past max_seq 64: the rope positions of the
+    padded columns must clamp into the table as JAX's gather does (the
+    port raised IndexError here), and the tokens must match."""
+    cfg = jreduced(jget_config("qwen2-0.5b"), act_dtype="float32")
+    jmodel = jbuild(cfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0), param_dtype=jnp.float32)
+    model = build_model(reduced(get_config("qwen2-0.5b"),
+                                act_dtype="float32"))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams),
+                             device="cpu")
+    rng = np.random.default_rng(0)
+    first = rng.integers(0, cfg.vocab, 60).astype(np.int32)
+    second = np.concatenate([first[:56], rng.integers(0, cfg.vocab, 7)
+                             .astype(np.int32)])
+    outs = []
+    for eng_cls, req_cls, m, p, kw in (
+            (JEngine, JRequest, jmodel, jparams, {}),
+            (ServingEngine, Request, model, params, dict(device="cpu"))):
+        eng = eng_cls(m, p, max_batch=2, max_seq=64, paged=True,
+                      page_size=8, prefill_chunk=16, **kw)
+        reqs = [req_cls(0, first, max_new_tokens=2),
+                req_cls(1, second, max_new_tokens=1)]
+        for r in reqs:  # one after the other: the second hits the first
+            eng.submit(r)
+            eng.run_until_drained()
+        assert eng.stats()["prefix_tokens_reused"] == 56
+        outs.append([tuple(r.output) for r in reqs])
+    assert outs[0] == outs[1]
+
+
 def _reduced_engine(**kw):
     model = build_model(reduced(get_config("qwen2-0.5b"),
                                 act_dtype="float32"))
@@ -111,7 +143,8 @@ def _reduced_engine(**kw):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(paged=False), dict(prefill_chunk=0), dict(draft_config=object()),
+    dict(paged=False), dict(prefill_chunk=0),
+    dict(draft_config=reduced(get_config("qwen2-moe-a2.7b"))),  # MoE draft
     dict(mesh=object()), dict(sorted_batch_sizes=[1, 2])])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
