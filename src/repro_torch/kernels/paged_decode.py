@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from repro_torch.device import on_cpu
 from repro_torch.kernels import build
 from repro_torch.models.attention import (paged_decode_attention,
                                           paged_decode_attention_quant)
@@ -65,19 +66,6 @@ def smem_bytes(G: int, D: int, bs: int) -> int:
     """Dynamic shared memory one CTA of the kernel takes for G query heads
     per kv head, head dim D and page size bs (from the built library)."""
     return _lib().paged_decode_smem_bytes(G, D, bs)
-
-
-def on_cpu(what: str, *tensors) -> bool:
-    """True when every tensor lies on the CPU (run the plain version),
-    False when all are on one CUDA device (launch the kernel); raises for
-    a mix or another device."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"{what}: tensors on several devices {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {dev}")
-    return dev.type == "cpu"
 
 
 def check_paged_args(what, q_layout, q, k_pages, v_pages, block_tables, pos,

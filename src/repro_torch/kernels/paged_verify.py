@@ -21,10 +21,10 @@ import functools
 
 import torch
 
+from repro_torch.device import on_cpu
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_decode import (MAX_SMEM_BYTES, PAGE_DTYPES,
-                                              Q_DTYPES, check_paged_args,
-                                              on_cpu)
+                                              Q_DTYPES, check_paged_args)
 from repro_torch.models.attention import (paged_verify_attention,
                                           paged_verify_attention_quant)
 

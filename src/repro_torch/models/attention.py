@@ -11,44 +11,22 @@ visible key gets the uniform softmax of ``NEG_INF`` fills (garbage the
 callers never read).  These are the plain versions of the CUDA kernels
 (``kernels/paged_decode.py``, ``kernels/paged_verify.py``), which the
 serving path calls for decode, speculative verify and chunked-prefill
-attention; ``flash_attention`` is the plain prefill attention of the
-draft model, as the JAX package runs it.
+attention.
+
+``flash_attention`` is the dispatching entry of whole-prompt attention
+(``kernels/flash_attention.py``): the CUDA flash-attention kernel for
+CUDA tensors, its plain version for CPU tensors.  The monolithic forward
+(the draft model's prefill) calls it causal, the multimodal encoder's
+trunk non-causal.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.quant import dequantize_kv
 
 NEG_INF = -1e30
-
-
-def flash_attention(q, k, v, *, window: int = 0,
-                    scale: float | None = None):
-    """Causal (optionally windowed) GQA attention, forward only: what
-    ``repro/models/attention.py:flash_attention`` computes with
-    ``causal=True``, in one masked softmax instead of its blocked scan.
-
-    q [B, Sq, H, D]; k/v [B, Sk, Hkv, D].  Query i sits at position
-    ``Sk - Sq + i`` (the JAX default ``q_offset``) and sees keys ``<=`` it
-    and, with a window, less than ``window`` behind it.  Scores, softmax
-    and the value product run in fp32; the output has q's type.
-    """
-    B, Sq, H, D = q.shape
-    _, Sk, Hkv, _ = k.shape
-    G = H // Hkv
-    scale = scale if scale is not None else D ** -0.5
-    qg = q.reshape(B, Sq, Hkv, G, D).float()
-    s = torch.einsum("bqhgd,bshd->bhgqs", qg, k.float()) * scale
-    qpos = Sk - Sq + torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    live = kpos <= qpos
-    if window:
-        live &= (qpos - kpos) < window
-    s = torch.where(live, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqs,bshd->bqhgd", p, v.float())
-    return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_positions, pos, *,

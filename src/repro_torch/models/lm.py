@@ -3,8 +3,10 @@
 and MLP sub-blocks, per-layer windows, rope tables and the logits head.
 
 Parameters are a plain dict with the JAX tree's keys; per-layer leaves are
-stacked on dim 0.  Norms accumulate in fp32; matmuls run in the activation
-dtype, with weights cast at the use site as in the JAX package.
+stacked on dim 0.  Norms accumulate in fp32 (RMS norms through the fused
+RMSNorm kernel on the card); matmuls run in the activation dtype, with
+weights cast at the use site as in the JAX package.  Whole-prompt attention
+runs the flash-attention kernel on the card.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models.attention import flash_attention
 from repro_torch.nn.layers import apply_rope, rope_frequencies
 from repro_torch.nn.spec import TensorSpec
@@ -50,18 +53,18 @@ def embed_inputs(cfg: ArchConfig, params, tokens, embeds=None,
 
 
 def _norm(p, x, kind: str, prefix: str):
-    xf = x.float()
+    """The layer's norm: ``rmsnorm``/``rmsnorm_zero`` through the fused
+    RMSNorm kernel (its plain version on the CPU), ``layernorm`` plain
+    (the JAX package has no Pallas layernorm)."""
     if kind == "layernorm":
+        xf = x.float()
         mu = xf.mean(-1, keepdim=True)
         var = xf.var(-1, keepdim=True, unbiased=False)
         y = (xf - mu) * torch.rsqrt(var + 1e-5)
         return (y * p[prefix + "_s"].float()
                 + p[prefix + "_b"].float()).to(x.dtype)
-    var = (xf * xf).mean(-1, keepdim=True)
-    scale = p[prefix + "_s"].float()
-    if kind == "rmsnorm_zero":
-        scale = scale + 1.0
-    return (xf * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
+    return rmsnorm(x, p[prefix + "_s"], eps=1e-6,
+                   zero_centered=kind == "rmsnorm_zero")
 
 
 def _norm_spec(L, dim, kind, prefix):
@@ -76,10 +79,9 @@ def _norm_spec(L, dim, kind, prefix):
 
 
 def _head_rms(x, scale):
-    """Per-head qk-norm. x [..., Dh], scale [Dh]."""
-    xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + 1e-6) * scale.float()).to(x.dtype)
+    """Per-head qk-norm, the same function as the rmsnorm kernel's per
+    row of Dh. x [..., Dh], scale [Dh]."""
+    return rmsnorm(x, scale, eps=1e-6)
 
 
 def _act(name):
@@ -237,9 +239,10 @@ def _ffn(pl, cfg, x):
 
 
 def _attn_layer(cfg: ArchConfig, pl, x, rope, window: int, positions):
-    """One layer over a whole prompt (forward only): causal plain
-    attention over the prompt's own K/V.  Returns (x, (k, v)), the K/V
-    already rope'd, as the cache stores them."""
+    """One layer over a whole prompt (forward only): causal attention over
+    the prompt's own K/V (the flash-attention kernel on the card).
+    Returns (x, (k, v)), the K/V already rope'd, as the cache stores
+    them."""
     cos, sin = rope
     B, S, _ = x.shape
     xn = _norm(pl, x, cfg.norm, "ln1")

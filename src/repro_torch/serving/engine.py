@@ -16,18 +16,26 @@ caller passes ``device="cpu"``); decode attention runs the CUDA paged
 decode kernel there and its plain version on the CPU.
 
 With ``draft_config`` the engine decodes speculatively: each tick a
-draft model (dense cache, plain attention) proposes ``spec_k`` tokens per
-active slot, ``Model.verify_step_paged`` scores them all in one pass
-through the paged verify kernel, and each slot emits the longest agreeing
-prefix plus the target's correction, the tokens plain greedy decode would
-give.
+draft model (dense cache, plain decode attention; its prefill runs the
+flash-attention kernel) proposes ``spec_k`` tokens per active slot,
+``Model.verify_step_paged`` scores them all in one pass through the paged
+verify kernel, and each slot emits the longest agreeing prefix plus the
+target's correction, the tokens plain greedy decode would give.
+
+Multimodal prompts: a request built from ``segments`` (``TextSegment`` /
+``EmbedSegment``, ``serving/segments.py``) carries one key id per position
+(content digests, negative, for media rows) and the media rows' features.
+Each prefill chunk that covers media positions carries the chunk's slice
+of the features, which ``lm.embed_inputs`` injects in place of token
+embeddings; the key ids drive the prefix trie, so two requests with the
+same media share its pages.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the dense cache backend (``paged=False``), monolithic prefill
 (``prefill_chunk=0``), tensor-parallel meshes (``mesh``), admission
-batching (``sorted_batch_sizes``), embedding-span (multimodal) prompts,
-KV snapshot export/import (``export_kv``, ``evacuate``, imported
-requests), and draft models outside the dense attention family.
+batching (``sorted_batch_sizes``), KV snapshot export/import
+(``export_kv``, ``evacuate``, imported requests), and draft models
+outside the dense attention family.
 """
 from __future__ import annotations
 
@@ -77,7 +85,7 @@ class Request:
     tokens: np.ndarray | None = None  # prompt token ids
     max_new_tokens: int = 32
     extra: dict | None = None
-    # ordered modality spans; prompts with media spans are not ported yet
+    # ordered modality spans (text and embedding segments)
     segments: "list | None" = None
     # filled during serving:
     output: list = dataclasses.field(default_factory=list)
@@ -230,6 +238,9 @@ class ServingEngine:
         # the paged verify kernel once per layer on the card
         self._c_prefill_chunks = m.counter("prefill_chunks")
         self._c_verify_steps = m.counter("verify_steps")
+        # draft-model prefills run (speculation): each launches the
+        # flash-attention kernel once per draft layer on the card
+        self._c_draft_prefills = m.counter("draft_prefills")
         # speculative decoding: drafted = spec_k per active slot per tick;
         # accepted = drafts consumed into the output stream; wasted =
         # drafted - accepted (verify compute spent on rejected tokens)
@@ -336,6 +347,31 @@ class ServingEngine:
         out = np.zeros(n_pad, np.int64)
         out[:len(toks)] = np.maximum(toks, 0)
         return self._to_device(out)[None]
+
+    def _padded_embeds(self, feats: np.ndarray, mask: np.ndarray,
+                       n_pad: int):
+        """Right-pad a request's embedding rows + mask to the shape bucket
+        (zeros / False: padded positions are already masked everywhere)."""
+        f = np.zeros((n_pad, feats.shape[1]), np.float32)
+        f[:len(feats)] = feats
+        m = np.zeros(n_pad, bool)
+        m[:len(mask)] = mask
+        return self._to_device(f)[None], self._to_device(m)[None]
+
+    def _with_embeds(self, batch: dict, req: Request, start: int, stop: int,
+                     n_pad: int) -> bool:
+        """Attach the ``[start, stop)`` slice of a multimodal request's
+        embedding rows to a prefill batch; returns whether it did (the
+        flag keys the shape bucket, as the JAX engine's trace variant).  A
+        slice with no embedding positions — a pure-text chunk past the
+        media span, or a suffix whose prefix hit covered the media — stays
+        a plain token batch."""
+        if req.features is None or not req.embed_mask[start:stop].any():
+            return False
+        e, m = self._padded_embeds(req.features[start:stop],
+                                   req.embed_mask[start:stop], n_pad)
+        batch["embeds"], batch["embed_mask"] = e, m
+        return True
 
     def _note_trace(self, key: tuple):
         """Book a prefill shape; first sightings bump
@@ -463,7 +499,8 @@ class ServingEngine:
                      toks[task.done:task.done + n], Cb),
                  "pos": task.done, "length": n,
                  "block_tables": self._to_device(self.tables[slot][None])}
-        self._note_trace(("prefill_chunk", Cb))
+        mm = self._with_embeds(batch, req, task.done, task.done + n, Cb)
+        self._note_trace(("prefill_chunk", Cb, mm))
         t0 = self._now() if self._tr is not None else 0.0
         task.logits, self.cache = self.model.prefill_chunk_paged(
             self.params, self.cache, batch)
@@ -563,7 +600,15 @@ class ServingEngine:
         if req.tokens is None:
             raise ValueError(f"request {req.uid}: no tokens or segments")
         if req.features is not None:
-            raise _unported("embedding-span (multimodal) prompts", "item 9")
+            if not self.model.supports_embed_spans:
+                raise ValueError(
+                    f"request {req.uid}: embedding-span prompts need an "
+                    f"attention-family model, not {self.model.cfg.name}")
+            if req.features.shape[1] != self.model.cfg.d_model:
+                raise ValueError(
+                    f"request {req.uid}: segment features of dim "
+                    f"{req.features.shape[1]} do not match the model's "
+                    f"d_model={self.model.cfg.d_model}")
         if req.imported is not None:
             raise _unported("admission from an imported KV snapshot",
                             "item 5")
@@ -644,7 +689,10 @@ class ServingEngine:
 
     def _draft_install(self, slot: int, tokens):
         """(Re)build the draft model's dense-cache state for ``slot`` by
-        prefilling ``tokens`` with the draft weights."""
+        prefilling ``tokens`` with the draft weights.  Media key ids are
+        clamped to token 0 (``_padded_prompt``), as the JAX engine does, so
+        draft quality may drop over embedding spans; verification keeps
+        the emitted stream independent of draft quality."""
         toks = np.asarray(tokens, np.int64)
         T = len(toks)
         Sb = self._bucket(T)
@@ -653,6 +701,7 @@ class ServingEngine:
             batch["length"] = self._to_device(np.asarray([T], np.int32))
         self._note_trace(("draft_prefill", Sb))
         _, rc = self.draft_model.prefill(self.draft_params, batch)
+        self._c_draft_prefills.inc()
         self._draft_cache = self._splice_cache(self._draft_cache, slot, rc)
 
     def acceptance_rate(self, default: float = 0.6) -> float:

@@ -2,8 +2,9 @@
 the same request streams give identical ``Request.output`` and identical
 page-bookkeeping stats, with bf16 and int8 pools.  int8 runs are held to
 the JAX int8 engine, never to a bf16 one.  Also: unported knobs raise
-``NotImplementedError``, the port imports neither JAX nor the JAX package,
-and an engine with no device named needs a CUDA card."""
+``NotImplementedError`` (media requests no longer do), the port imports
+neither JAX nor the JAX package, and an engine with no device named needs
+a CUDA card."""
 import ast
 import pathlib
 
@@ -152,13 +153,17 @@ def test_unported_knobs_raise(knob):
 
 
 def test_unported_requests_raise():
+    """KV snapshot export still raises; a media request, once unported,
+    is now accepted and served to its budget."""
     from repro_torch.serving.segments import EmbedSegment, TextSegment
     eng = _reduced_engine()
     media = Request(0, segments=[EmbedSegment(np.zeros((3, 64),
                                                        np.float32)),
-                                 TextSegment(np.arange(4))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(media)
+                                 TextSegment(np.arange(4))],
+                    max_new_tokens=3)
+    assert eng.submit(media) is media
+    eng.run_until_drained()
+    assert media.done and len(media.output) == 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.export_kv(0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
