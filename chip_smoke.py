@@ -8,8 +8,9 @@ exits non-zero without printing a result:
 
   1. device: the card's name and ``nvidia-smi`` name and power limit;
   2. build: compiles ``kernels/csrc/paged_decode.cu``, ``paged_verify.cu``,
-     ``flash_attention.cu`` and ``rmsnorm.cu`` for sm_90a, all nvcc runs
-     at once (seconds, registers, shared memory, spills);
+     ``flash_attention.cu``, ``rmsnorm.cu`` and ``flash_decode.cu`` for
+     sm_90a, all nvcc runs at once (seconds, registers, shared memory,
+     spills);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (verify also at
@@ -18,13 +19,18 @@ exits non-zero without printing a result:
      to 1024), gemma3-1b's windowed layers, llama3.2-3b's heads and the
      encoder's non-causal D 448; the fused RMSNorm at a decode tick, a
      prefill chunk and the CPU tests' shapes, bf16 and fp32 x and scale,
-     zero-centred or not;
+     zero-centred or not; flash decode over bf16, fp32 and int8 caches
+     with bf16 and fp32 queries at the CPU tests' cases, qwen2-0.5b's
+     serving shape (B 8, max_seq 1024, contexts 60-1000, a parked slot),
+     gemma3-1b's windowed layers, llama3.2-3b's heads and the reduced
+     configs' D 16;
   4. kernel, plain version and one library call's times at the main
      path's shapes (decode: B 8; verify: the speculative B 8, T 4 and the
      prefill chunk B 1, T 64; flash attention: the encoder's batch at
      S 256 and the draft's prefill buckets; RMSNorm: [8, 896] and
-     [64, 896]), beside the least time the card could take, and the
-     kernel held to its plain version there;
+     [64, 896]; flash decode: the dense cache at B 8, max_seq 1024),
+     beside the least time the card could take, and the kernel held to
+     its plain version there;
   5. the text path: qwen2-0.5b at full width and depth (random seeded
      bf16 weights) serves 12 requests through ``ServingEngine`` with a
      bf16 and an int8 pool; decode launches must equal n_layers x decode
@@ -34,24 +40,33 @@ exits non-zero without printing a result:
      drafted by the target's own weights and an int8 pool drafted by a
      4-layer cut of the target; verify launches must equal n_layers x
      (verify passes + prefill chunks), flash-attention launches draft
-     layers x draft prefills, the self-draft must accept half its drafts
-     or more;
+     layers x draft prefills, flash-decode launches draft layers x draft
+     decode steps, the self-draft must accept half its drafts or more;
   7. the multimodal path: procedural images (32x32 and 128x128) and audio
      go through the edge encoder (fig11's settings at d 896, fp32) on the
      card, and 12 requests of text head + media span + text tail go
      through the same engine (bf16 pool, int8 pool, bf16 pool with
      speculation); a repeated image must be served from the prefix trie
      and every kernel's launches must equal what the run's steps imply;
-  8. a window of PROFILE_STEPS engine steps of the bf16 text path, run
+  8. the dense backend and monolithic prefill: the same 12 text requests
+     through a dense engine with chunked prefill, a dense engine with
+     monolithic prefill and paged engines with monolithic prefill (bf16
+     and int8 pools, prefix hits through ``prefill_with_prefix``);
+     flash-decode launches must equal n_layers x dense decode steps,
+     flash-attention launches n_layers x monolithic prefills; the streams
+     of the dense and paged runs are compared and printed (bf16 near-ties
+     may differ);
+  9. a window of PROFILE_STEPS engine steps of the bf16 text path, run
      once plainly and once under ``torch.profiler`` with the engine's trace
      spans: device busy share, engine-span totals, top kernels by device
      time;
-  9. reduced qwen2-0.5b and gemma3-1b in fp32, text and multimodal
+  10. reduced qwen2-0.5b and gemma3-1b in fp32, text and multimodal
      requests: the engine on the CPU (plain versions) and on the card
-     (kernels) give identical tokens, speculative engines included, and
-     speculation on the card gives the tokens of plain decode; the reduced
-     encoder on the card gives the CPU's features;
- 10. one JSON line for the kernels, then the result line.
+     (kernels) give identical tokens, speculative, dense (chunked and
+     monolithic) and paged monolithic engines included, and speculation
+     on the card gives the tokens of plain decode; the reduced encoder on
+     the card gives the CPU's features;
+ 11. one JSON line for the kernels, then the result line.
 
 Needs a CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
 ``src`` directory beside this file.
@@ -78,8 +93,11 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.data.taskgen import make_taskset  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, paged_verify  # noqa: E402
+from repro_torch.kernels import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_ref)
+from repro_torch.kernels.flash_decode import (  # noqa: E402
+    flash_decode_quant_ref, flash_decode_ref)
 from repro_torch.kernels.paged_decode import (  # noqa: E402
     paged_decode_quant_ref, paged_decode_ref, smem_bytes)
 from repro_torch.kernels.paged_verify import (  # noqa: E402
@@ -122,30 +140,39 @@ TOL = {"paged_decode": dict(atol=5e-2, rtol=5e-2),
        "paged_verify": dict(atol=5e-2, rtol=5e-2),
        "paged_verify_quant": dict(atol=5e-3, rtol=5e-3),
        "flash_attention": dict(atol=5e-2, rtol=5e-2),
-       "rmsnorm": dict(atol=5e-2, rtol=5e-2)}
+       "rmsnorm": dict(atol=5e-2, rtol=5e-2),
+       "flash_decode": dict(atol=5e-2, rtol=5e-2),
+       "flash_decode_quant": dict(atol=5e-3, rtol=5e-3)}
 SOURCES = {"paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "paged_verify": "src/repro_torch/kernels/csrc/paged_verify.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu"}
+           "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+           "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu"}
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:92",
             "paged_decode_quant": "src/repro/kernels/paged_decode.py:137",
             "paged_verify": "src/repro/kernels/paged_verify.py:95",
             "paged_verify_quant": "src/repro/kernels/paged_verify.py:147",
             "flash_attention": "src/repro/kernels/flash_attention.py:84",
-            "rmsnorm": "src/repro/kernels/rmsnorm.py:23"}
+            "rmsnorm": "src/repro/kernels/rmsnorm.py:23",
+            "flash_decode": "src/repro/kernels/flash_decode.py:71",
+            "flash_decode_quant": "src/repro/kernels/flash_decode.py:125"}
 WRAPPERS = {"paged_decode": ops.paged_decode,
             "paged_decode_quant": ops.paged_decode_quant,
             "paged_verify": ops.paged_verify,
             "paged_verify_quant": ops.paged_verify_quant,
             "flash_attention": ops.flash_attention,
-            "rmsnorm": ops.rmsnorm}
+            "rmsnorm": ops.rmsnorm,
+            "flash_decode": ops.flash_decode,
+            "flash_decode_quant": ops.flash_decode_quant}
 PLAINS = {"paged_decode": paged_decode_ref,
           "paged_decode_quant": paged_decode_quant_ref,
           "paged_verify": paged_verify_ref,
           "paged_verify_quant": paged_verify_quant_ref,
           "flash_attention": flash_attention_ref,
-          "rmsnorm": rmsnorm_ref}
+          "rmsnorm": rmsnorm_ref,
+          "flash_decode": flash_decode_ref,
+          "flash_decode_quant": flash_decode_quant_ref}
 SPEC_K = 3
 # the edge encoder of the multimodal path: fig11's settings at qwen2-0.5b's
 # width (benchmarks/fig11_multimodal_split.py:78), fp32, seeded params
@@ -179,6 +206,19 @@ FLASH_CASES = [
 # RMSNorm held to its plain version: a decode tick and a prefill chunk of
 # qwen2-0.5b, then test_kernels.py::test_rmsnorm's shapes
 RMS_SHAPES = [(8, 896), (64, 896), (3, 50, 96), (7, 128), (260, 64)]
+# flash decode held to its plain version: (B, S, H, Hkv, D, window,
+# engine), test_kernels.py::test_flash_decode's cases (full caches), then
+# caches as the engines leave them (``engine``: -1 past each context, the
+# query up to 3 positions before the last entry, a parked slot at pos = S):
+# qwen2-0.5b's serving shape, gemma3-1b's windowed local layers,
+# llama3.2-3b's heads and the reduced configs' D 16
+DECODE_CASES = [
+    (2, 96, 8, 2, 64, 0, False), (2, 128, 4, 4, 32, 24, False),
+    (1, 70, 8, 1, 64, 0, False), (8, 1024, 14, 2, 64, 0, True),
+    (2, 1024, 4, 1, 256, 512, True), (4, 512, 24, 8, 128, 0, True),
+    (3, 64, 4, 2, 16, 0, True)]
+# the dense cache's contexts at the main path's decode shape
+DENSE_CTX = np.asarray([60, 150, 290, 400, 520, 640, 760, 1000])
 
 
 def check(cond: bool, msg: str):
@@ -272,6 +312,51 @@ def quantized(k, v):
     return k8, v8, ks, vs
 
 
+def dense_case(rng, B, S, H, Hkv, D, engine, *, layers=0, ctx=None):
+    """Random dense caches [B, S, Hkv, D] (fp32, on the card; with
+    ``layers``, [layers, B, S, Hkv, D]), cache_positions [B, S] int32 and
+    q [B, H, D] at pos [B].  Without ``engine``: every entry holds its
+    index and pos lies in [S/2, S) (test_kernels.py).  With it: slot b
+    holds ``ctx[b]`` entries (random if None), -1 past them, the query
+    sits up to 3 positions before the last entry (stale entries past it,
+    as a rejected draft chain leaves them) and, for B > 2, the last slot
+    is parked at pos = S.  Returns (q, k, v, cpos, pos, rows): ``rows``
+    the slots that see a key."""
+    dev = torch.device("cuda")
+    lead = (layers,) if layers else ()
+    q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    k = torch.randn(lead + (B, S, Hkv, D), device=dev)
+    v = torch.randn(lead + (B, S, Hkv, D), device=dev)
+    cpos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    if not engine:
+        pos = rng.integers(S // 2, S, B).astype(np.int32)
+    else:
+        if ctx is None:
+            ctx = rng.integers(S // 8, S + 1, B)
+        pos = np.zeros(B, np.int32)
+        for b, n in enumerate(ctx):
+            cpos[b, n:] = -1
+            pos[b] = max(n - 1 - int(rng.integers(0, 4)), 0)
+        if B > 2:
+            pos[-1] = S
+    rows = [b for b in range(B) if ((cpos[b] >= 0) & (cpos[b] <= pos[b]))
+            .any()]
+    return (q.to(dev), k, v, torch.from_numpy(cpos).to(dev),
+            torch.from_numpy(pos).to(dev), rows)
+
+
+def dense_quantized(k, v, cpos):
+    """Dense caches -> int8 caches + fp32 row scales, with the scales of
+    every empty entry poisoned (``cpos`` [B, S, 1] -1): they must never
+    be read."""
+    k8, ks = quantize_kv(k)
+    v8, vs = quantize_kv(v)
+    empty = (cpos < 0).expand(ks.shape)
+    ks[empty] = 1e6
+    vs[empty] = 1e6
+    return k8, v8, ks, vs
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -289,7 +374,7 @@ def phase_device() -> str:
 
 
 def phase_build():
-    """Both sources at once, one nvcc each."""
+    """Every source at once, one nvcc each."""
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
         infos = dict(zip(SOURCES, pool.map(build.build, SOURCES)))
     for name, info in infos.items():
@@ -303,6 +388,11 @@ def phase_build():
           "rows per CTA; dynamic shared memory per CTA " + ", ".join(
               f"D {D}: {flash_attention.smem_bytes(D)} bytes"
               for D in flash_attention.HEAD_DIMS))
+    print(f"[build]   flash decode: {flash_decode.tile_keys()} keys per "
+          "staged tile; dynamic shared memory per CTA " + ", ".join(
+              f"{arch} (G={H // Hkv}, D={D}): "
+              f"{flash_decode.smem_bytes(H // Hkv, D)} bytes"
+              for arch, H, Hkv, D, _ in WIDTHS))
     rows = paged_verify.tile_rows()
     for arch, H, Hkv, D, _ in WIDTHS:
         G = H // Hkv
@@ -416,6 +506,31 @@ def phase_compare(rng) -> dict:
         print(f"[compare] rmsnorm {list(shape)}: bf16 and fp32 x and scale, "
               f"zero-centred or not, agree with the plain version; max "
               f"|err| vs fp32 plain {err_max:.3g}")
+    for B, S, H, Hkv, D, window, engine in DECODE_CASES:
+        q, k, v, cpos, pos, rows = dense_case(rng, B, S, H, Hkv, D, engine)
+        kb, vb = k.bfloat16(), v.bfloat16()
+        k8, v8, ks, vs = dense_quantized(kb, vb, cpos[..., None])
+        errs = []
+        for qd in (q.bfloat16(), q):
+            runs = [("flash_decode", "bf16", (qd, kb, vb, cpos, pos)),
+                    ("flash_decode", "fp32", (qd, k, v, cpos, pos)),
+                    ("flash_decode_quant", "int8",
+                     (qd, k8, v8, ks, vs, cpos, pos))]
+            for name, cache, args in runs:
+                out = WRAPPERS[name](*args, window=window)
+                err32, err = hold(name, out, args, dict(window=window), rows,
+                                  f"B={B} S={S} H={H} D={D} {cache} cache "
+                                  f"q {qd.dtype}")
+                dead = [b for b in range(B) if b not in rows]
+                check(not out.float()[dead].any(),
+                      f"{name}: rows with no key are not zero")
+                worst[name] = max(worst[name], err)
+                errs.append(f"{cache} cache, {str(qd.dtype)[6:]} q "
+                            f"{err32:.3g}")
+        print(f"[compare] flash decode B={B} S={S} H={H} Hkv={Hkv} D={D} "
+              f"window={window}{', engine-like cache' if engine else ''}: "
+              f"bf16, fp32 and int8 caches, bf16 and fp32 q agree with the "
+              f"plain version; max |err| vs fp32 plain: " + ", ".join(errs))
     return worst
 
 
@@ -535,18 +650,23 @@ def phase_timing(rng, smi: str) -> dict:
 
 def _time_call(name, label, args, kw, nbytes, nops, peak, library,
                smi) -> dict:
-    """Kernel, plain version and one library call (``library()``, a
-    yardstick the port never calls) at one shape, the kernel held to its
-    plain version there; the bound is the larger of ``nbytes`` over the
-    HBM rate and ``nops`` over the peak rate of ``peak``'s type."""
+    """Kernel, plain version and one library call (``library(i)``, a
+    yardstick the port never calls, for call i) at one shape, the kernel
+    held to its plain version there; ``args`` is one argument tuple or a
+    list of them, one per layer, taken in turn so that consecutive calls
+    read HBM as the model does.  The bound is the larger of ``nbytes``
+    over the HBM rate and ``nops`` over the peak rate of ``peak``'s
+    type."""
     wrapper, ref = WRAPPERS[name], PLAINS[name]
-    err32, err = hold(name, wrapper(*args, **kw), args, kw, slice(None),
-                      f"{label} shapes")
+    layers = args if isinstance(args, list) else [args]
+    L = len(layers)
+    err32, err = hold(name, wrapper(*layers[0], **kw), layers[0], kw,
+                      slice(None), f"{label} shapes")
     bytes_s = nbytes / HBM_BYTES_PER_S
     ops_s = nops / PEAK_OPS_PER_S[peak]
-    row = {"ms": cuda_ms(lambda i=0: wrapper(*args, **kw), 240),
-           "plain_ms": cuda_ms(lambda i=0: ref(*args, **kw), 48),
-           "library_ms": cuda_ms(lambda i=0: library(), 240),
+    row = {"ms": cuda_ms(lambda i=0: wrapper(*layers[i % L], **kw), 240),
+           "plain_ms": cuda_ms(lambda i=0: ref(*layers[i % L], **kw), 48),
+           "library_ms": cuda_ms(library, 240),
            "bound_ms": max(bytes_s, ops_s) * 1e3,
            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
            "main_shapes_max_abs_err": err}
@@ -589,7 +709,7 @@ def phase_timing_new(smi: str) -> dict:
         pairs = B * (S * (S + 1) // 2 if causal else S * S)
         nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
 
-        def library(qt=qt, kt=kt, vt=vt, causal=causal):
+        def library(i=0, qt=qt, kt=kt, vt=vt, causal=causal):
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            enable_gqa=True)
 
@@ -607,13 +727,65 @@ def phase_timing_new(smi: str) -> dict:
         nbytes = 2 * x.numel() * x.element_size() \
             + scale.numel() * scale.element_size()
 
-        def library(x=x, scale=scale):
+        def library(i=0, x=x, scale=scale):
             F.rms_norm(x, (x.shape[-1],), weight=scale, eps=1e-6)
 
         row = _time_call("rmsnorm", f"{label} {list(shape)} {str(dt)[6:]}",
                          (x, scale), {}, nbytes, 3 * x.numel(), dt, library,
                          smi)
         out.setdefault("rmsnorm", row)
+    out.update(_time_flash_decode(smi))
+    return out
+
+
+def _time_flash_decode(smi: str) -> dict:
+    """Flash decode at the dense path's decode shape: qwen2-0.5b heads
+    (14/2, D 64), B 8, a max_seq 1024 cache per layer (24 of them, taken
+    in turn) holding the contexts DENSE_CTX (3820 keys, -1 past each),
+    bf16 and int8 caches, bf16 q.  The bound counts q and the output, every
+    cache_positions entry and pos, and each visible K/V row (int8: and its
+    two fp32 scales) once, against the q.k and p.v multiply-adds at the
+    cache type's peak; the yardstick is SDPA on each layer's cache viewed
+    [B, Hkv, S, D] (``enable_gqa``) with a per-row mask of the visible
+    keys (int8: on the cache dequantized to bf16 beforehand, not
+    timed)."""
+    L, B, S, H, Hkv, D = 24, 8, 1024, 14, 2, 64
+    rng = np.random.default_rng(3)
+    q, k, v, cpos, pos, _ = dense_case(rng, B, S, H, Hkv, D, True,
+                                       layers=L, ctx=DENSE_CTX)
+    pos = torch.from_numpy(DENSE_CTX.astype(np.int32) - 1).to(q.device)
+    q = q.bfloat16()
+    kb, vb = k.bfloat16(), v.bfloat16()
+    del k, v
+    k8, v8, ks, vs = dense_quantized(kb, vb, cpos[..., None])
+    keys = int(DENSE_CTX.sum())
+    mask = ((cpos >= 0) & (cpos <= pos[:, None]))[:, None, None, :]
+    qs = q[:, :, None]  # [B, H, 1, D]
+    io = 2 * q.numel() * q.element_size() + cpos.numel() * 4 + B * 4
+    out = {}
+    for name, caches in (("flash_decode", (kb, vb)),
+                         ("flash_decode_quant", (k8, v8, ks, vs))):
+        nbytes = io + 2 * keys * Hkv * D * caches[0].element_size()
+        if len(caches) == 4:
+            nbytes += 2 * keys * Hkv * 4  # fp32 row scales
+            kg = (k8.float() * ks[..., None]).bfloat16()
+            vg = (v8.float() * vs[..., None]).bfloat16()
+        else:
+            kg, vg = kb, vb
+        layers = [tuple(c[l] for c in caches) + (cpos, pos)
+                  for l in range(L)]
+
+        def library(i=0, kg=kg, vg=vg):
+            F.scaled_dot_product_attention(
+                qs, kg[i % L].transpose(1, 2), vg[i % L].transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        out[name] = _time_call(
+            name, f"dense decode: B={B} S={S} H={H}/{Hkv} D={D}, "
+            f"{'int8' if len(caches) == 4 else 'bf16'} cache, contexts "
+            f"{DENSE_CTX.tolist()}", [(q,) + lay for lay in layers], {},
+            nbytes, 4 * H * D * keys, caches[0].dtype, library, smi)
+        del kg, vg
     return out
 
 
@@ -775,8 +947,10 @@ def _cut_draft(cfg, params, n_layers):
 def phase_speculation(model, params, streams, smi: str) -> dict:
     """The speculative path at full width: the 12 requests with spec_k=3,
     a bf16 pool drafted by the target itself and an int8 pool drafted by a
-    4-layer cut of it.  Returns each verify kernel's launches in its
-    pool's run."""
+    4-layer cut of it.  The draft's decode steps run the flash-decode
+    kernel, n_layers of the draft per step.  Returns each verify kernel's
+    launches in its pool's run and the self-draft's flash-decode
+    launches."""
     cfg = model.cfg
     L = cfg.n_layers
     launches = {}
@@ -791,11 +965,14 @@ def phase_speculation(model, params, streams, smi: str) -> dict:
                                  spec_k=SPEC_K)
         wall, counts, st = _drive(eng, reqs)
         ticks, chunks = st["verify_steps"], st["prefill_chunks"]
-        installs = st["draft_prefills"]
+        installs, dsteps = st["draft_prefills"], st["draft_steps"]
+        check(dsteps == SPEC_K * ticks, f"{dsteps} draft steps in {ticks} "
+              f"ticks of spec_k={SPEC_K}")
         q = "_quant" if kv_dtype == "int8" else ""
         want = {n: 0 for n in WRAPPERS}
         want[f"paged_verify{q}"] = L * (ticks + chunks)
         want["flash_attention"] = dcfg.n_layers * installs
+        want["flash_decode"] = dcfg.n_layers * dsteps
         want["rmsnorm"] = (norms_per_step(cfg) * (ticks + chunks)
                            + norms_per_step(dcfg) * (SPEC_K * ticks
                                                      + installs))
@@ -803,6 +980,8 @@ def phase_speculation(model, params, streams, smi: str) -> dict:
               f"{counts}, want {want} ({ticks} verify passes, {chunks} "
               f"prefill chunks, {installs} draft prefills)")
         launches[f"paged_verify{q}"] = counts[f"paged_verify{q}"]
+        if dparams is params:
+            launches["flash_decode"] = counts["flash_decode"]
         rate = eng.acceptance_rate()
         if dparams is params:
             check(rate >= 0.5, f"self-draft acceptance {rate:.3f} < 0.5: "
@@ -829,7 +1008,9 @@ def phase_speculation(model, params, streams, smi: str) -> dict:
               f"{len(reqs)}; launches: paged_verify{q} "
               f"{counts[f'paged_verify{q}']} = {L} x ({ticks} + {chunks}), "
               f"flash_attention {want['flash_attention']} = "
-              f"{dcfg.n_layers} x {installs} draft prefills, rmsnorm "
+              f"{dcfg.n_layers} x {installs} draft prefills, flash_decode "
+              f"{want['flash_decode']} = {dcfg.n_layers} x {dsteps} draft "
+              f"steps, rmsnorm "
               f"{want['rmsnorm']} = {norms_per_step(cfg)} x ({ticks} + "
               f"{chunks}) + {norms_per_step(dcfg)} x ({SPEC_K} x {ticks} + "
               f"{installs}) ({smi})")
@@ -908,8 +1089,9 @@ def phase_multimodal(model, params, smi: str) -> dict:
     Launches must be exactly: flash attention = encoder layers x 3 encode
     calls (+ draft layers x draft prefills); RMSNorm = the norms of every
     encode call, decode step, prefill chunk, verify pass, draft step and
-    draft prefill; the paged kernels of the run's pool as on the text path;
-    nothing of the other pool.  Returns the speculative run's counts."""
+    draft prefill; flash decode = n_layers x draft steps; the paged
+    kernels of the run's pool as on the text path; nothing of the other
+    pool.  Returns the speculative run's counts."""
     cfg = model.cfg
     L, Le = cfg.n_layers, ENC_CFG.n_layers
     t0 = time.perf_counter()
@@ -949,6 +1131,7 @@ def phase_multimodal(model, params, smi: str) -> dict:
         q = "_quant" if kv_dtype == "int8" else ""
         want = {n: 0 for n in WRAPPERS}
         want["flash_attention"] = Le * 3 + L * installs
+        want["flash_decode"] = L * st["draft_steps"]
         want["rmsnorm"] = (norms_per_step(cfg) * (steps + chunks + ticks)
                            + encoder_norms() * 3
                            + norms_per_step(cfg) * (SPEC_K * ticks
@@ -994,6 +1177,70 @@ def phase_multimodal(model, params, smi: str) -> dict:
               f"{_latency_line(st, wall)}{extra}; launches " +
               ", ".join(f"{n} {c}" for n, c in counts.items() if c) +
               f" ({smi})")
+    return out
+
+
+def phase_dense(model, params, streams, smi: str) -> dict:
+    """The dense backend and monolithic prefill at full width: the 12 text
+    requests of phase 5 through a dense engine with chunked prefill
+    (``prefill_chunk=64``; its chunks attend through the plain version, as
+    in the JAX package), a dense engine with monolithic prefill and paged
+    engines with monolithic prefill (bf16 and int8 pools; the prompts that
+    share a prefix attend it through ``prefill_with_prefix``).  Launches
+    must be exactly: flash decode = n_layers x dense decode steps; flash
+    attention = n_layers x monolithic prefills, with or without a prefix;
+    the paged decode kernel of the pool n_layers x paged decode steps;
+    RMSNorm the norms of every step, chunk and prefill; nothing else.
+    Returns the dense chunked run's flash-decode launches."""
+    cfg = model.cfg
+    L, nps = cfg.n_layers, norms_per_step(cfg)
+    runs = [("dense, chunked", "bf16", dict(paged=False)),
+            ("dense, monolithic", "bf16", dict(paged=False, prefill_chunk=0)),
+            ("paged bf16, monolithic", "bf16", dict(prefill_chunk=0)),
+            ("paged int8, monolithic", "int8", dict(prefill_chunk=0))]
+    out, got = {}, {}
+    for label, kv_dtype, kw in runs:
+        eng, reqs = _warm_engine(model, params, kv_dtype, **kw)
+        wall, counts, st = _drive(eng, reqs)
+        steps, chunks = st["decode_steps"], st["prefill_chunks"]
+        prefills, sfx = st["prefills"], st["suffix_prefills"]
+        want = {n: 0 for n in WRAPPERS}
+        want["rmsnorm"] = nps * (steps + chunks + prefills)
+        want["flash_attention"] = L * prefills
+        q = "_quant" if kv_dtype == "int8" else ""
+        decode = "flash_decode" if not eng.paged else f"paged_decode{q}"
+        want[decode] = L * steps
+        check(counts == want, f"{label} launched {counts}, want {want} "
+              f"({steps} decode steps, {chunks} prefill chunks, {prefills} "
+              f"monolithic prefills)")
+        check(eng.chunked == (chunks > 0 and prefills == 0),
+              f"{label}: {chunks} chunks, {prefills} monolithic prefills")
+        if eng.paged:
+            check(sfx > 0 and st["prefix_hits"] > 0,
+                  f"{label}: no prefill_with_prefix ({sfx}) or prefix hit")
+        got[label] = [tuple(r.output) for r in reqs]
+        if label == "dense, chunked":
+            out["flash_decode"] = counts["flash_decode"]
+        same = sum(a == b for a, b in zip(got[label], streams[kv_dtype]))
+        print(f"[dense] {label}: 12 requests, prompts "
+              f"{sum(len(r.tokens) for r in reqs)} tokens "
+              f"({st['prefix_tokens_reused']} reused) in {chunks} prefill "
+              f"chunks and {prefills} monolithic prefills ({sfx} against a "
+              f"cached prefix), {st['decode_tokens']} decode tokens in "
+              f"{steps} decode steps, {wall:.3f} s wall; "
+              f"{_latency_line(st, wall)}; streams equal to the paged "
+              f"chunked {kv_dtype} run (phase 5): {same} of {len(reqs)}; "
+              f"launches: {decode} {want[decode]} = {L} x {steps}, "
+              f"flash_attention {want['flash_attention']} = {L} x "
+              f"{prefills}, rmsnorm {want['rmsnorm']} = {nps} x ({steps} + "
+              f"{chunks} + {prefills}) ({smi})")
+    mono = got["dense, monolithic"]
+    same = [sum(a == b for a, b in zip(got[other], mono))
+            for other in ("dense, chunked", "paged bf16, monolithic")]
+    print(f"[dense] streams equal to the dense monolithic run: dense chunked "
+          f"{same[0]} of 12, paged bf16 monolithic {same[1]} of 12 (bf16 "
+          f"near-ties may flip; identity is held in fp32 at reduced size, "
+          f"phase 10)")
     return out
 
 
@@ -1091,7 +1338,8 @@ def reduced_mm_features(d_model) -> dict:
 def phase_reduced_parity():
     """fp32 at reduced size, where greedy tokens are sound to compare: the
     CPU engine (plain versions) and the CUDA engine (kernels) agree, plain
-    and speculative (self-draft, spec_k=3), and speculation on the card
+    and speculative (self-draft, spec_k=3), dense (chunked and monolithic)
+    and paged monolithic (bf16 and int8), and speculation on the card
     gives the tokens of plain decode; for text requests and for 12
     multimodal requests (features from the reduced encoder, which must
     give the CPU's features on the card)."""
@@ -1106,26 +1354,30 @@ def phase_reduced_parity():
         prompts += [np.concatenate([shared, rng.integers(0, cfg.vocab, 5)])
                     for _ in range(3)]
         feats = reduced_mm_features(cfg.d_model)
+
+        def serve(dev, params, **kw):
+            eng = ServingEngine(model, params, max_batch=3, max_seq=128,
+                                device=dev, **{**dict(
+                                    page_size=8, prefill_chunk=16), **kw})
+            reqs = [Request(i, p, max_new_tokens=8)
+                    for i, p in enumerate(prompts)]
+            reqs += mm_requests(cfg.vocab, feats, new_tokens=8,
+                                heads=(3, 9), tails=(4, 17))
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_drained()
+            check(eng.prefix_tokens_reused > 0 or not eng.paged,
+                  f"{arch} {kw} {dev}: no prefix reuse")
+            return [tuple(r.output) for r in reqs]
+
+        devices = (("cpu", cpu_params), ("cuda", gpu_params))
         for kv_dtype in ("bf16", "int8"):
             outs = {}
-            for (dev, params), spec in itertools.product(
-                    (("cpu", cpu_params), ("cuda", gpu_params)),
-                    (False, True)):
+            for (dev, params), spec in itertools.product(devices,
+                                                         (False, True)):
                 kw = dict(draft_config=cfg, draft_params=params,
                           spec_k=SPEC_K) if spec else {}
-                eng = ServingEngine(model, params, max_batch=3, max_seq=128,
-                                    page_size=8, kv_dtype=kv_dtype,
-                                    prefill_chunk=16, device=dev, **kw)
-                reqs = [Request(i, p, max_new_tokens=8)
-                        for i, p in enumerate(prompts)]
-                reqs += mm_requests(cfg.vocab, feats, new_tokens=8,
-                                    heads=(3, 9), tails=(4, 17))
-                for r in reqs:
-                    eng.submit(r)
-                eng.run_until_drained()
-                check(eng.prefix_tokens_reused > 0, f"{arch} {kv_dtype} "
-                      f"{dev}: no prefix reuse")
-                outs[dev, spec] = [tuple(r.output) for r in reqs]
+                outs[dev, spec] = serve(dev, params, kv_dtype=kv_dtype, **kw)
             for a, b, what in (
                     (("cpu", False), ("cuda", False), "CPU and CUDA engines"),
                     (("cpu", True), ("cuda", True),
@@ -1141,6 +1393,19 @@ def phase_reduced_parity():
                   f"the card speculation gives the tokens of plain decode; "
                   f"the reduced encoder (d {cfg.d_model}) gives the CPU's "
                   f"features on the card")
+        for label, kw in (
+                ("dense chunked", dict(paged=False)),
+                ("dense monolithic", dict(paged=False, prefill_chunk=0)),
+                ("paged bf16 monolithic", dict(prefill_chunk=0)),
+                ("paged int8 monolithic", dict(prefill_chunk=0,
+                                               kv_dtype="int8"))):
+            cpu, cuda = (serve(dev, params, **kw) for dev, params in devices)
+            check(cpu == cuda, f"{arch} {label}: CPU and CUDA engines "
+                  f"disagree:\n{cpu}\n{cuda}")
+            print(f"[parity] reduced {arch} fp32, {label} engine: CPU "
+                  f"(plain) and CUDA (kernels) engines give identical tokens "
+                  f"for {len(prompts)} text and {len(MM_ORDER)} multimodal "
+                  f"requests")
 
 
 def _tree_map(fn, tree):
@@ -1165,18 +1430,25 @@ def main():
     launches, streams = phase_main_path(model, params, smi)
     spec_launches = phase_speculation(model, params, streams, smi)
     mm_launches = phase_multimodal(model, params, smi)
+    dense_launches = phase_dense(model, params, streams, smi)
     phase_profile(model, params, smi)
     del params
     phase_reduced_parity()
     kernels = []
     for name in WRAPPERS:
         t = timing[name]
-        # decode kernels: the text path's launches; verify kernels: the
-        # speculative text path's (verify passes and prefill chunks);
+        # paged decode kernels: the text path's launches; verify kernels:
+        # the speculative text path's (verify passes and prefill chunks);
         # flash attention and RMSNorm: the speculative multimodal path's
-        # (encoder, draft prefills, every step's norms)
+        # (encoder, draft prefills, every step's norms); flash decode: the
+        # dense chunked run's (phase 8); its int8 instance: no serving path
+        # launches it (every run above held its count to 0)
         if name in ("flash_attention", "rmsnorm"):
             n = mm_launches[name]
+        elif name == "flash_decode":
+            n = dense_launches[name]
+        elif name == "flash_decode_quant":
+            n = 0
         else:
             n = spec_launches.get(name, launches[name])
         kernels.append({

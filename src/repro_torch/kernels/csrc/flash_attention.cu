@@ -7,8 +7,9 @@
 // non-causal attention of the multimodal encoder's trunk
 // (models/mm_encoder.py, fp32, D 448 at qwen2-0.5b's width with two
 // heads) and for the causal attention of the monolithic forward
-// (models/lm.py:_attn_layer), which the draft model's bucketed prefill
-// runs on the speculative path.
+// (models/lm.py:_attn_layer), which every whole-prompt prefill runs: the
+// engine's monolithic admission, a suffix against its cached prefix, and
+// the draft model's bucketed prefill on the speculative path.
 //
 // What it computes, per batch b, head h and query row i at position
 // qpos = q_offset + i: key j is visible iff j < Sk, j <= qpos when causal,

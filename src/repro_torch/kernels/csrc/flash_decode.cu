@@ -1,0 +1,348 @@
+// Flash decode for Hopper (sm_90a): one query token per slot against a
+// contiguous per-slot KV cache, masked by the position each cache entry
+// holds.
+//
+// Replaces the Pallas TPU kernels flash_decode_tpu and
+// flash_decode_quant_tpu (repro/kernels/flash_decode.py:71,125).  One
+// source covers both: the cache type is a template parameter (bf16 caches,
+// the dense serving cache and the speculative draft's; int8 caches with
+// fp32 per-row scales multiplied in right after the load, as the JAX
+// package's _quant_kernel reuses _kernel; fp32 caches, which the JAX
+// kernel tests sweep), and q is fp32 or bf16.
+//
+// What it computes, per slot b and query head h (kv head h / G):
+//   key s (cache row s of slot b) is visible iff cpos = cache_positions
+//   [b, s] >= 0, cpos <= pos[b] and, when window > 0, pos[b] - cpos <
+//   window; out = softmax(q.k * D^-0.5) . v over the visible keys, with
+//   the softmax in fp32 and acc / max(l, 1e-30) at the end.  A row with no
+//   visible key writes zeros.  pos is only compared, never used as an
+//   index: a parked slot at pos = max_seq reads nothing out of bounds.
+//
+// What bounds it on an H100: bytes.  Each visible K/V row is read once and
+// used for ~4*G flops per element, far below the ~295 flops per byte at
+// which the tensor cores would become the limit.  The design therefore:
+//   * reads the cache [B, S, Hkv, D] in place (the engine hands it a
+//     layer's view of [L, B, S, Hkv, D]): no transposed or padded copy;
+//   * reads each tile's cache_positions (4 bytes a key) first and loads
+//     only the K/V rows that are visible; a tile with no visible key loads
+//     nothing else (the dense cache holds -1 past each prompt);
+//   * stages each visible [kTile, D] K and V tile in shared memory once,
+//     with 16-byte loads, and lets all G query heads of the kv head read
+//     it there, so the cache is read once per (slot, kv head), not once
+//     per query head.
+// One CTA per (slot, kv head) walks the tiles in order with a running
+// (m, l, acc) state per query head in fp32; the ragged tail of S is masked
+// per element.  Later work: split-KV across CTAs for small batches (the
+// GPU form flash_decode.py:3 names), cp.async/TMA double buffering and
+// tensor-core products.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;  // keys per staged tile
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// One 16-byte load of cache elements, widened to fp32 (times the row scale
+// for int8 caches, the same product as dequantize_kv).
+template <typename CT>
+struct CacheLoad;
+
+template <>
+struct CacheLoad<float> {
+  static constexpr int kVec = 4;
+  __device__ static void run(const float* src, float* dst, float) {
+    const float4 raw = *reinterpret_cast<const float4*>(src);
+    dst[0] = raw.x;
+    dst[1] = raw.y;
+    dst[2] = raw.z;
+    dst[3] = raw.w;
+  }
+};
+
+template <>
+struct CacheLoad<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  __device__ static void run(const __nv_bfloat16* src, float* dst, float) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[i] = __bfloat162float(e[i]);
+  }
+};
+
+template <>
+struct CacheLoad<int8_t> {
+  static constexpr int kVec = 16;
+  __device__ static void run(const int8_t* src, float* dst, float scale) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[i] = static_cast<float>(e[i]) * scale;
+  }
+};
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared memory, in 4-byte words: q [G][D], K tile [kTile][D+1] (padded so
+// that threads reading different keys hit different banks), V tile
+// [kTile][D], scores/probabilities [G][kTile], acc [G][D], then m, l and
+// the rescale factor [G] each, and the tile's visibility flags [kTile].
+__host__ __device__ inline int smem_words(int G, int D) {
+  return G * D + kTile * (D + 1) + kTile * D + G * kTile + G * D + 3 * G +
+         kTile;
+}
+
+template <typename QT, typename CT>
+__global__ void __launch_bounds__(kThreads) flash_decode_kernel(
+    const QT* __restrict__ q, const CT* __restrict__ k_cache,
+    const CT* __restrict__ v_cache, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales,
+    const int32_t* __restrict__ cache_positions,
+    const int32_t* __restrict__ pos, QT* __restrict__ out, int H, int Hkv,
+    int D, int S, int window, float scale) {
+  extern __shared__ float smem[];
+  const int G = H / Hkv;
+  const int h = blockIdx.x;  // kv head
+  const int b = blockIdx.y;  // slot
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int Dp = D + 1;
+  float* q_s = smem;
+  float* k_s = q_s + G * D;
+  float* v_s = k_s + kTile * Dp;
+  float* p_s = v_s + kTile * D;
+  float* acc = p_s + G * kTile;
+  float* m_s = acc + G * D;
+  float* l_s = m_s + G;
+  float* c_s = l_s + G;
+  int* ok_s = reinterpret_cast<int*>(c_s + G);
+
+  // the G query heads of kv head h are rows h*G .. h*G+G-1 of q[b]
+  const QT* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) * D;
+  for (int i = tid; i < G * D; i += kThreads) {
+    q_s[i] = to_float(qb[i]);
+    acc[i] = 0.f;
+  }
+  for (int g = tid; g < G; g += kThreads) {
+    m_s[g] = kNegInf;
+    l_s[g] = 0.f;
+  }
+  __syncthreads();
+
+  const int p = pos[b];
+  const int32_t* cp = cache_positions + static_cast<size_t>(b) * S;
+  // row (b, s, h) of the [B, S, Hkv, D] cache is row0 + s * Hkv
+  const size_t row0 = static_cast<size_t>(b) * S * Hkv + h;
+  constexpr int kVec = CacheLoad<CT>::kVec;
+  const int vecs_per_row = D / kVec;
+
+  for (int s0 = 0; s0 < S; s0 += kTile) {
+    int any = 0;
+    for (int t = tid; t < kTile; t += kThreads) {
+      int ok = 0;
+      if (s0 + t < S) {
+        const int c = cp[s0 + t];
+        ok = c >= 0 && c <= p && (window == 0 || p - c < window);
+      }
+      ok_s[t] = ok;
+      any |= ok;
+    }
+    // a tile with no visible key: nothing to load or attend (uniform)
+    if (!__syncthreads_or(any)) continue;
+
+    for (int i = tid; i < kTile * vecs_per_row; i += kThreads) {
+      const int t = i / vecs_per_row;
+      const int c = (i % vecs_per_row) * kVec;
+      float* kd = k_s + t * Dp + c;
+      float* vd = v_s + t * D + c;
+      if (ok_s[t]) {
+        const size_t row = row0 + static_cast<size_t>(s0 + t) * Hkv;
+        float ks = 1.f, vs = 1.f;
+        if (k_scales != nullptr) {
+          ks = k_scales[row];
+          vs = v_scales[row];
+        }
+        CacheLoad<CT>::run(k_cache + row * D + c, kd, ks);
+        CacheLoad<CT>::run(v_cache + row * D + c, vd, vs);
+      } else {  // not loaded: zeros, so p = 0 times it stays 0
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          kd[e] = 0.f;
+          vd[e] = 0.f;
+        }
+      }
+    }
+    __syncthreads();
+
+    for (int i = tid; i < G * kTile; i += kThreads) {
+      const int g = i / kTile, t = i % kTile;
+      float s = kNegInf;
+      if (ok_s[t]) {
+        const float* qr = q_s + g * D;
+        const float* kr = k_s + t * Dp;
+        float dot = 0.f;
+        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+        s = dot * scale;
+      }
+      p_s[i] = s;
+    }
+    __syncthreads();
+
+    // online softmax, one warp per query head; masked keys get p = 0
+    for (int g = warp; g < G; g += kWarps) {
+      float* pr = p_s + g * kTile;
+      float mx = kNegInf;
+      for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, pr[t]);
+      mx = warp_max(mx);
+      const float m_old = m_s[g];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int t = lane; t < kTile; t += 32) {
+        const float e = ok_s[t] ? expf(pr[t] - m_new) : 0.f;
+        pr[t] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        l_s[g] = l_s[g] * corr + sum;
+        m_s[g] = m_new;
+        c_s[g] = corr;
+      }
+    }
+    __syncthreads();
+
+    for (int i = tid; i < G * D; i += kThreads) {
+      const int g = i / D, d = i % D;
+      const float* pr = p_s + g * kTile;
+      float a = acc[i] * c_s[g];
+      for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], v_s[t * D + d], a);
+      acc[i] = a;
+    }
+    __syncthreads();  // the tiles and flags are overwritten by the next one
+  }
+
+  QT* ob = out + (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) * D;
+  for (int i = tid; i < G * D; i += kThreads)
+    ob[i] = from_float<QT>(acc[i] / fmaxf(l_s[i / D], 1e-30f));
+}
+
+template <typename QT, typename CT>
+int launch(const void* q, const void* k_cache, const void* v_cache,
+           const void* k_scales, const void* v_scales,
+           const void* cache_positions, const void* pos, void* out, int B,
+           int H, int Hkv, int D, int S, int window, float scale,
+           cudaStream_t stream) {
+  const int G = H / Hkv;
+  const size_t bytes = sizeof(float) * smem_words(G, D);
+  auto kernel = flash_decode_kernel<QT, CT>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(Hkv, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const QT*>(q), static_cast<const CT*>(k_cache),
+      static_cast<const CT*>(v_cache), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales),
+      static_cast<const int32_t*>(cache_positions),
+      static_cast<const int32_t*>(pos), static_cast<QT*>(out), H, Hkv, D, S,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT>
+int launch_cache(int cache_dtype, const void* q, const void* k_cache,
+                 const void* v_cache, const void* k_scales,
+                 const void* v_scales, const void* cache_positions,
+                 const void* pos, void* out, int B, int H, int Hkv, int D,
+                 int S, int window, float scale, cudaStream_t stream) {
+  switch (cache_dtype) {
+    case 0:
+      return launch<QT, __nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr,
+                                       cache_positions, pos, out, B, H, Hkv,
+                                       D, S, window, scale, stream);
+    case 1:
+      return launch<QT, int8_t>(q, k_cache, v_cache, k_scales, v_scales,
+                                cache_positions, pos, out, B, H, Hkv, D, S,
+                                window, scale, stream);
+    case 2:
+      return launch<QT, float>(q, k_cache, v_cache, nullptr, nullptr,
+                               cache_positions, pos, out, B, H, Hkv, D, S,
+                               window, scale, stream);
+    default:
+      return -1;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory one CTA needs; the wrapper checks it
+// against the card's 227 KB before launching.
+int flash_decode_smem_bytes(int G, int D) {
+  return static_cast<int>(sizeof(float)) * smem_words(G, D);
+}
+
+// Keys one CTA stages per tile.
+int flash_decode_tile_keys() { return kTile; }
+
+// q_dtype: 0 fp32, 1 bf16 (the output has q's type).  cache_dtype: 0 bf16,
+// 1 int8 (k_scales/v_scales then point at fp32 [B, S, Hkv]), 2 fp32.
+// All tensors contiguous; cache_positions [B, S] and pos [B] int32.
+// Returns cudaGetLastError() after the launch, or -1 for a bad dtype code.
+int flash_decode_launch(int q_dtype, int cache_dtype, const void* q,
+                        const void* k_cache, const void* v_cache,
+                        const void* k_scales, const void* v_scales,
+                        const void* cache_positions, const void* pos,
+                        void* out, int B, int H, int Hkv, int D, int S,
+                        int window, float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (q_dtype) {
+    case 0:
+      return launch_cache<float>(cache_dtype, q, k_cache, v_cache, k_scales,
+                                 v_scales, cache_positions, pos, out, B, H,
+                                 Hkv, D, S, window, scale, s);
+    case 1:
+      return launch_cache<__nv_bfloat16>(cache_dtype, q, k_cache, v_cache,
+                                         k_scales, v_scales, cache_positions,
+                                         pos, out, B, H, Hkv, D, S, window,
+                                         scale, s);
+    default:
+      return -1;
+  }
+}
+
+}  // extern "C"

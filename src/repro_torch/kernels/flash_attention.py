@@ -5,8 +5,10 @@ The kernel replaces the Pallas TPU kernel ``flash_attention_tpu``
 (``repro/kernels/flash_attention.py:84``).  The port calls it, through
 ``models.attention.flash_attention``, for the non-causal attention of the
 multimodal encoder's trunk (``models/mm_encoder.py``) and for the causal
-attention of the monolithic forward (``models/lm.py:_attn_layer``) that the
-draft model's bucketed prefill runs.  The source note in the ``.cu`` file
+attention of the monolithic forward (``models/lm.py:_attn_layer``) that
+every whole-prompt prefill runs: the engine's monolithic admission, a
+suffix against its cached prefix (``Sk = Spre + Sq``), the draft model's
+bucketed prefill.  The source note in the ``.cu`` file
 says what bounds it on an H100 and what its design does about that.
 
 ``flash_attention`` takes the JAX signature plus ``q_offset``.  For

@@ -1,0 +1,194 @@
+"""Flash decode: wrappers of the hand-written CUDA kernel
+``csrc/flash_decode.cu`` and their plain PyTorch versions.
+
+The kernel replaces the Pallas TPU kernels ``flash_decode_tpu`` and
+``flash_decode_quant_tpu`` (``repro/kernels/flash_decode.py:71,125``).
+The port calls ``flash_decode`` for the attention of the dense decode step
+(``models/api.py:Model.serve_step``), which the engine's dense cache
+backend and the speculative draft model run; no serving path of either
+package reaches the int8 instance (the engines keep dense caches bf16).
+On an H100 it is bound by the bytes of the visible K/V rows; the source
+note in the ``.cu`` file says what its design does about that (reads the
+cache in place, loads only visible rows, stages each tile once per kv
+head for all G query heads).
+
+``flash_decode``/``flash_decode_quant`` take the JAX signatures
+(``block_k`` is accepted and checked; the kernel stages its own tile of
+keys).  For tensors on the CPU they run the plain version; for CUDA
+tensors they launch the kernel or raise, never falling back.  Each
+wrapper counts its kernel launches in its ``launches`` attribute (a plain
+integer).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.device import on_cpu
+from repro_torch.kernels import build
+from repro_torch.models.attention import (decode_attention,
+                                          decode_attention_quant)
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_GROUP = 16  # query heads per kv head
+MAX_SMEM_BYTES = 227 * 1024  # per-block dynamic shared memory on Hopper
+
+Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the dense serving caches are bf16; fp32 caches for the JAX kernel sweep
+CACHE_DTYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
+
+
+def flash_decode_ref(q, k_cache, v_cache, cache_positions, pos, *,
+                     window=0, block_k=512):
+    """Plain version: masked softmax attention over the whole cache
+    (``models.attention.decode_attention``); ``block_k`` is unused."""
+    return decode_attention(q, k_cache, v_cache, cache_positions, pos,
+                            window=window)
+
+
+def flash_decode_quant_ref(q, k_cache, v_cache, k_scales, v_scales,
+                           cache_positions, pos, *, window=0, block_k=512):
+    """Plain version over an int8 cache: dequantize, then attend."""
+    return decode_attention_quant(q, k_cache, v_cache, k_scales, v_scales,
+                                  cache_positions, pos, window=window)
+
+
+@functools.cache
+def _lib():
+    """The built library, with its C signatures declared (pointers and the
+    stream as ``c_void_p``, so ctypes does not cut them to 32 bits)."""
+    lib = build.load("flash_decode")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_decode_launch.argtypes = (
+        [i32, i32] + [ptr] * 8 + [i32] * 6 + [ctypes.c_float, ptr])
+    lib.flash_decode_launch.restype = i32
+    lib.flash_decode_smem_bytes.argtypes = [i32, i32]
+    lib.flash_decode_smem_bytes.restype = i32
+    lib.flash_decode_tile_keys.argtypes = []
+    lib.flash_decode_tile_keys.restype = i32
+    return lib
+
+
+def smem_bytes(G: int, D: int) -> int:
+    """Dynamic shared memory one CTA of the kernel takes for G query heads
+    per kv head and head dim D (from the built library)."""
+    return _lib().flash_decode_smem_bytes(G, D)
+
+
+def tile_keys() -> int:
+    """Keys one CTA of the kernel stages per tile."""
+    return _lib().flash_decode_tile_keys()
+
+
+def _check(q, k_cache, v_cache, cache_positions, pos, window, block_k,
+           scales):
+    """Raise ValueError for what the kernel does not take: q [B,H,D] fp32
+    or bf16; caches [B,S,Hkv,D] bf16 or fp32, or int8 with fp32 ``scales``
+    (k, v) [B,S,Hkv]; cache_positions [B,S] and pos [B] int32; every
+    tensor contiguous, q and caches 16-byte aligned."""
+    what = "flash decode"
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)} must be [B,H,D] and "
+                         f"k/v {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)} [B,S,Hkv,D]")
+    B, H, D = q.shape
+    Bk, S, Hkv, Dk = k_cache.shape
+    if Bk != B or Dk != D or S < 1:
+        raise ValueError(f"{what}: q {tuple(q.shape)} and caches "
+                         f"{tuple(k_cache.shape)} disagree")
+    if H % Hkv or H // Hkv > MAX_GROUP:
+        raise ValueError(f"{what}: H={H}, Hkv={Hkv}: the kernel takes "
+                         f"G = H/Hkv integral and <= {MAX_GROUP}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    if q.dtype not in Q_DTYPES:
+        raise ValueError(f"{what}: q dtype {q.dtype} not fp32/bf16")
+    quant = bool(scales)
+    if k_cache.dtype != v_cache.dtype or k_cache.dtype not in CACHE_DTYPES \
+            or quant != (k_cache.dtype == torch.int8):
+        raise ValueError(f"{what}: cache dtype {k_cache.dtype} does not fit "
+                         "this wrapper (the kernel takes bf16 or fp32 "
+                         "caches, or int8 caches through the quant wrapper)")
+    if cache_positions.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError(f"{what}: cache_positions and pos must be int32")
+    if tuple(cache_positions.shape) != (B, S) or tuple(pos.shape) != (B,):
+        raise ValueError(f"{what}: cache_positions "
+                         f"{tuple(cache_positions.shape)} / pos "
+                         f"{tuple(pos.shape)} do not match B={B}, S={S}")
+    for s in scales:
+        if s.dtype != torch.float32 or tuple(s.shape) != (B, S, Hkv):
+            raise ValueError(f"{what}: scales {tuple(s.shape)} {s.dtype} "
+                             "must be fp32 [B, S, Hkv]")
+    for t in (q, k_cache, v_cache, cache_positions, pos) + tuple(scales):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: every tensor must be contiguous")
+    for t in (q, k_cache, v_cache):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: q and caches must be 16-byte "
+                             "aligned")
+    if window < 0:
+        raise ValueError(f"{what}: window {window} < 0")
+    if block_k < 1:
+        raise ValueError(f"{what}: block_k {block_k} < 1")
+
+
+def _launch(q, k_cache, v_cache, k_scales, v_scales, cache_positions, pos,
+            window):
+    B, H, D = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    lib = _lib()
+    smem = smem_bytes(H // Hkv, D)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"flash decode: G={H // Hkv}, D={D} needs {smem} "
+                         f"bytes of shared memory, over {MAX_SMEM_BYTES}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_decode_launch(
+            Q_DTYPES[q.dtype], CACHE_DTYPES[k_cache.dtype], q.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(),
+            None if k_scales is None else k_scales.data_ptr(),
+            None if v_scales is None else v_scales.data_ptr(),
+            cache_positions.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H,
+            Hkv, D, S, int(window), D ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash decode kernel launch failed: error {err}")
+    return out
+
+
+def flash_decode(q, k_cache, v_cache, cache_positions, pos, *, window=0,
+                 block_k=512):
+    """q [B,H,D] fp32/bf16; k_cache/v_cache [B,S,Hkv,D] bf16 or fp32;
+    cache_positions [B,S] int32 (-1 = empty); pos [B] int32.  Returns
+    [B,H,D] in q's dtype."""
+    if on_cpu("flash decode", q, k_cache, v_cache, cache_positions, pos):
+        return flash_decode_ref(q, k_cache, v_cache, cache_positions, pos,
+                                window=window)
+    _check(q, k_cache, v_cache, cache_positions, pos, window, block_k, ())
+    out = _launch(q, k_cache, v_cache, None, None, cache_positions, pos,
+                  window)
+    flash_decode.launches += 1
+    return out
+
+
+def flash_decode_quant(q, k_cache, v_cache, k_scales, v_scales,
+                       cache_positions, pos, *, window=0, block_k=512):
+    """``flash_decode`` over int8 caches with fp32 row scales
+    k_scales/v_scales [B,S,Hkv], dequantized right after the load."""
+    if on_cpu("flash decode", q, k_cache, v_cache, k_scales, v_scales,
+              cache_positions, pos):
+        return flash_decode_quant_ref(q, k_cache, v_cache, k_scales,
+                                      v_scales, cache_positions, pos,
+                                      window=window)
+    _check(q, k_cache, v_cache, cache_positions, pos, window, block_k,
+           (k_scales, v_scales))
+    out = _launch(q, k_cache, v_cache, k_scales, v_scales, cache_positions,
+                  pos, window)
+    flash_decode_quant.launches += 1
+    return out
+
+
+flash_decode.launches = 0
+flash_decode_quant.launches = 0

@@ -1,8 +1,10 @@
-"""Public model API of the attention family: spec/init, the paged KV cache
-layout, chunked paged prefill, the batched paged decode step and the
-speculative verify step, plus the dense cache, monolithic prefill and
-dense decode step that the draft model of speculative decoding runs
-(ports of ``repro/models/api.py``).
+"""Public model API of the attention family: spec/init, the paged and dense
+KV cache layouts, monolithic prefill (with embedding spans and, on a
+prefix-cache hit, against cached prefix K/V), chunked prefill into either
+cache, the batched paged and dense decode steps and the speculative verify
+step (ports of ``repro/models/api.py``).  The dense decode step serves the
+engine's dense backend and the speculative draft model; its attention runs
+the flash-decode kernel on the card.
 
 Paged cache layout: ``k_pages``/``v_pages`` [L, P, bs, Hkv, Dh] bf16, or
 int8 with fp32 row scales ``k_scales``/``v_scales`` [L, P, bs, Hkv]
@@ -35,7 +37,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import quantize_kv
 from repro_torch.models import lm
-from repro_torch.models.attention import decode_attention
+from repro_torch.models.attention import chunk_prefill_attention
 from repro_torch.nn.layers import apply_rope
 from repro_torch.nn.spec import init_params
 
@@ -139,6 +141,8 @@ class Model:
         lengths of a batch right-padded to a shape bucket: pos_map marks
         the padding empty (-1) and the logits are taken at ``length - 1``;
         causal masking keeps the padding out of every real position.
+        ``batch["embeds"]`` [B, S, d] and ``batch["embed_mask"]`` [B, S]
+        optionally inject embedding spans (``lm.embed_inputs``).
         """
         cfg = self.cfg
         tokens, length = batch["tokens"], batch.get("length")
@@ -152,9 +156,36 @@ class Model:
                                    device=tokens.device).expand(B, S)
         else:
             pos_map = lm.prompt_pos_map(length, S)
-        h, (k, v) = lm.attn_forward(cfg, params, tokens, return_cache=True)
+        h, (k, v) = lm.attn_forward(cfg, params, tokens, return_cache=True,
+                                    embeds=batch.get("embeds"),
+                                    embed_mask=batch.get("embed_mask"))
         logits = lm.last_logits(cfg, params, lm.last_hidden(h, length))
         return logits, {"k": k, "v": v, "pos_map": pos_map}
+
+    def prefill_with_prefix(self, params, batch, prefix_k, prefix_v):
+        """Suffix prefill against cached prefix K/V (the paged engine's
+        monolithic prefix-hit path).
+
+        ``batch["tokens"]`` [B, Ssfx] are the tokens after the prefix;
+        ``prefix_k``/``prefix_v`` [L, B, Spre, Hkv, Dh] hold the prefix
+        K/V, already rope'd.  ``batch["length"]`` [B] optionally carries
+        the true suffix length of a bucket-padded suffix (the caller then
+        scatters only the first ``length`` columns); ``batch["embeds"]``/
+        ``batch["embed_mask"]`` inject the suffix's embedding spans.
+        Every layer's attention is one flash-attention call over
+        ``Sk = Spre + Ssfx`` keys.  Returns (last-token logits [B, V],
+        (k_sfx, v_sfx) [L, B, Ssfx, Hkv, Dh])."""
+        cfg = self.cfg
+        if not self.supports_paged:
+            raise ValueError(f"{cfg.name}: prefix prefill needs attn family")
+        h, (k, v) = lm.attn_forward(cfg, params, batch["tokens"],
+                                    return_cache=True,
+                                    prefix_kv=(prefix_k, prefix_v),
+                                    embeds=batch.get("embeds"),
+                                    embed_mask=batch.get("embed_mask"))
+        logits = lm.last_logits(cfg, params,
+                                lm.last_hidden(h, batch.get("length")))
+        return logits, (k, v)
 
     # ------------------------------------------------------------- layers
     def _decode_layer(self, pl, x, kv, pos, rope, window, attend):
@@ -211,11 +242,14 @@ class Model:
 
     # ------------------------------------------------------------- decode
     def serve_step(self, params, cache, batch):
-        """One token for the whole batch against the dense cache (the draft
-        model's step). batch = {tokens [B], pos [B]}; a slot parked at
-        ``pos >= Sa`` writes nothing (the JAX package's out-of-bounds
-        drop) and its logits are garbage nobody reads.  The cache is
-        updated in place; returns (logits [B, V] fp32, cache)."""
+        """One token for the whole batch against the dense cache (the
+        engine's dense backend and the speculative draft model's step).
+        batch = {tokens [B], pos [B]}; a slot parked at ``pos >= Sa``
+        writes nothing (the JAX package's out-of-bounds drop) and its
+        logits are garbage nobody reads.  Attention runs
+        ``ops.flash_decode`` over each layer's cache view (the CUDA kernel
+        on the card, its plain version on the CPU).  The cache is updated
+        in place; returns (logits [B, V] fp32, cache)."""
         cfg = self.cfg
         if cfg.block_kind != "attn" or cfg.cross_attention:
             raise NotImplementedError(
@@ -230,12 +264,14 @@ class Model:
         wpos = pos.clamp(max=Sa - 1)
         pos_map = cache["pos_map"]
         _masked_write(pos_map, (rows, wpos), pos.to(pos_map.dtype), live)
+        pos32 = pos.to(torch.int32)
 
         def attend(q1, k1, v1, kv, window):
             kc, vc = kv
             _masked_write(kc, (rows, wpos), k1, live)
             _masked_write(vc, (rows, wpos), v1, live)
-            return decode_attention(q1, kc, vc, pos_map, pos, window=window)
+            return ops.flash_decode(q1.contiguous(), kc, vc, pos_map, pos32,
+                                    window=window)
 
         # rope positions clamp into the table, as a JAX gather does
         x = self._run_layers(params, x, wpos, (cache["k"], cache["v"]), Sa,
@@ -354,6 +390,52 @@ class Model:
         return lm.last_logits(cfg, params, x), cache
 
     # ------------------------------------------------------- chunked prefill
+    def prefill_chunk_dense(self, params, cache, batch):
+        """One bucketed prefill chunk into one dense-cache slot.
+
+        cache = the engine's dense cache {k, v [L, B, Sa, Hkv, Dh],
+        pos_map [B, Sa]}; batch = {tokens [1, C] (right-padded to the
+        chunk bucket), slot int, pos int (tokens already in the slot),
+        length int (true chunk length)}, plus optional ``embeds``/
+        ``embed_mask`` [1, C, d] / [1, C] for the chunk's slice of a
+        prompt's embedding spans.
+
+        Write-then-attend: the first ``length`` columns' K/V and positions
+        are written at ``[pos, pos + length)`` of row ``slot`` (the JAX
+        package drops the padded columns' writes out of bounds; here they
+        are sliced off, which stores the same rows), then the chunk
+        attends back through the whole slot with the plain
+        ``chunk_prefill_attention`` (the JAX package has no kernel for
+        it either): in-chunk causality falls out of the pos_map mask.
+        Returns (logits [1, V] of the chunk's last real token, cache).
+        """
+        cfg = self.cfg
+        tokens, slot = batch["tokens"], int(batch["slot"])
+        pos0, n = int(batch["pos"]), int(batch["length"])
+        B, C = tokens.shape
+        Sa = cache["k"].shape[2]
+        x = lm.embed_inputs(cfg, params, tokens, batch.get("embeds"),
+                            batch.get("embed_mask"))  # [1, C, d]
+        positions = pos0 + torch.arange(C, device=tokens.device)  # [C]
+        qpos = positions[None]  # [1, C]
+        pos_map = cache["pos_map"]
+        pos_map[slot, pos0:pos0 + n] = positions[:n].to(pos_map.dtype)
+
+        def attend(q, k, v, kv, window):
+            kc, vc = kv
+            kc[slot, pos0:pos0 + n] = k[0, :n].to(kc.dtype)
+            vc[slot, pos0:pos0 + n] = v[0, :n].to(vc.dtype)
+            return chunk_prefill_attention(q, kc[slot][None], vc[slot][None],
+                                           pos_map[slot][None], qpos,
+                                           window=window)
+
+        # rope positions clamp into the table, as a JAX gather does
+        x = self._run_layers(params, x, qpos.clamp(max=Sa - 1),
+                             (cache["k"], cache["v"]), Sa, attend,
+                             self._chunk_layer)
+        x = lm._norm(params, x[:, n - 1], cfg.norm, "final")
+        return lm.last_logits(cfg, params, x), cache
+
     def prefill_chunk_paged(self, params, cache, batch):
         """One bucketed prefill chunk into a paged-cache block table.
 

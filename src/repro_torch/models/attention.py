@@ -9,15 +9,16 @@ The softmax runs in fp32 and the probabilities are cast to the cache's
 type before the value product, as the JAX functions do; a row with no
 visible key gets the uniform softmax of ``NEG_INF`` fills (garbage the
 callers never read).  These are the plain versions of the CUDA kernels
-(``kernels/paged_decode.py``, ``kernels/paged_verify.py``), which the
-serving path calls for decode, speculative verify and chunked-prefill
-attention.
+(``kernels/paged_decode.py``, ``kernels/paged_verify.py``,
+``kernels/flash_decode.py``), which the serving path calls for paged
+decode, speculative verify, chunked-prefill attention and dense decode.
 
 ``flash_attention`` is the dispatching entry of whole-prompt attention
 (``kernels/flash_attention.py``): the CUDA flash-attention kernel for
 CUDA tensors, its plain version for CPU tensors.  The monolithic forward
-(the draft model's prefill) calls it causal, the multimodal encoder's
-trunk non-causal.
+(every whole-prompt prefill: the engine's monolithic admission, a suffix
+against its cached prefix, the draft model's prefill) calls it causal,
+the multimodal encoder's trunk non-causal.
 """
 from __future__ import annotations
 
@@ -54,6 +55,19 @@ def decode_attention(q, k_cache, v_cache, cache_positions, pos, *,
     o = torch.einsum("bhgs,bshd->bhgd", p.reshape(B, Hkv, G, S),
                      v_cache.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention_quant(q, k_cache, v_cache, k_scales, v_scales,
+                           cache_positions, pos, *, window: int = 0,
+                           scale: float | None = None, softcap: float = 0.0):
+    """``decode_attention`` over an int8 cache with fp32 row scales
+    [B, S, Hkv]: dequantize to fp32 (the values the CUDA kernel computes
+    in registers after each load), then attend.  The plain version of
+    ``kernels/csrc/flash_decode.cu``'s int8 instance."""
+    kc = dequantize_kv(k_cache, k_scales)
+    vc = dequantize_kv(v_cache, v_scales)
+    return decode_attention(q, kc, vc, cache_positions, pos, window=window,
+                            scale=scale, softcap=softcap)
 
 
 def chunk_prefill_attention(q, k_cache, v_cache, cache_positions, qpos, *,

@@ -238,37 +238,57 @@ def _ffn(pl, cfg, x):
 # ------------------------------------------------------ monolithic forward
 
 
-def _attn_layer(cfg: ArchConfig, pl, x, rope, window: int, positions):
+def _attn_layer(cfg: ArchConfig, pl, x, rope, window: int, positions,
+                pkv=None):
     """One layer over a whole prompt (forward only): causal attention over
     the prompt's own K/V (the flash-attention kernel on the card).
-    Returns (x, (k, v)), the K/V already rope'd, as the cache stores
-    them."""
+
+    ``pkv`` optionally carries this layer's already-rope'd prefix K/V
+    [B, Spre, Hkv, Dh]: the suffix queries then attend to
+    ``concat(prefix, suffix)`` with the causal diagonal shifted by Spre
+    (the kernel's default query offset ``Sk - Sq``).  Returns (x, (k, v)),
+    the suffix K/V only, already rope'd, as the cache stores them."""
     cos, sin = rope
     B, S, _ = x.shape
     xn = _norm(pl, x, cfg.norm, "ln1")
     q, k, v = _qkv(pl["attn"], cfg, xn, B, S)
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
-    o = flash_attention(q, k, v, window=window)
+    ka, va = k, v
+    if pkv is not None:
+        ka = torch.cat([pkv[0].to(k.dtype), k], 1)
+        va = torch.cat([pkv[1].to(v.dtype), v], 1)
+    o = flash_attention(q, ka, va, window=window)
     o = _attn_out(pl["attn"], cfg, o.reshape(B, S, -1), x.dtype)
     if cfg.post_norms:
         o = _norm(pl, o, cfg.norm, "pn1")
     return _ffn(pl, cfg, x + o), (k, v)
 
 
-def attn_forward(cfg: ArchConfig, params, tokens, *, return_cache=False):
+def attn_forward(cfg: ArchConfig, params, tokens, *, return_cache=False,
+                 prefix_kv=None, embeds=None, embed_mask=None):
     """tokens [B, S] -> final-normed hidden [B, S, d], plus the stacked
     cache (k, v) [L, B, S, Hkv, Dh] with ``return_cache``.  Layers walk in
-    order, each with its window from ``static_layer_windows``."""
+    order, each with its window from ``static_layer_windows``.
+
+    ``prefix_kv = (k, v)`` [L, B, Spre, Hkv, Dh] makes this a suffix
+    prefill: the S tokens sit at positions [Spre, Spre + S) and attend to
+    the cached prefix without recomputing it (the paged engine's
+    prefix-hit path); the returned cache covers the suffix only.
+    ``embeds``/``embed_mask`` inject embedding spans (``embed_inputs``)."""
     B, S = tokens.shape
-    x = embed_inputs(cfg, params, tokens)
-    positions = torch.arange(S, device=tokens.device)
-    rope_l, rope_g = _rope_tables(cfg, S, tokens.device)
+    x = embed_inputs(cfg, params, tokens, embeds, embed_mask)
+    offset = 0 if prefix_kv is None else prefix_kv[0].shape[2]
+    positions = offset + torch.arange(S, device=tokens.device)
+    rope_l, rope_g = _rope_tables(cfg, offset + S, tokens.device)
     ks, vs = [], []
     for i, is_global in enumerate(static_layer_windows(cfg)):
         pl = layer_slice(params["layers"], i)
+        pkv = None if prefix_kv is None else (prefix_kv[0][i],
+                                              prefix_kv[1][i])
         x, (k, v) = _attn_layer(cfg, pl, x, rope_g if is_global else rope_l,
-                                0 if is_global else cfg.window, positions)
+                                0 if is_global else cfg.window, positions,
+                                pkv)
         ks.append(k)
         vs.append(v)
     x = _norm(params, x, cfg.norm, "final")

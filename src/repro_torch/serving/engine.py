@@ -1,23 +1,33 @@
-"""Slot-based continuous-batching serving engine over a paged KV cache
-(port of the paged, chunked path of ``repro/serving/engine.py``).
+"""Slot-based continuous-batching serving engine (port of
+``repro/serving/engine.py`` for the attention family).
 
 A fixed decode batch of ``max_batch`` slots steps in lockstep, one batched
-``Model.serve_step_paged`` per tick with the argmax on the device.
-Arriving requests reserve a block table (prefix-trie hits are reused,
-copy-on-write protects shared pages) and are prefilled ``prefill_chunk``
-tokens at a time under a per-tick ``prefill_budget``, sharing ticks with
-the decode step.  Prompt chunks are right-padded to power-of-two buckets.
-``kv_dtype="int8"`` stores the pool quantized with fp32 row scales.
-Finished slots return their pages immediately.
+decode step per tick with the argmax on the device.  Two cache backends:
+
+* paged (the default): ``Model.serve_step_paged`` over a page pool.
+  Arriving requests reserve a block table (prefix-trie hits are reused,
+  copy-on-write protects shared pages); ``kv_dtype="int8"`` stores the
+  pool quantized with fp32 row scales.  Finished slots return their pages
+  immediately.
+* dense (``paged=False``): ``Model.serve_step`` over one contiguous
+  ``[L, max_batch, max_seq]`` region per slot, bf16 only, no prefix reuse;
+  its decode attention runs the CUDA flash-decode kernel on the card.
+
+Prompts are prefilled ``prefill_chunk`` tokens at a time under a per-tick
+``prefill_budget``, sharing ticks with the decode step, or, with
+``prefill_chunk=0``, monolithically at admission (on a paged prefix hit
+only the suffix, through ``Model.prefill_with_prefix``).  Prompts and
+chunks are right-padded to power-of-two buckets.
 
 The host-side page bookkeeping (``kv_cache.py``) is the JAX package's,
 unchanged.  The engine's tensors live on ``device`` (``cuda`` unless the
-caller passes ``device="cpu"``); decode attention runs the CUDA paged
-decode kernel there and its plain version on the CPU.
+caller passes ``device="cpu"``); attention runs the CUDA kernels there and
+their plain versions on the CPU.
 
-With ``draft_config`` the engine decodes speculatively: each tick a
-draft model (dense cache, plain decode attention; its prefill runs the
-flash-attention kernel) proposes ``spec_k`` tokens per active slot,
+With ``draft_config`` the engine decodes speculatively (paged backend
+only): each tick a draft model (dense cache; its decode runs the
+flash-decode kernel, its prefill the flash-attention kernel) proposes
+``spec_k`` tokens per active slot,
 ``Model.verify_step_paged`` scores them all in one pass through the paged
 verify kernel, and each slot emits the longest agreeing prefix plus the
 target's correction, the tokens plain greedy decode would give.
@@ -31,11 +41,10 @@ embeddings; the key ids drive the prefix trie, so two requests with the
 same media share its pages.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the dense cache backend (``paged=False``), monolithic prefill
-(``prefill_chunk=0``), tensor-parallel meshes (``mesh``), admission
-batching (``sorted_batch_sizes``), KV snapshot export/import
-(``export_kv``, ``evacuate``, imported requests), and draft models
-outside the dense attention family.
+item): non-attention model families on either backend, tensor-parallel
+meshes (``mesh``), admission batching (``sorted_batch_sizes``), KV
+snapshot export/import (``export_kv``, ``evacuate``, imported requests),
+and MoE draft models.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.kernels.quant import dequantize_kv, quantize_kv
 from repro_torch.models.api import Model, build_model
 from repro_torch.serving import segments as sg
 from repro_torch.serving.kv_cache import (BlockPool, BlockTable, KVSnapshot,
@@ -177,14 +187,9 @@ class ServingEngine:
                     "tables); use paged=True")
             if int(spec_k) < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
-        if paged is False:
-            raise _unported("the dense cache backend (paged=False)",
-                            "item 11")
         if not model.supports_paged:
             raise _unported(f"{model.cfg.name}: non-attention cache families",
                             "item 11")
-        if prefill_chunk <= 0:
-            raise _unported("monolithic prefill (prefill_chunk=0)", "item 4")
         if mesh is not None:
             raise _unported("tensor-parallel serving (mesh)", "item 12")
         if sorted_batch_sizes is not None:
@@ -193,6 +198,10 @@ class ServingEngine:
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(
                 f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
+        if kv_dtype != "bf16" and paged is False:
+            raise ValueError(
+                "kv_dtype='int8' needs the paged cache backend (dense "
+                "caches stay bf16)")
         self.device = resolve(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -208,14 +217,14 @@ class ServingEngine:
         self.slots: list[Request | None] = [None] * max_batch
         self.pos = np.zeros(max_batch, np.int64)  # next position per slot
         self.budget = np.zeros(max_batch, np.int64)
-        self.paged = True
+        self.paged = paged is not False
         self.kv_dtype = kv_dtype
         self.return_logits = return_logits
         self.bucketing = bucket_prompts and model.supports_bucketed_prefill
-        self.chunked = True
+        self.chunked = prefill_chunk > 0
         self.prefill_chunk = prefill_chunk
         self.prefill_budget = (prefill_budget if prefill_budget is not None
-                               else 2 * prefill_chunk)
+                               else 2 * max(prefill_chunk, 1))
         self.min_bucket = min_bucket
         self.prefill_tasks: list[_PrefillTask | None] = [None] * max_batch
         # distinct shapes handed to each step: the JAX engine's trace
@@ -234,13 +243,21 @@ class ServingEngine:
         # batched decode steps run: the kernel launch count of a tick is
         # n_layers per step, which is how a run proves it used the kernel
         self._c_decode_steps = m.counter("decode_steps")
-        # prefill chunks and speculative verify passes run: each launches
-        # the paged verify kernel once per layer on the card
+        # prefill chunks and speculative verify passes run: on the paged
+        # backend each launches the paged verify kernel once per layer on
+        # the card (dense chunks attend through the plain version)
         self._c_prefill_chunks = m.counter("prefill_chunks")
         self._c_verify_steps = m.counter("verify_steps")
-        # draft-model prefills run (speculation): each launches the
-        # flash-attention kernel once per draft layer on the card
+        # monolithic prefills run (prefill_chunk=0), and those of them that
+        # attended a cached prefix: each launches the flash-attention
+        # kernel once per layer on the card
+        self._c_prefills = m.counter("prefills")
+        self._c_suffix_prefills = m.counter("suffix_prefills")
+        # draft-model prefills and decode steps run (speculation): each
+        # launches the flash-attention, resp. flash-decode, kernel once per
+        # draft layer on the card
         self._c_draft_prefills = m.counter("draft_prefills")
+        self._c_draft_steps = m.counter("draft_steps")
         # speculative decoding: drafted = spec_k per active slot per tick;
         # accepted = drafts consumed into the output stream; wasted =
         # drafted - accepted (verify compute spent on rejected tokens)
@@ -264,26 +281,31 @@ class ServingEngine:
         self._pid = self._tr.process(trace_name) if self._tr else 0
         if telemetry is not None:
             telemetry.register_metrics(trace_name, m)
-        self.page_size = page_size
-        self.max_blocks = ceil_blocks(max_seq, page_size)
-        if num_pages is None:
-            if kv_budget_bytes is not None:
-                num_pages = max(2, 1 + kv_budget_bytes // self.page_bytes())
-            else:  # worst case: admission/decode can never run out
-                num_pages = 1 + max_batch * self.max_blocks
-        self.prefix_caching = prefix_caching
-        self.pool = BlockPool(num_pages, page_size)
-        for key in ("num_pages", "block_size", "pages_in_use",
-                    "pages_cached", "prefix_hits", "prefix_misses",
-                    "evictions", "cow_copies"):
-            m.view(key, lambda k=key: self.pool.stats()[k])
-        abstract = model.abstract_paged_cache(num_pages, page_size,
-                                              kv_dtype=kv_dtype)
-        self.cache = {name: torch.zeros(s.shape, dtype=s.dtype,
-                                        device=self.device)
-                      for name, s in abstract.items()}
-        self.tables = np.full((max_batch, self.max_blocks), -1, np.int32)
-        self.block_tables: list[BlockTable | None] = [None] * max_batch
+        if self.paged:
+            self.page_size = page_size
+            self.max_blocks = ceil_blocks(max_seq, page_size)
+            if num_pages is None:
+                if kv_budget_bytes is not None:
+                    num_pages = max(2, 1 + kv_budget_bytes
+                                    // self.page_bytes())
+                else:  # worst case: admission/decode can never run out
+                    num_pages = 1 + max_batch * self.max_blocks
+            self.prefix_caching = prefix_caching
+            self.pool = BlockPool(num_pages, page_size)
+            for key in ("num_pages", "block_size", "pages_in_use",
+                        "pages_cached", "prefix_hits", "prefix_misses",
+                        "evictions", "cow_copies"):
+                m.view(key, lambda k=key: self.pool.stats()[k])
+            abstract = model.abstract_paged_cache(num_pages, page_size,
+                                                  kv_dtype=kv_dtype)
+            self.cache = {name: torch.zeros(s.shape, dtype=s.dtype,
+                                            device=self.device)
+                          for name, s in abstract.items()}
+            self.tables = np.full((max_batch, self.max_blocks), -1,
+                                  np.int32)
+            self.block_tables: list[BlockTable | None] = [None] * max_batch
+        else:
+            self.cache = self._empty_cache(model, max_batch, max_seq)
         # ---- speculative decoding (draft model + multi-token verify)
         self.spec_k = int(spec_k)
         self.speculative = draft_config is not None
@@ -306,12 +328,8 @@ class ServingEngine:
             # the draft runs a plain dense cache: its KV is small, it never
             # shares pages, and stale entries past a rejection are masked
             # by position then overwritten by the next draft chain
-            dab = self.draft_model.abstract_cache(max_batch, max_seq)
-            self._draft_cache = {
-                k: torch.full(v.shape, -1, dtype=v.dtype, device=self.device)
-                if k == "pos_map" else torch.zeros(v.shape, dtype=v.dtype,
-                                                   device=self.device)
-                for k, v in dab.items()}
+            self._draft_cache = self._empty_cache(self.draft_model,
+                                                  max_batch, max_seq)
         self.ticks = 0
         self._progress = False
         self.finished: list[Request] = []
@@ -320,12 +338,25 @@ class ServingEngine:
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
+    def _empty_cache(self, model: Model, B: int, Sa: int) -> dict:
+        """A dense cache of ``model`` on the engine's device: zero K/V and
+        an all-empty (-1) pos_map."""
+        return {k: torch.full(v.shape, -1, dtype=v.dtype, device=self.device)
+                if k == "pos_map" else torch.zeros(v.shape, dtype=v.dtype,
+                                                   device=self.device)
+                for k, v in model.abstract_cache(B, Sa).items()}
+
     def _step(self, batch):
         """The per-tick decode step: logits, or their argmax computed on
         the device so one int32 per slot crosses to the host."""
-        self._step_shapes.add(tuple(batch["block_tables"].shape))
-        logits, self.cache = self.model.serve_step_paged(
-            self.params, self.cache, batch)
+        if self.paged:
+            self._step_shapes.add(tuple(batch["block_tables"].shape))
+            logits, self.cache = self.model.serve_step_paged(
+                self.params, self.cache, batch)
+        else:
+            self._step_shapes.add(tuple(batch["tokens"].shape))
+            logits, self.cache = self.model.serve_step(
+                self.params, self.cache, batch)
         if self.return_logits:
             return logits
         return torch.argmax(logits, -1).to(torch.int32)
@@ -380,6 +411,33 @@ class ServingEngine:
             self._traced.add(key)
             self._c_trace_events.inc()
 
+    def _whole_prefill(self, req: Request, Sb: int):
+        """``Model.prefill`` of a whole prompt right-padded to ``Sb``:
+        (logits [1, V], one-request dense cache)."""
+        T = len(req.tokens)
+        batch = {"tokens": self._padded_prompt(req.tokens, Sb),
+                 **(req.extra or {})}
+        if self.bucketing:
+            batch["length"] = self._to_device(np.asarray([T], np.int32))
+        mm = self._with_embeds(batch, req, 0, T, Sb)
+        self._note_trace(("prefill", Sb, mm))
+        return self.model.prefill(self.params, batch)
+
+    # ----------------------------------------------------- dense internals
+    def _admit_dense(self, slot: int, req: Request) -> int:
+        """Monolithic (bucketed) prefill into a dense slot; returns the
+        first sampled token.  The splice pads the slot's pos_map with -1,
+        so no entry of the previous occupant remains."""
+        req.t_admit = self._now()
+        T = len(req.tokens)
+        Sb = self._bucket(T)
+        logits, rc = self._whole_prefill(req, Sb)
+        self._splice_cache(self.cache, slot, rc)
+        self._c_prefills.inc()
+        self._c_prefill_computed.inc(T)
+        self._c_prefill_padded.inc(Sb - T)
+        return int(torch.argmax(logits[0]))
+
     # ----------------------------------------------------- paged internals
     def _cow_page(self, table: BlockTable, blk: int):
         """Make ``table.pages[blk]`` privately writable, copying if shared.
@@ -414,6 +472,19 @@ class ServingEngine:
                    if t is not None)
         return out
 
+    def _clip_reuse(self, n_reuse: int) -> int:
+        """Bound the distinct ``prefill_with_prefix`` shapes of the
+        monolithic path: the reused prefix length is a shape dim of that
+        call, so round it down to a power-of-two number of pages.  The
+        chunked path has no shape dependence on it and keeps every
+        token."""
+        if self.chunked or not self.bucketing or n_reuse <= 0:
+            return n_reuse
+        blocks = n_reuse // self.page_size
+        if blocks == 0:
+            return 0
+        return (1 << (blocks.bit_length() - 1)) * self.page_size
+
     def _reserve_table(self, req: Request) -> "tuple[BlockTable, int] | None":
         """Admission control + page reservation: returns ``(table,
         n_reuse)`` with the prefix-hit pages retained and capacity for the
@@ -424,9 +495,7 @@ class ServingEngine:
         bs = self.page_size
         hit_pages = self.pool.peek_prefix(toks) if self.prefix_caching \
             else []
-        # the chunked path keeps every reused token: the JAX engine rounds
-        # the reuse length down (_clip_reuse) only on its monolithic path
-        est = min(len(hit_pages) * bs, T - 1)
+        est = self._clip_reuse(min(len(hit_pages) * bs, T - 1))
         used = hit_pages[:ceil_blocks(est, bs)] if est else []
         need = self._total_blocks(req) - len(used)
         need += sum(1 for p in used if self.pool.ref[p] == 0)
@@ -440,9 +509,9 @@ class ServingEngine:
             table.pages, n_hit = self.pool.lookup_prefix(toks)
             # a fully-cached prompt still needs its last token recomputed
             # for the next-token logits -> copy-on-write on the final page
-            n_reuse = min(n_hit, T - 1)
+            n_reuse = self._clip_reuse(min(n_hit, T - 1))
             keep = ceil_blocks(n_reuse, bs)
-            for p in table.pages[keep:]:
+            for p in table.pages[keep:]:  # rounded-off / unused hit pages
                 self.pool.release(p)
             table.pages = table.pages[:keep]
         try:
@@ -455,12 +524,100 @@ class ServingEngine:
             return None
         return table, n_reuse
 
+    def _scatter_kv(self, table: BlockTable, positions: np.ndarray, sk, sv,
+                    n: int):
+        """Scatter ``n`` computed K/V columns ([L, 1, >=n, Hkv, Dh]) into
+        the request's pages at the given logical positions.  The int8 pool
+        is write-then-quantize: monolithic prefill computes the K/V in the
+        activation type, rows are quantized here and their scales written
+        at the same (page, offset)."""
+        pages, offs = (self._to_device(a.astype(np.int64))
+                       for a in table.rows_for(positions))
+        if self.kv_dtype == "int8":
+            for vname, sname, leaves in (("k_pages", "k_scales", sk),
+                                         ("v_pages", "v_scales", sv)):
+                rows, scales = quantize_kv(leaves[:, 0, :n])  # [L,n,Hkv,*]
+                self.cache[vname][:, pages, offs] = rows
+                self.cache[sname][:, pages, offs] = scales
+            return
+        for name, leaves in (("k_pages", sk), ("v_pages", sv)):
+            leaf = self.cache[name]
+            leaf[:, pages, offs] = leaves[:, 0, :n].to(leaf.dtype)
+
+    def _admit_paged(self, slot: int, req: Request) -> "int | None":
+        """Monolithic (bucketed) paged prefill; returns the first sampled
+        token, or None when the pool cannot admit the request yet.  On a
+        prefix hit only the suffix is computed, attending the cached
+        prefix (int8 pools: dequantized to bf16, the values decode reads);
+        the suffix's padded columns are never written."""
+        reserved = self._reserve_table(req)
+        if reserved is None:
+            return None
+        req.t_admit = self._now()
+        table, n_reuse = reserved
+        toks = np.asarray(req.tokens, np.int64)
+        T = len(toks)
+        n_sfx = T - n_reuse
+        Sb = self._bucket(n_sfx)
+        if n_reuse == 0:
+            logits, rc = self._whole_prefill(req, Sb)
+            sk, sv = rc["k"], rc["v"]  # [L, 1, Sb, Hkv, Dh]
+        else:
+            kp, vp = self.cache["k_pages"], self.cache["v_pages"]
+            pre = self._to_device(np.asarray(table.pages, np.int64))
+            L, _, _, Hkv, Dh = kp.shape
+            if self.kv_dtype == "int8":
+                kg = dequantize_kv(kp[:, pre], self.cache["k_scales"][:, pre],
+                                   dtype=torch.bfloat16)
+                vg = dequantize_kv(vp[:, pre], self.cache["v_scales"][:, pre],
+                                   dtype=torch.bfloat16)
+            else:
+                kg, vg = kp[:, pre], vp[:, pre]
+            pk = kg.reshape(L, -1, Hkv, Dh)[:, :n_reuse][:, None]
+            pv = vg.reshape(L, -1, Hkv, Dh)[:, :n_reuse][:, None]
+            batch = {"tokens": self._padded_prompt(toks[n_reuse:], Sb)}
+            if self.bucketing:
+                batch["length"] = self._to_device(
+                    np.asarray([n_sfx], np.int32))
+            mm = self._with_embeds(batch, req, n_reuse, T, Sb)
+            self._note_trace(("prefill_sfx", n_reuse, Sb, mm))
+            logits, (sk, sv) = self.model.prefill_with_prefix(
+                self.params, batch, pk, pv)
+            self._c_suffix_prefills.inc()
+        self._scatter_kv(table, np.arange(n_reuse, T), sk, sv, n_sfx)
+        if self.prefix_caching:
+            self.pool.register_prefix(
+                toks, table.pages[:full_blocks(T, self.page_size)])
+        self._c_prefills.inc()
+        self._c_prefill_computed.inc(n_sfx)
+        self._c_prefill_padded.inc(Sb - n_sfx)
+        self._c_prefix_reused.inc(n_reuse)
+        self.block_tables[slot] = table
+        self.tables[slot] = table.as_row(self.max_blocks)
+        return int(torch.argmax(logits[0]))
+
+    def _admit(self):
+        """Monolithic admission (``prefill_chunk=0``): fill free slots from
+        the queue, oldest first, each prompt prefilled whole."""
+        for slot in range(self.max_batch):
+            if self.slots[slot] is not None or not self.queue:
+                continue
+            req = self.queue.popleft()
+            admit = self._admit_paged if self.paged else self._admit_dense
+            first = admit(slot, req)
+            if first is None:
+                self.queue.appendleft(req)
+                break  # out of pages: wait for running requests to finish
+            self._progress = True
+            self._activate(slot, req, first)
+
     def _free_slot(self, slot: int):
         self.slots[slot] = None
-        self.block_tables[slot].free()
-        self.block_tables[slot] = None
-        self.tables[slot] = -1
-        self.pos[slot] = 0
+        if self.paged:
+            self.block_tables[slot].free()
+            self.block_tables[slot] = None
+            self.tables[slot] = -1
+            self.pos[slot] = 0
 
     # ------------------- KV snapshot export / import (disaggregation)
     def export_kv(self, uid: int) -> KVSnapshot:
@@ -473,14 +630,22 @@ class ServingEngine:
     def _start_prefill(self, slot: int, req: Request) -> bool:
         """Begin a chunked prefill in ``slot``; False => requeued (the pool
         cannot cover the request yet)."""
-        reserved = self._reserve_table(req)
-        if reserved is None:
-            self.queue.appendleft(req)
-            return False
-        table, n_reuse = reserved
-        self.block_tables[slot] = table
-        self.tables[slot] = table.as_row(self.max_blocks)
-        self._c_prefix_reused.inc(n_reuse)
+        if self.paged:
+            reserved = self._reserve_table(req)
+            if reserved is None:
+                self.queue.appendleft(req)
+                return False
+            table, n_reuse = reserved
+            self.block_tables[slot] = table
+            self.tables[slot] = table.as_row(self.max_blocks)
+            self._c_prefix_reused.inc(n_reuse)
+        else:
+            n_reuse = 0
+            # chunks write only the prompt's positions: clear the previous
+            # occupant's pos_map entries up front, as the JAX engine does,
+            # so the slot holds no entry past the prompt (reads mask by
+            # position; the flash-decode kernel skips tiles with no entry)
+            self.cache["pos_map"][slot] = -1
         req.t_admit = self._now()
         self.prefill_tasks[slot] = _PrefillTask(req, done=n_reuse,
                                                 reused=n_reuse)
@@ -497,13 +662,17 @@ class ServingEngine:
         Cb = self._bucket(n, cap=self.prefill_chunk)
         batch = {"tokens": self._padded_prompt(
                      toks[task.done:task.done + n], Cb),
-                 "pos": task.done, "length": n,
-                 "block_tables": self._to_device(self.tables[slot][None])}
+                 "pos": task.done, "length": n}
+        if self.paged:
+            batch["block_tables"] = self._to_device(self.tables[slot][None])
+            chunk_fn = self.model.prefill_chunk_paged
+        else:
+            batch["slot"] = slot
+            chunk_fn = self.model.prefill_chunk_dense
         mm = self._with_embeds(batch, req, task.done, task.done + n, Cb)
         self._note_trace(("prefill_chunk", Cb, mm))
         t0 = self._now() if self._tr is not None else 0.0
-        task.logits, self.cache = self.model.prefill_chunk_paged(
-            self.params, self.cache, batch)
+        task.logits, self.cache = chunk_fn(self.params, self.cache, batch)
         if self._tr is not None:
             self._tr.span("prefill_chunk", "prefill", t0, self._now(),
                           pid=self._pid, tid=req.uid,
@@ -513,7 +682,7 @@ class ServingEngine:
         self._c_prefill_chunks.inc()
         self._c_prefill_computed.inc(n)
         self._c_prefill_padded.inc(Cb - n)
-        if self.prefix_caching:
+        if self.paged and self.prefix_caching:
             # publish fully-written prompt blocks as they complete, so a
             # request admitted later this tick already hits them
             self.pool.register_prefix(
@@ -662,9 +831,10 @@ class ServingEngine:
         self._emit_stream(req, first_tok, req.token_times[-1], ends)
         if ends:
             self._finish(req)
-            self.block_tables[slot].free()
-            self.block_tables[slot] = None
-            self.tables[slot] = -1
+            if self.paged and self.block_tables[slot] is not None:
+                self.block_tables[slot].free()
+                self.block_tables[slot] = None
+                self.tables[slot] = -1
             return
         self.slots[slot] = req
         self.pos[slot] = len(req.tokens)
@@ -718,7 +888,10 @@ class ServingEngine:
         decode step for every fully-prefilled slot.  Returns the number of
         occupied slots; a no-op returning 0 when there is no work."""
         self._progress = False
-        self._schedule_prefill()
+        if self.chunked:
+            self._schedule_prefill()
+        else:
+            self._admit()
         self._g_queue_depth.set(len(self.queue))
         active = [i for i, r in enumerate(self.slots) if r is not None]
         n_prefilling = sum(t is not None for t in self.prefill_tasks)
@@ -733,23 +906,28 @@ class ServingEngine:
             self.ticks += 1
             return len(active) + n_prefilling
         tokens = np.zeros(self.max_batch, np.int64)
-        # slots without a decodable request (free, or still prefilling)
-        # get a null block table and position 0, so their write lands on
-        # the null page and their attention row is never read
-        pos = np.zeros(self.max_batch, np.int32)
+        # slots without a decodable request (free, or still prefilling) are
+        # masked out of the decode step: dense ones sit at pos = max_seq,
+        # whose writes drop; paged ones get a null block table and
+        # position 0, so their write lands on the null page.  Their
+        # attention rows are never read
+        pos = np.full(self.max_batch, self.max_seq, np.int32)
         for i in active:
             tokens[i] = self.slots[i].output[-1]
             pos[i] = self.pos[i]
-            bt = self.block_tables[i]  # grow tables across page boundaries
-            if self.pos[i] >= bt.num_tokens_capacity():
-                bt.ensure_capacity(self.pos[i] + 1)
-                self.tables[i] = bt.as_row(self.max_blocks)
-        tables = np.full_like(self.tables, -1)
-        for i in active:
-            tables[i] = self.tables[i]
-        batch = {"tokens": self._to_device(tokens),
-                 "pos": self._to_device(pos),
-                 "block_tables": self._to_device(tables)}
+        batch = {"tokens": self._to_device(tokens)}
+        if self.paged:
+            for i in active:  # grow block tables across page boundaries
+                bt = self.block_tables[i]
+                if self.pos[i] >= bt.num_tokens_capacity():
+                    bt.ensure_capacity(self.pos[i] + 1)
+                    self.tables[i] = bt.as_row(self.max_blocks)
+            tables = np.full_like(self.tables, -1)
+            for i in active:
+                tables[i] = self.tables[i]
+            pos[pos >= self.max_seq] = 0
+            batch["block_tables"] = self._to_device(tables)
+        batch["pos"] = self._to_device(pos)
         t0 = self._now() if self._tr is not None else 0.0
         out = self._step(batch)
         nxt = (torch.argmax(out, -1) if self.return_logits else out).cpu()
@@ -810,6 +988,7 @@ class ServingEngine:
                  "pos": self._to_device(np.minimum(base + t, self.max_seq))})
             ids = torch.argmax(logits, -1)
             proposals.append(ids)
+            self._c_draft_steps.inc()
         drafts = torch.stack(proposals, 1).cpu().numpy()  # [B, k]
         t_draft = self._now() if self._tr is not None else t0
         # grow block tables to cover the k+1 verify positions; admission
@@ -894,9 +1073,10 @@ class ServingEngine:
                    pid=self._pid)
         tr.counter("queue_depth", now, {"queued": len(self.queue)},
                    pid=self._pid)
-        tr.counter("kv_pages", now,
-                   {"in_use": self.pool.pages_in_use(),
-                    "cached": len(self.pool.lru)}, pid=self._pid)
+        if self.paged:
+            tr.counter("kv_pages", now,
+                       {"in_use": self.pool.pages_in_use(),
+                        "cached": len(self.pool.lru)}, pid=self._pid)
 
     def run_until_drained(self, max_ticks: int = 10_000,
                           keep_finished: bool = False):
@@ -920,9 +1100,12 @@ class ServingEngine:
         return out
 
     def reset_prefix_cache(self):
-        """Drop every parked prefix block: the next admission sees a cold
-        cache.  Pages are only read through block tables, so the stale
-        device tensors need no zeroing.  Requires an idle engine."""
+        """Drop every parked prefix block (paged backend): the next
+        admission sees a cold cache.  Pages are only read through block
+        tables, so the stale device tensors need no zeroing.  Requires an
+        idle engine."""
+        if not self.paged:
+            return
         if self.busy():
             raise RuntimeError("reset_prefix_cache needs an idle engine")
         self.pool = BlockPool(self.pool.num_pages, self.page_size)
@@ -952,8 +1135,9 @@ class ServingEngine:
     def jit_cache_sizes(self) -> dict:
         """Distinct input shapes per step function, under the JAX
         engine's keys."""
-        sizes = {"_prefill_chunk": len(self._traced),
-                 "_step": len(self._step_shapes)}
+        sizes = {"_step": len(self._step_shapes)}
+        for kind, *_ in self._traced:  # prefill_chunk, prefill, ...
+            sizes["_" + kind] = sizes.get("_" + kind, 0) + 1
         return {name: n for name, n in sizes.items() if n}
 
     def latency_stats(self) -> dict:

@@ -2,9 +2,9 @@
 the same request streams give identical ``Request.output`` and identical
 page-bookkeeping stats, with bf16 and int8 pools.  int8 runs are held to
 the JAX int8 engine, never to a bf16 one.  Also: unported knobs raise
-``NotImplementedError`` (media requests no longer do), the port imports
-neither JAX nor the JAX package, and an engine with no device named needs
-a CUDA card."""
+``NotImplementedError`` (media requests, the dense backend and monolithic
+prefill no longer do), the port imports neither JAX nor the JAX package,
+and an engine with no device named needs a CUDA card."""
 import ast
 import pathlib
 
@@ -135,20 +135,36 @@ def test_padded_chunk_past_max_seq_matches_jax(need_jax):
     assert outs[0] == outs[1]
 
 
-def _reduced_engine(**kw):
+def _reduced_engine(arch="qwen2-0.5b", **kw):
+    """An engine over reduced qwen2-0.5b's params; ``arch`` names the
+    model the engine is built for (its checks run before any param is
+    read)."""
     model = build_model(reduced(get_config("qwen2-0.5b"),
                                 act_dtype="float32"))
     params = model.init(0, param_dtype=torch.float32, device="cpu")
+    if arch != "qwen2-0.5b":
+        model = build_model(reduced(get_config(arch)))
     return ServingEngine(model, params, max_batch=2, max_seq=64,
                          page_size=8, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("knob", [
-    dict(paged=False), dict(prefill_chunk=0),
+    dict(paged=False, arch="zamba2-2.7b"),  # a recurrent family: item 11
+    dict(paged=False, kv_dtype="int8"),  # refused as by the JAX engine
     dict(draft_config=reduced(get_config("qwen2-moe-a2.7b"))),  # MoE draft
     dict(mesh=object()), dict(sorted_batch_sizes=[1, 2])])
 def test_unported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Knobs the port does not serve raise: unported ones
+    ``NotImplementedError`` naming their ROADMAP item; an int8 dense cache
+    ``ValueError``, as in the JAX engine (test_kv_quant.py:183-186).  The
+    dense backend and monolithic prefill of the attention family are
+    ported (tests/test_torch_dense_engine.py)."""
+    if knob.get("kv_dtype") == "int8":
+        with pytest.raises(ValueError, match="paged"):
+            _reduced_engine(**knob)
+        return
+    match = "ROADMAP queue 1 item 11" if "arch" in knob else "ROADMAP"
+    with pytest.raises(NotImplementedError, match=match):
         _reduced_engine(**knob)
 
 
