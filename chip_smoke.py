@@ -8,9 +8,9 @@ exits non-zero without printing a result:
 
   1. device: the card's name and ``nvidia-smi`` name and power limit;
   2. build: compiles ``kernels/csrc/paged_decode.cu``, ``paged_verify.cu``,
-     ``flash_attention.cu``, ``rmsnorm.cu`` and ``flash_decode.cu`` for
-     sm_90a, all nvcc runs at once (seconds, registers, shared memory,
-     spills);
+     ``flash_attention.cu``, ``rmsnorm.cu``, ``flash_decode.cu`` and
+     ``moe_gmm.cu`` for sm_90a, all nvcc runs at once (seconds, registers,
+     shared memory, spills);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (verify also at
@@ -23,16 +23,23 @@ exits non-zero without printing a result:
      with bf16 and fp32 queries at the CPU tests' cases, qwen2-0.5b's
      serving shape (B 8, max_seq 1024, contexts 60-1000, a parked slot),
      gemma3-1b's windowed layers, llama3.2-3b's heads and the reduced
-     configs' D 16;
+     configs' D 16; free slots (no visible key) of paged decode, verify
+     and flash decode, bf16 and int8, held to the plain version's uniform
+     softmax; the grouped matmul in bf16 and fp32 at the CPU tests' cases
+     and at granite-moe-1b-a400m's and qwen2-moe-a2.7b's expert shapes
+     (decode, verify, chunk and 1024-bucket capacities);
   4. kernel, plain version and one library call's times at the main
      path's shapes (decode: B 8; verify: the speculative B 8, T 4 and the
      prefill chunk B 1, T 64; flash attention: the encoder's batch at
      S 256 and the draft's prefill buckets; RMSNorm: [8, 896] and
-     [64, 896]; flash decode: the dense cache at B 8, max_seq 1024),
-     beside the least time the card could take, and the kernel held to
-     its plain version there;
-  5. the text path: qwen2-0.5b at full width and depth (random seeded
-     bf16 weights) serves 12 requests through ``ServingEngine`` with a
+     [64, 896]; flash decode: the dense cache at B 8, max_seq 1024;
+     grouped matmul: granite-moe's decode, verify, chunk and monolithic
+     capacities and qwen2-moe's decode, against ``torch.bmm``), beside the
+     least time the card could take, and the kernel held to its plain
+     version there;
+  5. the text path: qwen2-0.5b at full width, cut to its first
+     MAIN_LAYERS (12) of 24 layers to keep the run's time (random seeded
+     bf16 weights; phases 5-9 use this model), serves 12 requests through ``ServingEngine`` with a
      bf16 and an int8 pool; decode launches must equal n_layers x decode
      steps, verify launches (chunked-prefill attention) n_layers x
      prefill chunks, RMSNorm launches the norms of every step;
@@ -60,12 +67,27 @@ exits non-zero without printing a result:
      once plainly and once under ``torch.profiler`` with the engine's trace
      spans: device busy share, engine-span totals, top kernels by device
      time;
-  10. reduced qwen2-0.5b and gemma3-1b in fp32, text and multimodal
-     requests: the engine on the CPU (plain versions) and on the card
-     (kernels) give identical tokens, speculative, dense (chunked and
-     monolithic) and paged monolithic engines included, and speculation
-     on the card gives the tokens of plain decode; the reduced encoder on
-     the card gives the CPU's features;
+  9b. the MoE path: granite-moe-1b-a400m at full width and depth (random
+     seeded bf16 weights) serves the 12 text requests through paged
+     chunked engines (bf16 and int8 pools), a paged monolithic engine, a
+     dense chunked engine and a paged engine with spec_k=3 and a 4-layer
+     MoE draft; grouped-matmul launches must equal 3 x n_layers x (decode
+     steps + prefill chunks + monolithic prefills + verify passes) + 3 x
+     draft layers x (draft prefills + draft steps), the other kernels' as
+     in phases 5-8;
+  10. reduced qwen2-0.5b, gemma3-1b, granite-moe-1b-a400m and
+     qwen2-moe-a2.7b in fp32, and granite-moe with capacity_factor 0.3
+     and 16 slots (experts overflow beside free slots), text and
+     multimodal requests: the engine on the CPU (plain versions) and on
+     the card (kernels) give identical tokens, speculative, dense
+     (chunked and monolithic) and paged monolithic engines included
+     (every variant for the dense configs; for the MoE configs each
+     variant once: granite-moe bf16 plain, speculative and monolithic,
+     qwen2-moe bf16 plain and speculative, the overflowing one the
+     variants whose kernels see free slots), and for the dense configs
+     speculation on the card gives the tokens of plain decode (an MoE
+     layer's drops depend on how a call batches its tokens, so there it is
+     printed); the reduced encoder on the card gives the CPU's features;
  11. one JSON line for the kernels, then the result line.
 
 Needs a CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
@@ -98,6 +120,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode_quant_ref, flash_decode_ref)
+from repro_torch.kernels.moe_gmm import grouped_matmul_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import (  # noqa: E402
     paged_decode_quant_ref, paged_decode_ref, smem_bytes)
 from repro_torch.kernels.paged_verify import (  # noqa: E402
@@ -128,13 +151,21 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.int8: 1979e12,
 #    one or a missed block moves them by far more than this.
 EXACT_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7),
              torch.float32: dict(atol=1e-5, rtol=1e-4)}
+#    The attention kernels over bf16 pages or caches (ROUNDED) round each
+#    probability to bf16 before the value product, as the plain version
+#    does on bf16 values and does not on the widened ones: each is off by
+#    at most half a bf16 ulp (2^-8 relative), a bf16 result by another
+#    2^-8, so they are held within 2^-7 of the plain version on |v| (the
+#    probability-weighted sum of |v|), plus 1e-5 (ROUNDED_TOL).
+ROUNDED_TOL = dict(atol=1e-5, rtol=2 ** -7)
 # 2. Against the plain version on the same inputs in the working type (bf16
-#    q), with the tolerances of test_kv_cache.py:137 (the plain version
-#    rounds the probabilities to bf16 before the value product, the kernel
-#    keeps them in fp32) and test_kv_quant.py:85 (int8: both dequantize to
-#    the same fp32 values); flash attention and RMSNorm with test_kernels.py's
-#    _tol for bf16 (both round the same fp32 result to bf16).  max_abs_err
-#    in the kernels line is this error.
+#    q, and for ROUNDED also fp32 q), with the tolerances of
+#    test_kv_cache.py:137 (both round the probabilities to bf16 before the
+#    value product, from fp32 values that differ in their last bits, so
+#    either may round one the other way) and test_kv_quant.py:85 (int8:
+#    both dequantize to the same fp32 values); flash attention and RMSNorm
+#    with test_kernels.py's _tol for bf16 (both round the same fp32 result
+#    to bf16).  max_abs_err in the kernels line is this error.
 TOL = {"paged_decode": dict(atol=5e-2, rtol=5e-2),
        "paged_decode_quant": dict(atol=5e-3, rtol=5e-3),
        "paged_verify": dict(atol=5e-2, rtol=5e-2),
@@ -142,13 +173,29 @@ TOL = {"paged_decode": dict(atol=5e-2, rtol=5e-2),
        "flash_attention": dict(atol=5e-2, rtol=5e-2),
        "rmsnorm": dict(atol=5e-2, rtol=5e-2),
        "flash_decode": dict(atol=5e-2, rtol=5e-2),
-       "flash_decode_quant": dict(atol=5e-3, rtol=5e-3)}
+       "flash_decode_quant": dict(atol=5e-3, rtol=5e-3),
+       "grouped_matmul": dict(atol=1e-2, rtol=5e-2)}
+# 3. The grouped matmul sums up to 2048 products of unit normals in fp32 in
+#    another order than the plain version's einsum: 1e-3 absolute on top
+#    of EXACT_TOL's relative part (outputs of magnitude ~30-45), and
+#    test_kernels.py's 1e-2 / 5e-2 in bf16 (TOL above).
+GMM_EXACT_TOL = {torch.bfloat16: dict(atol=1e-3, rtol=2 ** -7),
+                 torch.float32: dict(atol=1e-3, rtol=1e-4)}
+# 4. A row with no visible key (a free slot) gets the plain version's
+#    uniform softmax over every key it reads: the same weighted value rows
+#    summed in another order, so EXACT_TOL's parts scale the plain version
+#    on |v| instead of the output (poisoned scales make these rows ~1e8).
+# the wrappers that round probabilities where the pages or caches are bf16
+ROUNDED = ("paged_decode", "paged_verify", "flash_decode")
 SOURCES = {"paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "paged_verify": "src/repro_torch/kernels/csrc/paged_verify.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-           "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu"}
+           "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+           "moe_gmm": "src/repro_torch/kernels/csrc/moe_gmm.cu"}
+# the source of each kernel whose name is not its source's
+SOURCE_OF = {"grouped_matmul": "moe_gmm"}
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:92",
             "paged_decode_quant": "src/repro/kernels/paged_decode.py:137",
             "paged_verify": "src/repro/kernels/paged_verify.py:95",
@@ -156,7 +203,8 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:92",
             "flash_attention": "src/repro/kernels/flash_attention.py:84",
             "rmsnorm": "src/repro/kernels/rmsnorm.py:23",
             "flash_decode": "src/repro/kernels/flash_decode.py:71",
-            "flash_decode_quant": "src/repro/kernels/flash_decode.py:125"}
+            "flash_decode_quant": "src/repro/kernels/flash_decode.py:125",
+            "grouped_matmul": "src/repro/kernels/moe_gmm.py:38"}
 WRAPPERS = {"paged_decode": ops.paged_decode,
             "paged_decode_quant": ops.paged_decode_quant,
             "paged_verify": ops.paged_verify,
@@ -164,7 +212,8 @@ WRAPPERS = {"paged_decode": ops.paged_decode,
             "flash_attention": ops.flash_attention,
             "rmsnorm": ops.rmsnorm,
             "flash_decode": ops.flash_decode,
-            "flash_decode_quant": ops.flash_decode_quant}
+            "flash_decode_quant": ops.flash_decode_quant,
+            "grouped_matmul": ops.grouped_matmul}
 PLAINS = {"paged_decode": paged_decode_ref,
           "paged_decode_quant": paged_decode_quant_ref,
           "paged_verify": paged_verify_ref,
@@ -172,8 +221,16 @@ PLAINS = {"paged_decode": paged_decode_ref,
           "flash_attention": flash_attention_ref,
           "rmsnorm": rmsnorm_ref,
           "flash_decode": flash_decode_ref,
-          "flash_decode_quant": flash_decode_quant_ref}
+          "flash_decode_quant": flash_decode_quant_ref,
+          "grouped_matmul": grouped_matmul_ref}
 SPEC_K = 3
+# the layers of qwen2-0.5b (24) that phases 5-9 run: cut from 24 to 12
+# to make room for the MoE phases within the run's time
+MAIN_LAYERS = 12
+# the MoE path (phase 9b): granite-moe-1b-a400m at full width, served with
+# a 4-layer cut of itself as the speculative draft
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_DRAFT_LAYERS = 4
 # the edge encoder of the multimodal path: fig11's settings at qwen2-0.5b's
 # width (benchmarks/fig11_multimodal_split.py:78), fp32, seeded params
 ENC_CFG = enc.MMEncoderConfig(d_model=896, img_size=32, patch=8,
@@ -217,8 +274,50 @@ DECODE_CASES = [
     (1, 70, 8, 1, 64, 0, False), (8, 1024, 14, 2, 64, 0, True),
     (2, 1024, 4, 1, 256, 512, True), (4, 512, 24, 8, 128, 0, True),
     (3, 64, 4, 2, 16, 0, True)]
+# phase 10's engine variants: (label, engine keywords, speculative)
+VARIANTS = {"bf16": ({}, False), "bf16 spec": ({}, True),
+            "int8": (dict(kv_dtype="int8"), False),
+            "int8 spec": (dict(kv_dtype="int8"), True),
+            "dense chunked": (dict(paged=False), False),
+            "dense monolithic": (dict(paged=False, prefill_chunk=0), False),
+            "paged bf16 monolithic": (dict(prefill_chunk=0), False),
+            "paged int8 monolithic": (dict(prefill_chunk=0, kv_dtype="int8"),
+                                      False)}
+# phase 10's configs: (arch, overrides of the reduced config, max_batch,
+# the variants it serves).  The dense configs serve every variant.  The
+# MoE configs share the engine's paths with them, so each MoE variant is
+# served once: granite-moe the bf16 pool plain and speculative and paged
+# monolithic prefill (whole-prompt buckets through the experts);
+# qwen2-moe, whose own code is the shared expert, the bf16 pool plain and
+# speculative; granite-moe with its capacity factor lowered so that
+# experts overflow, with 16 slots (16 decode tokens, 8 an expert on
+# average, against a capacity of 8) of which some are free while others
+# decode, the variants whose kernels see free slots: paged decode (bf16
+# and int8), verify, and dense decode
+PARITY = [("qwen2-0.5b", {}, 3, tuple(VARIANTS)),
+          ("gemma3-1b", {}, 3, tuple(VARIANTS)),
+          ("granite-moe-1b-a400m", {}, 3,
+           ("bf16", "bf16 spec", "paged bf16 monolithic")),
+          ("qwen2-moe-a2.7b", {}, 3, ("bf16", "bf16 spec")),
+          ("granite-moe-1b-a400m", dict(capacity_factor=0.3), 16,
+           ("bf16", "bf16 spec", "int8", "dense chunked"))]
 # the dense cache's contexts at the main path's decode shape
 DENSE_CTX = np.asarray([60, 150, 290, 400, 520, 640, 760, 1000])
+# the grouped matmul held to its plain version: (label, E, C, K, N), the
+# CPU tests' cases (test_kernels.py::test_grouped_matmul's sweep), then
+# granite-moe-1b-a400m's experts (E 32, d 1024, ff 512: gate/up K 1024 N
+# 512, down K 512 N 1024) at the capacities of a decode tick (8 tokens),
+# a verify pass (8 x 4), a 64-token chunk and a 1024-token bucket, and
+# qwen2-moe-a2.7b's (E 60, d 2048, ff 1408) at a decode tick and a
+# 1024-token bucket
+GMM_CASES = [("sweep", 4, 48, 96, 40), ("sweep", 8, 16, 64, 128),
+             ("sweep", 2, 130, 70, 90)]
+GMM_CASES += [(f"granite {what} C {C}", 32, C, K, N)
+              for C in (8, 16, 24, 320)
+              for what, K, N in (("gate/up", 1024, 512), ("down", 512, 1024))]
+GMM_CASES += [(f"qwen2-moe {what} C {C}", 60, C, K, N) for C in (8, 88)
+              for what, K, N in (("gate/up", 2048, 1408),
+                                 ("down", 1408, 2048))]
 
 
 def check(cond: bool, msg: str):
@@ -273,27 +372,60 @@ def within(a, w, tol) -> bool:
     return bool(((a - w).abs() <= tol["atol"] + tol["rtol"] * w.abs()).all())
 
 
-def hold(name, out, args, kw, rows, where) -> tuple:
+def hold_dead(name, out, args, kw, dead, where) -> float:
+    """Holds an attention kernel's rows with no visible key (``dead``:
+    slots or a [B, T] mask) to its plain version on the same inputs, the
+    uniform softmax over every key it reads, within EXACT_TOL's parts of
+    the plain version on |v| (args[2]; see 4. above); returns the largest
+    error over that scale."""
+    plain = PLAINS[name]
+    want = plain(*args, **kw).float()[dead]
+    absargs = list(args)
+    absargs[2] = args[2].abs()
+    scale = plain(*absargs, **kw).float()[dead]
+    tol = EXACT_TOL[out.dtype]
+    err = (out.float()[dead] - want).abs()
+    check(bool((err <= tol["atol"] + tol["rtol"] * scale).all()),
+          f"{name} {where}: rows with no visible key differ from the plain "
+          f"version by up to {float(err.max())}")
+    check(bool((want != 0).any()), f"{name} {where}: plain dead rows zero")
+    return float((err / scale.clamp(min=1e-30)).max())
+
+
+def hold(name, out, args, kw, rows, where, dead=None) -> tuple:
     """Holds one kernel output (rows ``rows``: slots, a [B, T] mask, or
     ``slice(None)``) to its plain version, called with ``args`` and the
-    keywords ``kw``, both ways (see EXACT_TOL, TOL); returns the largest
-    error against the fp32 plain version and in the working type (0.0 for
-    an fp32 query or x)."""
+    keywords ``kw``, both ways (see EXACT_TOL, ROUNDED_TOL, TOL), and the
+    rows ``dead`` with no visible key through ``hold_dead``; returns the
+    largest error against the fp32 plain version and in the working type
+    (0.0 for an fp32 query or x, except for the kernels that round
+    probabilities)."""
+    if dead is not None:
+        hold_dead(name, out, args, kw, dead, where)
     q = args[0]
     check(out.dtype == q.dtype and out.shape == q.shape,
           f"{name} {where}: output {out.dtype} {tuple(out.shape)}")
     check(bool(torch.isfinite(out.float()).all()),
           f"{name} {where}: non-finite output")
     plain = PLAINS[name]
+    rounded = name in ROUNDED and args[2].dtype == torch.bfloat16
     a = out.float()[rows]
     wide = [t.float() if t.is_floating_point() and t.dtype != torch.float32
             else t for t in args]
     exact = plain(*wide, **kw).float()[rows]
-    tol = EXACT_TOL[out.dtype]
     err32 = float((a - exact).abs().max())
-    check(within(a, exact, tol), f"{name} {where}: max |err| {err32} vs "
-          f"the fp32 plain version, over tolerance {tol}")
-    if q.dtype == torch.float32:
+    if rounded:
+        wide[2] = wide[2].abs()
+        scale = plain(*wide, **kw).float()[rows]
+        tol = ROUNDED_TOL
+        ok = bool(((a - exact).abs()
+                   <= tol["atol"] + tol["rtol"] * scale).all())
+    else:
+        tol = EXACT_TOL[out.dtype]
+        ok = within(a, exact, tol)
+    check(ok, f"{name} {where}: max |err| {err32} vs the fp32 plain "
+          f"version, over tolerance {tol}")
+    if q.dtype == torch.float32 and not rounded:
         return err32, 0.0
     want = plain(*args, **kw).float()[rows]
     err = float((a - want).abs().max())
@@ -319,9 +451,10 @@ def dense_case(rng, B, S, H, Hkv, D, engine, *, layers=0, ctx=None):
     index and pos lies in [S/2, S) (test_kernels.py).  With it: slot b
     holds ``ctx[b]`` entries (random if None), -1 past them, the query
     sits up to 3 positions before the last entry (stale entries past it,
-    as a rejected draft chain leaves them) and, for B > 2, the last slot
-    is parked at pos = S.  Returns (q, k, v, cpos, pos, rows): ``rows``
-    the slots that see a key."""
+    as a rejected draft chain leaves them), for B > 2 the last slot is
+    parked at pos = S and, for B > 3 with random contexts, the one before
+    it is free (all -1, pos 0: it sees no key).  Returns (q, k, v, cpos,
+    pos, rows): ``rows`` the slots that see a key."""
     dev = torch.device("cuda")
     lead = (layers,) if layers else ()
     q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
@@ -331,7 +464,8 @@ def dense_case(rng, B, S, H, Hkv, D, engine, *, layers=0, ctx=None):
     if not engine:
         pos = rng.integers(S // 2, S, B).astype(np.int32)
     else:
-        if ctx is None:
+        free_slot = ctx is None
+        if free_slot:
             ctx = rng.integers(S // 8, S + 1, B)
         pos = np.zeros(B, np.int32)
         for b, n in enumerate(ctx):
@@ -339,6 +473,8 @@ def dense_case(rng, B, S, H, Hkv, D, engine, *, layers=0, ctx=None):
             pos[b] = max(n - 1 - int(rng.integers(0, 4)), 0)
         if B > 2:
             pos[-1] = S
+        if B > 3 and free_slot:
+            cpos[-2], pos[-2] = -1, 0
     rows = [b for b in range(B) if ((cpos[b] >= 0) & (cpos[b] <= pos[b]))
             .any()]
     return (q.to(dev), k, v, torch.from_numpy(cpos).to(dev),
@@ -389,17 +525,19 @@ def phase_build():
               f"D {D}: {flash_attention.smem_bytes(D)} bytes"
               for D in flash_attention.HEAD_DIMS))
     print(f"[build]   flash decode: {flash_decode.tile_keys()} keys per "
-          "staged tile; dynamic shared memory per CTA " + ", ".join(
+          "staged tile; dynamic shared memory per CTA with the scores of "
+          "1024 keys " + ", ".join(
               f"{arch} (G={H // Hkv}, D={D}): "
-              f"{flash_decode.smem_bytes(H // Hkv, D)} bytes"
-              for arch, H, Hkv, D, _ in WIDTHS))
+              f"{flash_decode.smem_bytes(H // Hkv, D, H // Hkv * 1024)} "
+              "bytes" for arch, H, Hkv, D, _ in WIDTHS))
     rows = paged_verify.tile_rows()
     for arch, H, Hkv, D, _ in WIDTHS:
         G = H // Hkv
-        print(f"[build]   dynamic shared memory per CTA, {arch} (G={G}, "
-              f"D={D}, page 16): decode {smem_bytes(G, D, 16)} bytes; "
-              f"verify {paged_verify.smem_bytes(D, 16)} bytes at T = 4 and "
-              f"at T = 64 alike ({rows} query rows per CTA: "
+        print(f"[build]   dynamic shared memory per CTA with the scores of "
+              f"1024 keys, {arch} (G={G}, D={D}, page 16): decode "
+              f"{smem_bytes(G, D, 16, G * 1024)} bytes; verify "
+              f"{paged_verify.smem_bytes(D, 16, rows * 1024)} bytes at "
+              f"T = 4 and at T = 64 alike ({rows} query rows per CTA: "
               f"{-(-4 * G // rows) * Hkv * 8} CTAs at B 8, T 4; "
               f"{-(-64 * G // rows) * Hkv} CTAs at B 1, T 64)")
 
@@ -427,13 +565,15 @@ def phase_compare(rng) -> dict:
                     out = WRAPPERS[name](*args, window=window)
                     err32, err = hold(name, out, args,
                                       dict(window=window), rows,
-                                      f"{arch} B={B} q {qd.dtype}")
+                                      f"{arch} B={B} q {qd.dtype}",
+                                      list(inactive) or None)
                     worst[name] = max(worst[name], err)
                     errs.append(f"{name} q {str(qd.dtype)[6:]} {err32:.3g}")
             print(f"[compare] {arch} H={H} Hkv={Hkv} D={D} window={window} "
                   f"B={B}: bf16 and int8 pool, bf16 and fp32 q agree with "
-                  f"the plain version; max |err| vs fp32 plain: "
-                  + ", ".join(errs))
+                  f"the plain version"
+                  f"{', the free slot too' if inactive else ''}; max |err| "
+                  f"vs fp32 plain: " + ", ".join(errs))
     # verify: the CPU tests' cases (tests/test_torch_speculative.py CASES:
     # B, last context, H, Hkv, D, page, T, window), then the three model
     # layouts at the speculative T = 4 (B 8) and a 64-token chunk (B 2)
@@ -463,15 +603,15 @@ def phase_compare(rng) -> dict:
                 out = WRAPPERS[name](*args, window=window)
                 err32, err = hold(name, out, args, dict(window=window),
                                   rows,
-                                  f"B={B} T={T} H={H} D={D} q {qd.dtype}")
-                check(not out.float()[~rows].any(),
-                      f"{name}: rows with no key are not zero")
+                                  f"B={B} T={T} H={H} D={D} q {qd.dtype}",
+                                  ~rows if inactive else None)
                 worst[name] = max(worst[name], err)
                 errs.append(f"{name} q {str(qd.dtype)[6:]} {err32:.3g}")
         print(f"[compare] verify B={B} T={T} H={H} Hkv={Hkv} D={D} page "
               f"{bs} window={window}, contexts up to {S}: bf16 and int8 "
-              f"pool, bf16 and fp32 q agree with the plain version; max "
-              f"|err| vs fp32 plain: " + ", ".join(errs))
+              f"pool, bf16 and fp32 q agree with the plain version"
+              f"{', the free slot too' if inactive else ''}; max |err| vs "
+              f"fp32 plain: " + ", ".join(errs))
     dev = torch.device("cuda")
     for B, Sq, Sk, H, Hkv, D, causal, window in FLASH_CASES:
         q = torch.randn(B, Sq, H, D, device=dev)
@@ -516,21 +656,66 @@ def phase_compare(rng) -> dict:
                     ("flash_decode", "fp32", (qd, k, v, cpos, pos)),
                     ("flash_decode_quant", "int8",
                      (qd, k8, v8, ks, vs, cpos, pos))]
+            dead = [b for b in range(B) if b not in rows]
             for name, cache, args in runs:
                 out = WRAPPERS[name](*args, window=window)
                 err32, err = hold(name, out, args, dict(window=window), rows,
                                   f"B={B} S={S} H={H} D={D} {cache} cache "
-                                  f"q {qd.dtype}")
-                dead = [b for b in range(B) if b not in rows]
-                check(not out.float()[dead].any(),
-                      f"{name}: rows with no key are not zero")
+                                  f"q {qd.dtype}", dead or None)
                 worst[name] = max(worst[name], err)
                 errs.append(f"{cache} cache, {str(qd.dtype)[6:]} q "
                             f"{err32:.3g}")
         print(f"[compare] flash decode B={B} S={S} H={H} Hkv={Hkv} D={D} "
               f"window={window}{', engine-like cache' if engine else ''}: "
               f"bf16, fp32 and int8 caches, bf16 and fp32 q agree with the "
-              f"plain version; max |err| vs fp32 plain: " + ", ".join(errs))
+              f"plain version"
+              f"{f', {len(dead)} slots with no key too' if dead else ''}; "
+              f"max |err| vs fp32 plain: " + ", ".join(errs))
+    worst["grouped_matmul"] = compare_gmm()
+    return worst
+
+
+def hold_gmm(out, x, w, where) -> tuple:
+    """Holds a grouped-matmul output to its plain version on the values
+    widened to fp32 (GMM_EXACT_TOL) and in the working type (TOL); returns
+    both largest errors (0.0 in the working type for fp32)."""
+    E, C, _ = x.shape
+    check(out.dtype == x.dtype and out.shape == (E, C, w.shape[2]),
+          f"grouped_matmul {where}: output {out.dtype} {tuple(out.shape)}")
+    a = out.float()
+    exact = grouped_matmul_ref(x.float(), w.float()).float()
+    err32 = float((a - exact).abs().max())
+    check(within(a, exact, GMM_EXACT_TOL[x.dtype]),
+          f"grouped_matmul {where}: max |err| {err32} vs the fp32 plain "
+          "version")
+    if x.dtype == torch.float32:
+        return err32, 0.0
+    want = grouped_matmul_ref(x, w).float()
+    err = float((a - want).abs().max())
+    check(within(a, want, TOL["grouped_matmul"]), f"grouped_matmul {where}: "
+          f"max |err| {err} vs the plain version")
+    return err32, err
+
+
+def compare_gmm() -> float:
+    """The grouped matmul against its plain version in bf16 and fp32 at
+    GMM_CASES; returns the largest error in the working type."""
+    dev = torch.device("cuda")
+    worst = 0.0
+    for label, E, C, K, N in GMM_CASES:
+        x = torch.randn(E, C, K, device=dev)
+        w = torch.randn(E, K, N, device=dev)
+        errs = []
+        for dt in (torch.bfloat16, torch.float32):
+            xd, wd = x.to(dt), w.to(dt)
+            err32, err = hold_gmm(ops.grouped_matmul(xd, wd), xd, wd,
+                                  f"{label} E={E} C={C} K={K} N={N} {dt}")
+            worst = max(worst, err)
+            errs.append(f"{str(dt)[6:]} {err32:.3g}")
+        print(f"[compare] grouped matmul {label} E={E} C={C} K={K} N={N}: "
+              f"bf16 and fp32 agree with the plain version; max |err| vs "
+              f"fp32 plain: " + ", ".join(errs))
+        del x, w
     return worst
 
 
@@ -660,8 +845,12 @@ def _time_call(name, label, args, kw, nbytes, nops, peak, library,
     wrapper, ref = WRAPPERS[name], PLAINS[name]
     layers = args if isinstance(args, list) else [args]
     L = len(layers)
-    err32, err = hold(name, wrapper(*layers[0], **kw), layers[0], kw,
-                      slice(None), f"{label} shapes")
+    first = wrapper(*layers[0], **kw)
+    if name == "grouped_matmul":
+        err32, err = hold_gmm(first, *layers[0], f"{label} shapes")
+    else:
+        err32, err = hold(name, first, layers[0], kw, slice(None),
+                          f"{label} shapes")
     bytes_s = nbytes / HBM_BYTES_PER_S
     ops_s = nops / PEAK_OPS_PER_S[peak]
     row = {"ms": cuda_ms(lambda i=0: wrapper(*layers[i % L], **kw), 240),
@@ -735,6 +924,44 @@ def phase_timing_new(smi: str) -> dict:
                          smi)
         out.setdefault("rmsnorm", row)
     out.update(_time_flash_decode(smi))
+    out.update(_time_gmm(smi))
+    return out
+
+
+def _time_gmm(smi: str) -> dict:
+    """The grouped matmul at the MoE path's shapes, bf16: granite-moe's
+    experts (E 32, d 1024, ff 512) at a decode tick (C 8; gate/up, the
+    kernels-line entry, and down), a verify pass (C 16), a 64-token chunk
+    (C 24) and a 1024-token bucket (C 320; gate/up and down), and
+    qwen2-moe-a2.7b's (E 60, d 2048, ff 1408) at a decode tick.  The
+    weights of 24 layers (4 for qwen2-moe: 346 MB each) are taken in turn,
+    so each call reads them from HBM as the model does.  The bound counts
+    x, w and the output once against 2*E*C*K*N operations at the bf16
+    tensor-core peak; the yardstick is ``torch.bmm`` on the same
+    operands."""
+    dev = torch.device("cuda")
+    out = {}
+    for label, E, C, K, N, L in (
+            ("granite decode gate/up", 32, 8, 1024, 512, 24),
+            ("granite decode down", 32, 8, 512, 1024, 24),
+            ("granite verify gate/up", 32, 16, 1024, 512, 24),
+            ("granite chunk gate/up", 32, 24, 1024, 512, 24),
+            ("granite monolithic gate/up", 32, 320, 1024, 512, 24),
+            ("granite monolithic down", 32, 320, 512, 1024, 24),
+            ("qwen2-moe decode gate/up", 60, 8, 2048, 1408, 4)):
+        w = torch.randn(L, E, K, N, device=dev, dtype=torch.bfloat16)
+        x = torch.randn(E, C, K, device=dev, dtype=torch.bfloat16)
+        nbytes = 2 * (x.numel() + E * K * N + E * C * N)
+
+        def library(i=0, x=x, w=w, L=L):
+            torch.bmm(x, w[i % L])
+
+        row = _time_call("grouped_matmul",
+                         f"{label}: E={E} C={C} K={K} N={N} bf16",
+                         [(x, w[l]) for l in range(L)], {}, nbytes,
+                         2 * E * C * K * N, torch.bfloat16, library, smi)
+        out.setdefault("grouped_matmul", row)
+        del w
     return out
 
 
@@ -869,14 +1096,16 @@ def _latency_line(st, wall) -> str:
 
 
 def main_model():
-    """qwen2-0.5b at full width and depth, random bf16 weights, on the
-    card."""
-    cfg = get_config("qwen2-0.5b")
+    """qwen2-0.5b at full width and MAIN_LAYERS of its layers, random bf16
+    weights, on the card."""
+    full = get_config("qwen2-0.5b")
+    cfg = dataclasses.replace(full, n_layers=MAIN_LAYERS)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(0, param_dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
-    print(f"[main] qwen2-0.5b full width: {cfg.n_layers} layers, d "
+    print(f"[main] qwen2-0.5b full width: {cfg.n_layers} of its "
+          f"{full.n_layers} layers, d "
           f"{cfg.d_model}, vocab {cfg.vocab}, bf16 weights from seed 0 in "
           f"{time.perf_counter() - t0:.1f} s")
     return model, params
@@ -1271,9 +1500,9 @@ def phase_profile(model, params, smi: str):
 
     wall = window(None, contextlib.nullcontext())
     tel = Telemetry(trace=True)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    prof = torch.profiler.profile(activities=acts)
+    # device activity only: the kernels' device time is all that is read
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
     pwall = window(tel, prof)
     spans: dict = {}
     for ev in tel.tracer.events:
@@ -1289,7 +1518,6 @@ def phase_profile(model, params, smi: str):
                 return getattr(e, name)
         return 0
 
-    # device kernels only: a CPU op's self device time repeats its kernels'
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
@@ -1306,6 +1534,88 @@ def phase_profile(model, params, smi: str):
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} x "
               f"{e.key[:90]}")
+
+
+def moe_model():
+    """granite-moe-1b-a400m at full width and depth (24 layers, d 1024,
+    32 experts of 512, top-8), random bf16 weights from seed 0, on the
+    card."""
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, param_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"[moe] {MOE_ARCH} full width: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_experts} experts of {cfg.moe_ff} (top "
+          f"{cfg.top_k}), vocab {cfg.vocab}, {n / 1e9:.3f} B parameters, "
+          f"bf16 weights from seed 0 in {time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def phase_moe(model, params, smi: str) -> dict:
+    """The MoE family at full width: the 12 text requests of phase 5
+    (granite's vocab) through a paged engine with chunked prefill (bf16 and
+    int8 pools), a paged engine with monolithic prefill, a dense engine
+    with chunked prefill, and a paged bf16 engine with spec_k=3 drafted by
+    a 4-layer cut of the target (an MoE draft).  Launches must be exactly:
+    grouped_matmul = 3 x n_layers x (decode steps + prefill chunks +
+    monolithic prefills + verify passes) + 3 x draft layers x (draft
+    prefills + draft steps); the attention kernels and RMSNorm as phases
+    5-8 count them.  Returns each run's grouped_matmul launches."""
+    cfg = model.cfg
+    L, nps = cfg.n_layers, norms_per_step(cfg)
+    dcfg, dparams = _cut_draft(cfg, params, MOE_DRAFT_LAYERS)
+    Ld = dcfg.n_layers
+    runs = [("paged bf16, chunked", "bf16", {}),
+            ("paged int8, chunked", "int8", {}),
+            ("paged bf16, monolithic", "bf16", dict(prefill_chunk=0)),
+            ("dense, chunked", "bf16", dict(paged=False)),
+            (f"paged bf16, spec_k={SPEC_K}, {Ld}-layer draft", "bf16",
+             dict(draft_config=dcfg, draft_params=dparams, spec_k=SPEC_K))]
+    out = {}
+    for label, kv_dtype, kw in runs:
+        eng, reqs = _warm_engine(model, params, kv_dtype, **kw)
+        wall, counts, st = _drive(eng, reqs)
+        steps, chunks = st["decode_steps"], st["prefill_chunks"]
+        prefills, ticks = st["prefills"], st["verify_steps"]
+        installs, dsteps = st["draft_prefills"], st["draft_steps"]
+        passes = steps + chunks + prefills + ticks
+        q = "_quant" if kv_dtype == "int8" else ""
+        want = {n: 0 for n in WRAPPERS}
+        want["grouped_matmul"] = 3 * L * passes + 3 * Ld * (installs
+                                                            + dsteps)
+        want["rmsnorm"] = nps * passes + norms_per_step(dcfg) * (installs
+                                                                 + dsteps)
+        want["flash_attention"] = L * prefills + Ld * installs
+        want["flash_decode"] = Ld * dsteps
+        if eng.paged:
+            want[f"paged_decode{q}"] = L * steps
+            want[f"paged_verify{q}"] = L * (chunks + ticks)
+        else:  # dense chunks attend through the plain version
+            want["flash_decode"] = L * steps
+        check(counts == want, f"{MOE_ARCH} {label} launched {counts}, want "
+              f"{want} ({steps} decode steps, {chunks} prefill chunks, "
+              f"{prefills} monolithic prefills, {ticks} verify passes, "
+              f"{installs} draft prefills, {dsteps} draft steps)")
+        check(bool(kw.get("spec_k")) == (ticks > 0 and steps == 0),
+              f"{label}: {steps} decode steps, {ticks} verify passes")
+        out[label] = counts["grouped_matmul"]
+        extra = (f"; acceptance {eng.acceptance_rate():.3f}, "
+                 f"{st['decode_tokens'] / ticks:.2f} tokens per verify pass"
+                 if ticks else "")
+        print(f"[moe] {label}: 12 requests, prompts "
+              f"{sum(len(r.tokens) for r in reqs)} tokens "
+              f"({st['prefix_tokens_reused']} reused) in {chunks} prefill "
+              f"chunks and {prefills} monolithic prefills, "
+              f"{st['decode_tokens']} decode tokens in {steps} decode steps "
+              f"and {ticks} verify passes, {wall:.3f} s wall; "
+              f"{_latency_line(st, wall)}{extra}; launches: grouped_matmul "
+              f"{want['grouped_matmul']} = 3 x {L} x ({steps} + {chunks} + "
+              f"{prefills} + {ticks}) + 3 x {Ld} x ({installs} + {dsteps}), "
+              + ", ".join(f"{n} {c}" for n, c in counts.items()
+                          if c and n != "grouped_matmul") + f" ({smi})")
+    return out
 
 
 def reduced_mm_features(d_model) -> dict:
@@ -1337,15 +1647,20 @@ def reduced_mm_features(d_model) -> dict:
 
 def phase_reduced_parity():
     """fp32 at reduced size, where greedy tokens are sound to compare: the
-    CPU engine (plain versions) and the CUDA engine (kernels) agree, plain
-    and speculative (self-draft, spec_k=3), dense (chunked and monolithic)
-    and paged monolithic (bf16 and int8), and speculation on the card
-    gives the tokens of plain decode; for text requests and for 12
-    multimodal requests (features from the reduced encoder, which must
-    give the CPU's features on the card)."""
-    for arch in ("qwen2-0.5b", "gemma3-1b"):
-        cfg = reduced(get_config(arch), act_dtype="float32")
+    CPU engine (plain versions) and the CUDA engine (kernels) agree on
+    each variant a config of PARITY serves (VARIANTS: paged chunked bf16
+    and int8, each plain and speculative with a self-draft at spec_k=3,
+    dense chunked and monolithic, paged monolithic bf16 and int8), and
+    for the dense configs speculation on the card gives the tokens of
+    plain decode; for text requests and for 12 multimodal requests
+    (features from the reduced encoder, which must give the CPU's
+    features on the card)."""
+    for arch, over, max_batch, variants in PARITY:
+        cfg = reduced(get_config(arch), act_dtype="float32", **over)
         model = build_model(cfg)
+        arch = cfg.name.removesuffix("-reduced") + "".join(
+            f", {k} {v}" for k, v in over.items()) + (
+            f", max_batch {max_batch}" if max_batch != 3 else "")
         cpu_params = model.init(0, param_dtype=torch.float32, device="cpu")
         gpu_params = _tree_map(lambda t: t.to("cuda"), cpu_params)
         rng = np.random.default_rng(2)
@@ -1355,8 +1670,12 @@ def phase_reduced_parity():
                     for _ in range(3)]
         feats = reduced_mm_features(cfg.d_model)
 
-        def serve(dev, params, **kw):
-            eng = ServingEngine(model, params, max_batch=3, max_seq=128,
+        def serve(dev, params, spec, **kw):
+            if spec:
+                kw.update(draft_config=cfg, draft_params=params,
+                          spec_k=SPEC_K)
+            eng = ServingEngine(model, params, max_batch=max_batch,
+                                max_seq=128,
                                 device=dev, **{**dict(
                                     page_size=8, prefill_chunk=16), **kw})
             reqs = [Request(i, p, max_new_tokens=8)
@@ -1370,42 +1689,50 @@ def phase_reduced_parity():
                   f"{arch} {kw} {dev}: no prefix reuse")
             return [tuple(r.output) for r in reqs]
 
-        devices = (("cpu", cpu_params), ("cuda", gpu_params))
-        for kv_dtype in ("bf16", "int8"):
-            outs = {}
-            for (dev, params), spec in itertools.product(devices,
-                                                         (False, True)):
-                kw = dict(draft_config=cfg, draft_params=params,
-                          spec_k=SPEC_K) if spec else {}
-                outs[dev, spec] = serve(dev, params, kv_dtype=kv_dtype, **kw)
-            for a, b, what in (
-                    (("cpu", False), ("cuda", False), "CPU and CUDA engines"),
-                    (("cpu", True), ("cuda", True),
-                     "CPU and CUDA speculative engines"),
-                    (("cuda", False), ("cuda", True),
-                     "CUDA plain and speculative engines")):
-                check(outs[a] == outs[b], f"{arch} {kv_dtype}: {what} "
-                      f"disagree:\n{outs[a]}\n{outs[b]}")
-            print(f"[parity] reduced {arch} fp32, {kv_dtype} pool: CPU "
-                  f"(plain) and CUDA (kernels) engines give identical tokens "
-                  f"for {len(prompts)} text and {len(MM_ORDER)} multimodal "
-                  f"requests, plain and speculative (spec_k={SPEC_K}); on "
-                  f"the card speculation gives the tokens of plain decode; "
-                  f"the reduced encoder (d {cfg.d_model}) gives the CPU's "
-                  f"features on the card")
-        for label, kw in (
-                ("dense chunked", dict(paged=False)),
-                ("dense monolithic", dict(paged=False, prefill_chunk=0)),
-                ("paged bf16 monolithic", dict(prefill_chunk=0)),
-                ("paged int8 monolithic", dict(prefill_chunk=0,
-                                               kv_dtype="int8"))):
-            cpu, cuda = (serve(dev, params, **kw) for dev, params in devices)
-            check(cpu == cuda, f"{arch} {label}: CPU and CUDA engines "
-                  f"disagree:\n{cpu}\n{cuda}")
+        cuda = {}
+        for label in variants:
+            kw, spec = VARIANTS[label]
+            cpu = serve("cpu", cpu_params, spec, **kw)
+            cuda[label] = serve("cuda", gpu_params, spec, **kw)
+            check(cpu == cuda[label], f"{arch} {label}: CPU and CUDA "
+                  f"engines disagree:\n{cpu}\n{cuda[label]}")
             print(f"[parity] reduced {arch} fp32, {label} engine: CPU "
                   f"(plain) and CUDA (kernels) engines give identical tokens "
                   f"for {len(prompts)} text and {len(MM_ORDER)} multimodal "
                   f"requests")
+        # an MoE layer's capacity and drops depend on the tokens of the
+        # call, which a verify pass batches differently from a decode tick:
+        # speculation need not give plain decode's tokens there, in the JAX
+        # package as here
+        for pool in ("bf16", "int8"):
+            if pool in cuda and f"{pool} spec" in cuda:
+                plain, spec = cuda[pool], cuda[f"{pool} spec"]
+                same = sum(x == y for x, y in zip(plain, spec))
+                check(bool(cfg.n_experts) or plain == spec,
+                      f"{arch} {pool}: CUDA plain and speculative engines "
+                      f"disagree:\n{plain}\n{spec}")
+                print(f"[parity] reduced {arch} fp32, {pool} pool: on the "
+                      f"card speculation gives the tokens of plain decode "
+                      f"for {same} of {len(plain)} requests"
+                      f"{'' if cfg.n_experts else ' (held)'}; the reduced "
+                      f"encoder (d {cfg.d_model}) gives the CPU's features "
+                      f"on the card")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+@contextlib.contextmanager
+def timed(label: str):
+    """Prints the host seconds a phase took."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
 
 
 def _tree_map(fn, tree):
@@ -1420,20 +1747,33 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
-    phase_build()
+    with timed("build"):
+        phase_build()
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
-    worst = phase_compare(rng)
-    timing = phase_timing(rng, smi)
-    timing.update(phase_timing_new(smi))
-    model, params = main_model()
-    launches, streams = phase_main_path(model, params, smi)
-    spec_launches = phase_speculation(model, params, streams, smi)
-    mm_launches = phase_multimodal(model, params, smi)
-    dense_launches = phase_dense(model, params, streams, smi)
-    phase_profile(model, params, smi)
-    del params
-    phase_reduced_parity()
+    with timed("compare"):
+        worst = phase_compare(rng)
+    with timed("timing"):
+        timing = phase_timing(rng, smi)
+        timing.update(phase_timing_new(smi))
+    with timed("text path"):
+        model, params = main_model()
+        launches, streams = phase_main_path(model, params, smi)
+    with timed("speculation"):
+        spec_launches = phase_speculation(model, params, streams, smi)
+    with timed("multimodal"):
+        mm_launches = phase_multimodal(model, params, smi)
+    with timed("dense and monolithic"):
+        dense_launches = phase_dense(model, params, streams, smi)
+    with timed("profile"):
+        phase_profile(model, params, smi)
+    del model, params
+    with timed("MoE path"):
+        moe, moe_params = moe_model()
+        moe_launches = phase_moe(moe, moe_params, smi)
+        del moe, moe_params
+    with timed("reduced parity"):
+        phase_reduced_parity()
     kernels = []
     for name in WRAPPERS:
         t = timing[name]
@@ -1442,18 +1782,22 @@ def main():
         # flash attention and RMSNorm: the speculative multimodal path's
         # (encoder, draft prefills, every step's norms); flash decode: the
         # dense chunked run's (phase 8); its int8 instance: no serving path
-        # launches it (every run above held its count to 0)
+        # launches it (every run above held its count to 0); the grouped
+        # matmul: the MoE path's paged bf16 chunked run (phase 9b)
         if name in ("flash_attention", "rmsnorm"):
             n = mm_launches[name]
         elif name == "flash_decode":
             n = dense_launches[name]
         elif name == "flash_decode_quant":
             n = 0
+        elif name == "grouped_matmul":
+            n = moe_launches["paged bf16, chunked"]
         else:
             n = spec_launches.get(name, launches[name])
         kernels.append({
             "name": name, "route": "cuda",
-            "source": SOURCES[name.removesuffix("_quant")],
+            "source": SOURCES[SOURCE_OF.get(name,
+                                            name.removesuffix("_quant"))],
             "replaces": REPLACES[name], "launches": n,
             "max_abs_err": max(worst[name], t["main_shapes_max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

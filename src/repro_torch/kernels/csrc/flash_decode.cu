@@ -14,8 +14,18 @@
 //   key s (cache row s of slot b) is visible iff cpos = cache_positions
 //   [b, s] >= 0, cpos <= pos[b] and, when window > 0, pos[b] - cpos <
 //   window; out = softmax(q.k * D^-0.5) . v over the visible keys, with
-//   the softmax in fp32 and acc / max(l, 1e-30) at the end.  A row with no
-//   visible key writes zeros.  pos is only compared, never used as an
+//   the softmax in fp32 and each probability rounded to the cache type
+//   before the value product, as the plain version (the JAX package's
+//   decode_attention) does: bf16 for bf16 caches, fp32 for fp32 and
+//   dequantized int8 ones.  The Pallas kernel keeps fp32 probabilities;
+//   the plain version's rounding is what the CPU computes, and an MoE
+//   router amplifies the ~1e-3 difference into other experts.  A row with
+//   no visible key (a free slot) gets what the plain version and the
+//   Pallas kernel give it: the uniform softmax over the NEG_INF fills of
+//   all S entries, i.e. the mean of the slot's S value rows (the weight
+//   1/S rounded as above).  Nobody reads such a row's attention, but an
+//   MoE layer routes its token, which competes with the live tokens for
+//   each expert's capacity.  pos is only compared, never used as an
 //   index: a parked slot at pos = max_seq reads nothing out of bounds.
 //
 // What bounds it on an H100: bytes.  Each visible K/V row is read once and
@@ -26,14 +36,20 @@
 //   * reads each tile's cache_positions (4 bytes a key) first and loads
 //     only the K/V rows that are visible; a tile with no visible key loads
 //     nothing else (the dense cache holds -1 past each prompt);
-//   * stages each visible [kTile, D] K and V tile in shared memory once,
+//   * stages each visible [kTile, D] K tile, then V tile, in shared memory,
 //     with 16-byte loads, and lets all G query heads of the kv head read
-//     it there, so the cache is read once per (slot, kv head), not once
+//     them there, so the cache is read once per (slot, kv head), not once
 //     per query head.
-// One CTA per (slot, kv head) walks the tiles in order with a running
-// (m, l, acc) state per query head in fp32; the ragged tail of S is masked
-// per element.  Later work: split-KV across CTAs for small batches (the
-// GPU form flash_decode.py:3 names), cp.async/TMA double buffering and
+// One CTA per (slot, kv head) walks the tiles twice.  The first walk
+// reads K and keeps every fp32 score of its G heads in a scratch row
+// (shared memory, G*S*4 bytes: 28 KB at G 7 and S 1024; global memory,
+// written and read by this CTA alone, where that does not fit); the max m
+// and sum l of each head then come from the stored scores as the plain
+// version's softmax computes them.  The second walk reads V only, forms
+// each probability exp(s - m) / l from the stored score, rounds it, and
+// accumulates p * v in fp32.  The ragged tail of S is masked per element.
+// Later work: split-KV across CTAs for small batches
+// (the GPU form flash_decode.py:3 names), cp.async/TMA double buffering and
 // tensor-core products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +115,28 @@ struct CacheLoad<int8_t> {
   }
 };
 
+__device__ __forceinline__ float value(const float* p, size_t i) {
+  return p[i];
+}
+__device__ __forceinline__ float value(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ float value(const int8_t* p, size_t i) {
+  return static_cast<float>(p[i]);
+}
+
+// A probability as it multiplies v: rounded to the cache type where the
+// cache is bf16, as the plain version rounds it (int8 caches are
+// dequantized to fp32 first, fp32 caches stay fp32).
+template <typename CT>
+__device__ __forceinline__ float round_p(float p) {
+  return p;
+}
+template <>
+__device__ __forceinline__ float round_p<__nv_bfloat16>(float p) {
+  return __bfloat162float(__float2bfloat16(p));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -112,13 +150,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared memory, in 4-byte words: q [G][D], K tile [kTile][D+1] (padded so
-// that threads reading different keys hit different banks), V tile
-// [kTile][D], scores/probabilities [G][kTile], acc [G][D], then m, l and
-// the rescale factor [G] each, and the tile's visibility flags [kTile].
-__host__ __device__ inline int smem_words(int G, int D) {
-  return G * D + kTile * (D + 1) + kTile * D + G * kTile + G * D + 3 * G +
-         kTile;
+// Keys one CTA keeps scores for: S rounded up to whole tiles.
+__host__ __device__ inline int padded_keys(int S) {
+  return (S + kTile - 1) / kTile * kTile;
+}
+
+// Shared memory, in 4-byte words: q [G][D], the K then V tile [kTile][D+1]
+// (padded so that threads reading different keys hit different banks),
+// acc [G][D], m and l [G] each, the tile's visibility flags [kTile], then,
+// unless they go to global memory, the scores [G][padded_keys(S)]
+// (score_words of them).
+__host__ __device__ inline int smem_words(int G, int D, int score_words) {
+  return G * D + kTile * (D + 1) + G * D + 2 * G + kTile + score_words;
 }
 
 template <typename QT, typename CT>
@@ -127,8 +170,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
     const CT* __restrict__ v_cache, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales,
     const int32_t* __restrict__ cache_positions,
-    const int32_t* __restrict__ pos, QT* __restrict__ out, int H, int Hkv,
-    int D, int S, int window, float scale) {
+    const int32_t* __restrict__ pos, float* scores, QT* __restrict__ out,
+    int H, int Hkv, int D, int S, int window, float scale) {
   extern __shared__ float smem[];
   const int G = H / Hkv;
   const int h = blockIdx.x;  // kv head
@@ -136,25 +179,23 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int Dp = D + 1;
+  const int Sp = padded_keys(S);
   float* q_s = smem;
-  float* k_s = q_s + G * D;
-  float* v_s = k_s + kTile * Dp;
-  float* p_s = v_s + kTile * D;
-  float* acc = p_s + G * kTile;
+  float* tile = q_s + G * D;
+  float* acc = tile + kTile * Dp;
   float* m_s = acc + G * D;
   float* l_s = m_s + G;
-  float* c_s = l_s + G;
-  int* ok_s = reinterpret_cast<int*>(c_s + G);
+  int* ok_s = reinterpret_cast<int*>(l_s + G);
+  // score of head g and key s at sc[g * Sp + s]: this CTA's own rows
+  float* sc = scores != nullptr
+                  ? scores + (static_cast<size_t>(b) * Hkv + h) * G * Sp
+                  : reinterpret_cast<float*>(ok_s + kTile);
 
   // the G query heads of kv head h are rows h*G .. h*G+G-1 of q[b]
   const QT* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) * D;
   for (int i = tid; i < G * D; i += kThreads) {
     q_s[i] = to_float(qb[i]);
     acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
   }
   __syncthreads();
 
@@ -165,6 +206,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
   constexpr int kVec = CacheLoad<CT>::kVec;
   const int vecs_per_row = D / kVec;
 
+  // walk 1: the scores of every tile (K only); masked keys score kNegInf
   for (int s0 = 0; s0 < S; s0 += kTile) {
     int any = 0;
     for (int t = tid; t < kTile; t += kThreads) {
@@ -176,94 +218,117 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
       ok_s[t] = ok;
       any |= ok;
     }
-    // a tile with no visible key: nothing to load or attend (uniform)
-    if (!__syncthreads_or(any)) continue;
-
-    for (int i = tid; i < kTile * vecs_per_row; i += kThreads) {
-      const int t = i / vecs_per_row;
-      const int c = (i % vecs_per_row) * kVec;
-      float* kd = k_s + t * Dp + c;
-      float* vd = v_s + t * D + c;
-      if (ok_s[t]) {
+    // a tile with no visible key loads nothing
+    if (__syncthreads_or(any)) {
+      for (int i = tid; i < kTile * vecs_per_row; i += kThreads) {
+        const int t = i / vecs_per_row;
+        if (!ok_s[t]) continue;
+        const int c = (i % vecs_per_row) * kVec;
         const size_t row = row0 + static_cast<size_t>(s0 + t) * Hkv;
-        float ks = 1.f, vs = 1.f;
-        if (k_scales != nullptr) {
-          ks = k_scales[row];
-          vs = v_scales[row];
-        }
-        CacheLoad<CT>::run(k_cache + row * D + c, kd, ks);
-        CacheLoad<CT>::run(v_cache + row * D + c, vd, vs);
-      } else {  // not loaded: zeros, so p = 0 times it stays 0
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          kd[e] = 0.f;
-          vd[e] = 0.f;
-        }
+        const float ks = k_scales != nullptr ? k_scales[row] : 1.f;
+        CacheLoad<CT>::run(k_cache + row * D + c, tile + t * Dp + c, ks);
       }
+      __syncthreads();
     }
-    __syncthreads();
-
     for (int i = tid; i < G * kTile; i += kThreads) {
       const int g = i / kTile, t = i % kTile;
       float s = kNegInf;
       if (ok_s[t]) {
         const float* qr = q_s + g * D;
-        const float* kr = k_s + t * Dp;
+        const float* kr = tile + t * Dp;
         float dot = 0.f;
         for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
         s = dot * scale;
       }
-      p_s[i] = s;
+      sc[g * Sp + s0 + t] = s;
     }
-    __syncthreads();
-
-    // online softmax, one warp per query head; masked keys get p = 0
-    for (int g = warp; g < G; g += kWarps) {
-      float* pr = p_s + g * kTile;
-      float mx = kNegInf;
-      for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, pr[t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < kTile; t += 32) {
-        const float e = ok_s[t] ? expf(pr[t] - m_new) : 0.f;
-        pr[t] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-        c_s[g] = corr;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D, d = i % D;
-      const float* pr = p_s + g * kTile;
-      float a = acc[i] * c_s[g];
-      for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], v_s[t * D + d], a);
-      acc[i] = a;
-    }
-    __syncthreads();  // the tiles and flags are overwritten by the next one
+    __syncthreads();  // the tile and flags are overwritten by the next one
   }
 
+  // max and sum of each head over its stored scores, one warp per head;
+  // masked keys add 0, so a head that sees no key keeps l = 0
+  for (int g = warp; g < G; g += kWarps) {
+    const float* sr = sc + g * Sp;
+    float mx = kNegInf;
+    for (int s = lane; s < Sp; s += 32) mx = fmaxf(mx, sr[s]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int s = lane; s < Sp; s += 32)
+      sum += sr[s] > kNegInf ? expf(sr[s] - mx) : 0.f;
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      m_s[g] = mx;
+      l_s[g] = sum;
+    }
+  }
+  __syncthreads();
+
   QT* ob = out + (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) * D;
-  for (int i = tid; i < G * D; i += kThreads)
-    ob[i] = from_float<QT>(acc[i] / fmaxf(l_s[i / D], 1e-30f));
+  if (l_s[0] == 0.f) {  // no visible key (for every head alike)
+    const float w = round_p<CT>(1.f / static_cast<float>(S));
+    for (int d = tid; d < D; d += kThreads) {
+      float a = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const size_t row = row0 + static_cast<size_t>(s) * Hkv;
+        const float vs = v_scales != nullptr ? v_scales[row] : 1.f;
+        a = fmaf(w, value(v_cache, row * D + d) * vs, a);
+      }
+      for (int g = 0; g < G; ++g) ob[g * D + d] = from_float<QT>(a);
+    }
+    return;
+  }
+
+  // walk 2: V only, over the tiles with a visible key (a key is visible
+  // iff its score is not kNegInf, for every head alike); each stored score
+  // becomes its rounded probability
+  for (int s0 = 0; s0 < S; s0 += kTile) {
+    int any = 0;
+    for (int t = tid; t < kTile; t += kThreads) {
+      const int ok = sc[s0 + t] > kNegInf;
+      ok_s[t] = ok;
+      any |= ok;
+    }
+    if (!__syncthreads_or(any)) continue;
+    for (int i = tid; i < kTile * vecs_per_row; i += kThreads) {
+      const int t = i / vecs_per_row;
+      const int c = (i % vecs_per_row) * kVec;
+      float* vd = tile + t * Dp + c;
+      if (ok_s[t]) {
+        const size_t row = row0 + static_cast<size_t>(s0 + t) * Hkv;
+        const float vs = v_scales != nullptr ? v_scales[row] : 1.f;
+        CacheLoad<CT>::run(v_cache + row * D + c, vd, vs);
+      } else {  // not loaded: zeros, so p = 0 times it stays 0
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) vd[e] = 0.f;
+      }
+    }
+    for (int i = tid; i < G * kTile; i += kThreads) {
+      const int g = i / kTile;
+      float* s = sc + g * Sp + s0 + i % kTile;
+      *s = *s > kNegInf ? round_p<CT>(expf(*s - m_s[g]) / l_s[g]) : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < G * D; i += kThreads) {
+      const int d = i % D;
+      const float* pr = sc + (i / D) * Sp + s0;
+      float a = acc[i];
+      for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], tile[t * Dp + d], a);
+      acc[i] = a;
+    }
+    __syncthreads();  // the tile and flags are overwritten by the next one
+  }
+  for (int i = tid; i < G * D; i += kThreads) ob[i] = from_float<QT>(acc[i]);
 }
 
 template <typename QT, typename CT>
 int launch(const void* q, const void* k_cache, const void* v_cache,
            const void* k_scales, const void* v_scales,
-           const void* cache_positions, const void* pos, void* out, int B,
-           int H, int Hkv, int D, int S, int window, float scale,
-           cudaStream_t stream) {
+           const void* cache_positions, const void* pos, void* scores,
+           void* out, int B, int H, int Hkv, int D, int S, int window,
+           float scale, cudaStream_t stream) {
   const int G = H / Hkv;
-  const size_t bytes = sizeof(float) * smem_words(G, D);
+  const int score_words = scores != nullptr ? 0 : G * padded_keys(S);
+  const size_t bytes = sizeof(float) * smem_words(G, D, score_words);
   auto kernel = flash_decode_kernel<QT, CT>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -277,8 +342,8 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
       static_cast<const CT*>(v_cache), static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales),
       static_cast<const int32_t*>(cache_positions),
-      static_cast<const int32_t*>(pos), static_cast<QT*>(out), H, Hkv, D, S,
-      window, scale);
+      static_cast<const int32_t*>(pos), static_cast<float*>(scores),
+      static_cast<QT*>(out), H, Hkv, D, S, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -286,21 +351,22 @@ template <typename QT>
 int launch_cache(int cache_dtype, const void* q, const void* k_cache,
                  const void* v_cache, const void* k_scales,
                  const void* v_scales, const void* cache_positions,
-                 const void* pos, void* out, int B, int H, int Hkv, int D,
-                 int S, int window, float scale, cudaStream_t stream) {
+                 const void* pos, void* scores, void* out, int B, int H,
+                 int Hkv, int D, int S, int window, float scale,
+                 cudaStream_t stream) {
   switch (cache_dtype) {
     case 0:
       return launch<QT, __nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr,
-                                       cache_positions, pos, out, B, H, Hkv,
-                                       D, S, window, scale, stream);
+                                       cache_positions, pos, scores, out, B,
+                                       H, Hkv, D, S, window, scale, stream);
     case 1:
       return launch<QT, int8_t>(q, k_cache, v_cache, k_scales, v_scales,
-                                cache_positions, pos, out, B, H, Hkv, D, S,
-                                window, scale, stream);
+                                cache_positions, pos, scores, out, B, H, Hkv,
+                                D, S, window, scale, stream);
     case 2:
       return launch<QT, float>(q, k_cache, v_cache, nullptr, nullptr,
-                               cache_positions, pos, out, B, H, Hkv, D, S,
-                               window, scale, stream);
+                               cache_positions, pos, scores, out, B, H, Hkv,
+                               D, S, window, scale, stream);
     default:
       return -1;
   }
@@ -310,10 +376,12 @@ int launch_cache(int cache_dtype, const void* q, const void* k_cache,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA needs; the wrapper checks it
-// against the card's 227 KB before launching.
-int flash_decode_smem_bytes(int G, int D) {
-  return static_cast<int>(sizeof(float)) * smem_words(G, D);
+// Bytes of dynamic shared memory one CTA needs, with score_words words of
+// scores kept there (G*padded_keys(S), or 0 when they go to global
+// memory); the wrapper checks it against the card's 227 KB before
+// launching.
+int flash_decode_smem_bytes(int G, int D, int score_words) {
+  return static_cast<int>(sizeof(float)) * smem_words(G, D, score_words);
 }
 
 // Keys one CTA stages per tile.
@@ -322,24 +390,26 @@ int flash_decode_tile_keys() { return kTile; }
 // q_dtype: 0 fp32, 1 bf16 (the output has q's type).  cache_dtype: 0 bf16,
 // 1 int8 (k_scales/v_scales then point at fp32 [B, S, Hkv]), 2 fp32.
 // All tensors contiguous; cache_positions [B, S] and pos [B] int32.
+// scores: null keeps the scores in shared memory; else fp32 scratch of
+// B*H*padded_keys(S) floats in global memory, S rounded up to whole tiles.
 // Returns cudaGetLastError() after the launch, or -1 for a bad dtype code.
 int flash_decode_launch(int q_dtype, int cache_dtype, const void* q,
                         const void* k_cache, const void* v_cache,
                         const void* k_scales, const void* v_scales,
                         const void* cache_positions, const void* pos,
-                        void* out, int B, int H, int Hkv, int D, int S,
-                        int window, float scale, void* stream) {
+                        void* scores, void* out, int B, int H, int Hkv, int D,
+                        int S, int window, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
     case 0:
       return launch_cache<float>(cache_dtype, q, k_cache, v_cache, k_scales,
-                                 v_scales, cache_positions, pos, out, B, H,
-                                 Hkv, D, S, window, scale, s);
+                                 v_scales, cache_positions, pos, scores, out,
+                                 B, H, Hkv, D, S, window, scale, s);
     case 1:
       return launch_cache<__nv_bfloat16>(cache_dtype, q, k_cache, v_cache,
                                          k_scales, v_scales, cache_positions,
-                                         pos, out, B, H, Hkv, D, S, window,
-                                         scale, s);
+                                         pos, scores, out, B, H, Hkv, D, S,
+                                         window, scale, s);
     default:
       return -1;
   }

@@ -22,13 +22,30 @@
 //   * never loads what is masked: -1 table entries, blocks past pos / bs
 //     and blocks wholly outside the window are skipped, so the bytes read
 //     are those of the visible keys (plus the tail of the last block);
-//   * stages each page's [bs, D] K and V tiles in shared memory once, with
-//     16-byte loads, and lets all G query heads of the kv head read them
-//     there, so the pool is read once per (slot, kv head), not once per
-//     query head.
-// One CTA per (slot, kv head) walks the blocks in order with a running
-// (m, l, acc) state per query head in fp32 and finishes with
-// acc / max(l, 1e-30).  A row with no visible key writes zeros.
+//   * stages each page's [bs, D] K tile, then its V tile, in shared memory
+//     with 16-byte loads and lets all G query heads of the kv head read
+//     them there, so the pool is read once per (slot, kv head), not once
+//     per query head.
+// One CTA per (slot, kv head) walks the blocks twice.  The first walk
+// reads K and keeps every fp32 score of its G heads in a scratch row
+// (shared memory, G*NB*bs*4 bytes: 28 KB at G 7 and 1024 keys; global
+// memory, written and read by this CTA alone, where that does not fit);
+// the max m and sum l of each head then come from the stored scores as
+// the plain version's softmax computes them.  The second walk reads V
+// only, forms each probability exp(s - m) / l from the stored score,
+// rounds it to the page type (bf16 pages; int8 pages are dequantized to
+// fp32 and keep it fp32), as the plain version (the JAX package's
+// decode_attention) rounds its probabilities before the value product,
+// and accumulates p * v in fp32.  The Pallas kernel keeps fp32
+// probabilities; the plain version's rounding is what the CPU computes,
+// and an MoE router amplifies the ~1e-3 difference into other experts.
+// A row with no visible key (a free slot, whose table is all -1) gets what
+// the plain version and the Pallas kernel give it: the uniform softmax
+// over the NEG_INF fills of every key the table addresses, i.e. the mean
+// of the NB*bs value rows, -1 entries read from the null page 0 (the
+// weight 1/(NB*bs) rounded as above).  Nobody reads such a row's
+// attention, but an MoE layer routes its token, which competes with the
+// live tokens for each expert's capacity.
 // Later work: split-KV across CTAs for small batches, cp.async/TMA
 // double buffering, and tensor-core products.
 #include <cuda_bf16.h>
@@ -40,6 +57,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
+constexpr float kMasked = -1e29f;  // scores at or below this are masked
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -82,6 +100,25 @@ struct PageLoad<int8_t> {
   }
 };
 
+__device__ __forceinline__ float value(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ float value(const int8_t* p, size_t i) {
+  return static_cast<float>(p[i]);
+}
+
+// A probability as it multiplies v: rounded to the page type where the
+// pages are bf16, as the plain version rounds it (int8 pages are
+// dequantized to fp32 first, so it stays fp32).
+template <typename PT>
+__device__ __forceinline__ float round_p(float p) {
+  return __bfloat162float(__float2bfloat16(p));
+}
+template <>
+__device__ __forceinline__ float round_p<int8_t>(float p) {
+  return p;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -95,12 +132,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared memory, in floats: q [G][D], K tile [bs][D+1] (padded so that
-// threads reading different rows hit different banks), V tile [bs][D],
-// scores/probabilities [G][bs], acc [G][D], then m, l and the rescale
-// factor [G] each.
-__host__ __device__ inline int smem_floats(int G, int D, int bs) {
-  return G * D + bs * (D + 1) + bs * D + G * bs + G * D + 3 * G;
+// Shared memory, in floats: q [G][D], the K then V tile [bs][D+1] (padded
+// so that threads reading different rows hit different banks), acc [G][D],
+// m and l [G] each, then, unless they go to global memory, the scores
+// [G][NB*bs] (score_words of them).
+__host__ __device__ inline int smem_floats(int G, int D, int bs,
+                                           int score_words) {
+  return G * D + bs * (D + 1) + G * D + 2 * G + score_words;
 }
 
 template <typename QT, typename PT>
@@ -109,8 +147,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const PT* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales,
     const int32_t* __restrict__ block_tables, const int32_t* __restrict__ pos,
-    QT* __restrict__ out, int H, int Hkv, int D, int bs, int NB, int window,
-    float scale) {
+    float* scores, QT* __restrict__ out, int H, int Hkv, int D, int bs,
+    int NB, int window, float scale) {
   extern __shared__ float smem[];
   const int G = H / Hkv;
   const int h = blockIdx.x;  // kv head
@@ -118,24 +156,22 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int Dp = D + 1;
+  const int S = NB * bs;  // keys the table addresses
   float* q_s = smem;
-  float* k_s = q_s + G * D;
-  float* v_s = k_s + bs * Dp;
-  float* p_s = v_s + bs * D;
-  float* acc = p_s + G * bs;
+  float* tile = q_s + G * D;
+  float* acc = tile + bs * Dp;
   float* m_s = acc + G * D;
   float* l_s = m_s + G;
-  float* c_s = l_s + G;
+  // score of head g and key s at sc[g * S + s]: this CTA's own rows
+  float* sc = scores != nullptr
+                  ? scores + (static_cast<size_t>(b) * Hkv + h) * G * S
+                  : l_s + G;
 
   // the G query heads of kv head h are rows h*G .. h*G+G-1 of q[b]
   const QT* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) * D;
   for (int i = tid; i < G * D; i += kThreads) {
     q_s[i] = to_float(qb[i]);
     acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
   }
   __syncthreads();
 
@@ -151,88 +187,116 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   constexpr int kVec = PageLoad<PT>::kVec;
   const int vecs_per_row = D / kVec;
 
+  // walk 1: the scores of blocks j_lo .. j_hi (K only); masked keys and
+  // unallocated blocks score kNegInf
+  for (int j = j_lo; j <= j_hi; ++j) {
+    const int page = bt[j];
+    if (page >= 0) {
+      // row (page, t, h) of the [P, bs, Hkv, D] pool
+      const size_t row0 = static_cast<size_t>(page) * bs * Hkv + h;
+      for (int i = tid; i < bs * vecs_per_row; i += kThreads) {
+        const int t = i / vecs_per_row;
+        const int c = (i % vecs_per_row) * kVec;
+        const size_t row = row0 + static_cast<size_t>(t) * Hkv;
+        const float ks = k_scales != nullptr ? k_scales[row] : 1.f;
+        PageLoad<PT>::run(k_pages + row * D + c, tile + t * Dp + c, ks);
+      }
+      __syncthreads();
+    }
+    for (int i = tid; i < G * bs; i += kThreads) {
+      const int g = i / bs, t = i % bs;
+      const int cpos = j * bs + t;
+      const bool valid =
+          page >= 0 && cpos <= p && (window == 0 || p - cpos < window);
+      float s = kNegInf;
+      if (valid) {
+        const float* qr = q_s + g * D;
+        const float* kr = tile + t * Dp;
+        float dot = 0.f;
+        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+        s = dot * scale;
+      }
+      sc[g * S + cpos] = s;
+    }
+    __syncthreads();  // the tile is overwritten by the next block
+  }
+
+  // max and sum of each head over its stored scores, one warp per head;
+  // masked keys add 0, so a head that sees no key keeps l = 0
+  const int lo = j_lo * bs, hi = (j_hi + 1) * bs;
+  for (int g = warp; g < G; g += kWarps) {
+    const float* sr = sc + g * S;
+    float mx = kNegInf;
+    for (int s = lo + lane; s < hi; s += 32) mx = fmaxf(mx, sr[s]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int s = lo + lane; s < hi; s += 32)
+      sum += sr[s] > kMasked ? expf(sr[s] - mx) : 0.f;
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      m_s[g] = mx;
+      l_s[g] = sum;
+    }
+  }
+  __syncthreads();
+
+  QT* ob = out + (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) * D;
+  if (l_s[0] == 0.f) {  // no visible key (for every head alike)
+    const float w = round_p<PT>(1.f / static_cast<float>(S));
+    for (int d = tid; d < D; d += kThreads) {
+      float a = 0.f;
+      for (int j = 0; j < NB; ++j) {
+        const size_t row0 = static_cast<size_t>(max(bt[j], 0)) * bs * Hkv + h;
+        for (int t = 0; t < bs; ++t) {
+          const size_t row = row0 + static_cast<size_t>(t) * Hkv;
+          const float vs = v_scales != nullptr ? v_scales[row] : 1.f;
+          a = fmaf(w, value(v_pages, row * D + d) * vs, a);
+        }
+      }
+      for (int g = 0; g < G; ++g) ob[g * D + d] = from_float<QT>(a);
+    }
+    return;
+  }
+
+  // walk 2: V only; each stored score becomes its rounded probability
   for (int j = j_lo; j <= j_hi; ++j) {
     const int page = bt[j];
     if (page < 0) continue;  // unallocated: nothing to load or attend
-    // row (page, t, h) of the [P, bs, Hkv, D] pool
     const size_t row0 = static_cast<size_t>(page) * bs * Hkv + h;
     for (int i = tid; i < bs * vecs_per_row; i += kThreads) {
       const int t = i / vecs_per_row;
       const int c = (i % vecs_per_row) * kVec;
       const size_t row = row0 + static_cast<size_t>(t) * Hkv;
-      float ks = 1.f, vs = 1.f;
-      if (k_scales != nullptr) {
-        ks = k_scales[row];
-        vs = v_scales[row];
-      }
-      PageLoad<PT>::run(k_pages + row * D + c, k_s + t * Dp + c, ks);
-      PageLoad<PT>::run(v_pages + row * D + c, v_s + t * D + c, vs);
+      const float vs = v_scales != nullptr ? v_scales[row] : 1.f;
+      PageLoad<PT>::run(v_pages + row * D + c, tile + t * Dp + c, vs);
     }
-    __syncthreads();
-
     for (int i = tid; i < G * bs; i += kThreads) {
-      const int g = i / bs, t = i % bs;
-      const int cpos = j * bs + t;
-      const bool valid = cpos <= p && (window == 0 || p - cpos < window);
-      float s = kNegInf;
-      if (valid) {
-        const float* qr = q_s + g * D;
-        const float* kr = k_s + t * Dp;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-      }
-      p_s[i] = s;
+      const int g = i / bs;
+      float* s = sc + g * S + j * bs + i % bs;
+      *s = *s > kMasked ? round_p<PT>(expf(*s - m_s[g]) / l_s[g]) : 0.f;
     }
     __syncthreads();
-
-    // online softmax, one warp per query head
-    for (int g = warp; g < G; g += kWarps) {
-      float* pr = p_s + g * bs;
-      float mx = kNegInf;
-      for (int t = lane; t < bs; t += 32) mx = fmaxf(mx, pr[t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < bs; t += 32) {
-        const float e = expf(pr[t] - m_new);
-        pr[t] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-        c_s[g] = corr;
-      }
-    }
-    __syncthreads();
-
     for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D, d = i % D;
-      const float* pr = p_s + g * bs;
-      float a = acc[i] * c_s[g];
-      for (int t = 0; t < bs; ++t) a = fmaf(pr[t], v_s[t * D + d], a);
+      const int d = i % D;
+      const float* pr = sc + (i / D) * S + j * bs;
+      float a = acc[i];
+      for (int t = 0; t < bs; ++t) a = fmaf(pr[t], tile[t * Dp + d], a);
       acc[i] = a;
     }
-    __syncthreads();  // the tiles are overwritten by the next block
+    __syncthreads();  // the tile is overwritten by the next block
   }
-
-  QT* ob = out + (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) * D;
-  for (int i = tid; i < G * D; i += kThreads)
-    ob[i] = from_float<QT>(acc[i] / fmaxf(l_s[i / D], 1e-30f));
+  for (int i = tid; i < G * D; i += kThreads) ob[i] = from_float<QT>(acc[i]);
 }
 
 template <typename QT, typename PT>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scales, const void* v_scales,
-           const void* block_tables, const void* pos, void* out, int B, int H,
-           int Hkv, int D, int bs, int NB, int window, float scale,
-           cudaStream_t stream) {
+           const void* block_tables, const void* pos, void* scores, void* out,
+           int B, int H, int Hkv, int D, int bs, int NB, int window,
+           float scale, cudaStream_t stream) {
   const int G = H / Hkv;
-  const size_t bytes = sizeof(float) * smem_floats(G, D, bs);
+  const int score_words = scores != nullptr ? 0 : G * NB * bs;
+  const size_t bytes = sizeof(float) * smem_floats(G, D, bs, score_words);
   auto kernel = paged_decode_kernel<QT, PT>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -246,8 +310,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const PT*>(v_pages), static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales),
       static_cast<const int32_t*>(block_tables),
-      static_cast<const int32_t*>(pos), static_cast<QT*>(out), H, Hkv, D, bs,
-      NB, window, scale);
+      static_cast<const int32_t*>(pos), static_cast<float*>(scores),
+      static_cast<QT*>(out), H, Hkv, D, bs, NB, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -255,18 +319,18 @@ template <typename QT>
 int launch_pages(int page_dtype, const void* q, const void* k_pages,
                  const void* v_pages, const void* k_scales,
                  const void* v_scales, const void* block_tables,
-                 const void* pos, void* out, int B, int H, int Hkv, int D,
-                 int bs, int NB, int window, float scale,
+                 const void* pos, void* scores, void* out, int B, int H,
+                 int Hkv, int D, int bs, int NB, int window, float scale,
                  cudaStream_t stream) {
   switch (page_dtype) {
     case 0:
       return launch<QT, __nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr,
-                                       block_tables, pos, out, B, H, Hkv, D,
-                                       bs, NB, window, scale, stream);
+                                       block_tables, pos, scores, out, B, H,
+                                       Hkv, D, bs, NB, window, scale, stream);
     case 1:
       return launch<QT, int8_t>(q, k_pages, v_pages, k_scales, v_scales,
-                                block_tables, pos, out, B, H, Hkv, D, bs, NB,
-                                window, scale, stream);
+                                block_tables, pos, scores, out, B, H, Hkv, D,
+                                bs, NB, window, scale, stream);
     default:
       return -1;
   }
@@ -276,33 +340,37 @@ int launch_pages(int page_dtype, const void* q, const void* k_pages,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA needs; the wrapper checks it
-// against the card's 227 KB before launching.
-int paged_decode_smem_bytes(int G, int D, int bs) {
-  return static_cast<int>(sizeof(float)) * smem_floats(G, D, bs);
+// Bytes of dynamic shared memory one CTA needs, with score_words floats of
+// scores kept there (G*NB*bs, or 0 when they go to global memory); the
+// wrapper checks it against the card's 227 KB before launching.
+int paged_decode_smem_bytes(int G, int D, int bs, int score_words) {
+  return static_cast<int>(sizeof(float)) * smem_floats(G, D, bs, score_words);
 }
 
 // q_dtype: 0 fp32, 1 bf16 (the output has q's type).  page_dtype: 0 bf16,
 // 1 int8 (k_scales/v_scales then point at fp32 [P, bs, Hkv]).
 // All tensors contiguous; block_tables [B, NB] and pos [B] int32.
+// scores: null keeps the scores in shared memory; else fp32 scratch of
+// B*H*NB*bs floats in global memory.
 // Returns cudaGetLastError() after the launch, or -1 for a bad dtype code.
 int paged_decode_launch(int q_dtype, int page_dtype, const void* q,
                         const void* k_pages, const void* v_pages,
                         const void* k_scales, const void* v_scales,
-                        const void* block_tables, const void* pos, void* out,
-                        int B, int H, int Hkv, int D, int bs, int NB,
-                        int window, float scale, void* stream) {
+                        const void* block_tables, const void* pos,
+                        void* scores, void* out, int B, int H, int Hkv, int D,
+                        int bs, int NB, int window, float scale,
+                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
     case 0:
       return launch_pages<float>(page_dtype, q, k_pages, v_pages, k_scales,
-                                 v_scales, block_tables, pos, out, B, H, Hkv,
-                                 D, bs, NB, window, scale, s);
+                                 v_scales, block_tables, pos, scores, out, B,
+                                 H, Hkv, D, bs, NB, window, scale, s);
     case 1:
       return launch_pages<__nv_bfloat16>(page_dtype, q, k_pages, v_pages,
                                          k_scales, v_scales, block_tables,
-                                         pos, out, B, H, Hkv, D, bs, NB,
-                                         window, scale, s);
+                                         pos, scores, out, B, H, Hkv, D, bs,
+                                         NB, window, scale, s);
     default:
       return -1;
   }

@@ -28,13 +28,12 @@ import torch
 
 from repro_torch.device import on_cpu
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_decode import score_scratch
 from repro_torch.models.attention import (decode_attention,
                                           decode_attention_quant)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 16  # query heads per kv head
-MAX_SMEM_BYTES = 227 * 1024  # per-block dynamic shared memory on Hopper
-
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the dense serving caches are bf16; fp32 caches for the JAX kernel sweep
 CACHE_DTYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
@@ -62,19 +61,21 @@ def _lib():
     lib = build.load("flash_decode")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_decode_launch.argtypes = (
-        [i32, i32] + [ptr] * 8 + [i32] * 6 + [ctypes.c_float, ptr])
+        [i32, i32] + [ptr] * 9 + [i32] * 6 + [ctypes.c_float, ptr])
     lib.flash_decode_launch.restype = i32
-    lib.flash_decode_smem_bytes.argtypes = [i32, i32]
+    lib.flash_decode_smem_bytes.argtypes = [i32, i32, i32]
     lib.flash_decode_smem_bytes.restype = i32
     lib.flash_decode_tile_keys.argtypes = []
     lib.flash_decode_tile_keys.restype = i32
     return lib
 
 
-def smem_bytes(G: int, D: int) -> int:
+def smem_bytes(G: int, D: int, score_words: int = 0) -> int:
     """Dynamic shared memory one CTA of the kernel takes for G query heads
-    per kv head and head dim D (from the built library)."""
-    return _lib().flash_decode_smem_bytes(G, D)
+    per kv head and head dim D, with ``score_words`` fp32 scores kept
+    there (G times S rounded up to whole tiles, or 0 when they go to
+    global memory), from the built library."""
+    return _lib().flash_decode_smem_bytes(G, D, score_words)
 
 
 def tile_keys() -> int:
@@ -139,10 +140,10 @@ def _launch(q, k_cache, v_cache, k_scales, v_scales, cache_positions, pos,
     B, H, D = q.shape
     _, S, Hkv, _ = k_cache.shape
     lib = _lib()
-    smem = smem_bytes(H // Hkv, D)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"flash decode: G={H // Hkv}, D={D} needs {smem} "
-                         f"bytes of shared memory, over {MAX_SMEM_BYTES}")
+    G, tile = H // Hkv, tile_keys()
+    scores = score_scratch("flash decode",
+                           lambda words: smem_bytes(G, D, words), B * Hkv,
+                           G * -(-S // tile) * tile, q.device)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -151,8 +152,9 @@ def _launch(q, k_cache, v_cache, k_scales, v_scales, cache_positions, pos,
             k_cache.data_ptr(), v_cache.data_ptr(),
             None if k_scales is None else k_scales.data_ptr(),
             None if v_scales is None else v_scales.data_ptr(),
-            cache_positions.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H,
-            Hkv, D, S, int(window), D ** -0.5, stream)
+            cache_positions.data_ptr(), pos.data_ptr(),
+            None if scores is None else scores.data_ptr(), out.data_ptr(), B,
+            H, Hkv, D, S, int(window), D ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash decode kernel launch failed: error {err}")
     return out

@@ -1,0 +1,88 @@
+"""Grouped matmul of the MoE experts: the wrapper of the hand-written CUDA
+kernel ``csrc/moe_gmm.cu`` and its plain PyTorch version.
+
+The kernel replaces the Pallas TPU kernel ``grouped_matmul_tpu``
+(``repro/kernels/moe_gmm.py:38``).  The port calls it for the three
+expert contractions of every MoE layer call (``models/moe.py``
+``moe_apply``).  The source note in the ``.cu`` file says what bounds it
+on an H100 and what its design does about that.
+
+``grouped_matmul`` takes the JAX signature.  For tensors on the CPU it
+runs the plain version; for CUDA tensors it launches the kernel or raises,
+never falling back.  It counts its kernel launches in its ``launches``
+attribute (a plain integer).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.device import on_cpu
+from repro_torch.kernels import build
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # x, w and the output
+
+
+def grouped_matmul_ref(x, w):
+    """Plain version: ``einsum("eck,ekn->ecn")`` of the operands widened to
+    fp32, cast back to x's type (``repro/kernels/ref.py:70``)."""
+    return torch.einsum("eck,ekn->ecn", x.float(), w.float()).to(x.dtype)
+
+
+@functools.cache
+def _lib():
+    """The built library, with its C signatures declared (pointers and the
+    stream as ``c_void_p``, so ctypes does not cut them to 32 bits)."""
+    lib = build.load("moe_gmm")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.grouped_matmul_launch.argtypes = ([i32] + [ptr] * 3 + [i32] * 6
+                                          + [ptr])
+    lib.grouped_matmul_launch.restype = i32
+    return lib
+
+
+def _check(x, w):
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"grouped_matmul: x {x.dtype} and w {w.dtype} "
+                         "must be both fp32 or both bf16")
+    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
+            or w.shape[1] != x.shape[2]:
+        raise ValueError(f"grouped_matmul: x {tuple(x.shape)} must be "
+                         f"[E, C, K] and w {tuple(w.shape)} [E, K, N]")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("grouped_matmul: x and w must be contiguous")
+
+
+def _rows_aligned(t) -> int:
+    """1 when every row of ``t`` [..., n] starts on a 16-byte boundary."""
+    return int(t.data_ptr() % 16 == 0
+               and (t.shape[-1] * t.element_size()) % 16 == 0)
+
+
+def grouped_matmul(x, w):
+    """x [E, C, K], w [E, K, N], both fp32 or both bf16 -> [E, C, N] in
+    x's type, accumulated in fp32.  Ragged C, K and N are masked in the
+    kernel: no operand is padded or copied."""
+    if on_cpu("grouped_matmul", x, w):
+        return grouped_matmul_ref(x, w)
+    _check(x, w)
+    E, C, K = x.shape
+    N = w.shape[2]
+    out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:  # a launch of 0 CTAs is refused
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().grouped_matmul_launch(
+            DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(), E,
+            C, K, N, _rows_aligned(x), _rows_aligned(w), stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_matmul kernel launch failed: error "
+                           f"{err}")
+    grouped_matmul.launches += 1
+    return out
+
+
+grouped_matmul.launches = 0

@@ -5,6 +5,7 @@ wrapper, keyed by the tensors' device)."""
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: F401
 from repro_torch.kernels.flash_decode import flash_decode_quant  # noqa: F401
+from repro_torch.kernels.moe_gmm import grouped_matmul  # noqa: F401
 from repro_torch.kernels.paged_decode import paged_decode  # noqa: F401
 from repro_torch.kernels.paged_decode import paged_decode_quant  # noqa: F401
 from repro_torch.kernels.paged_verify import paged_verify  # noqa: F401

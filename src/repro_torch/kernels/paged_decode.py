@@ -55,17 +55,34 @@ def _lib():
     lib = build.load("paged_decode")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode_launch.argtypes = (
-        [i32, i32] + [ptr] * 8 + [i32] * 7 + [ctypes.c_float, ptr])
+        [i32, i32] + [ptr] * 9 + [i32] * 7 + [ctypes.c_float, ptr])
     lib.paged_decode_launch.restype = i32
-    lib.paged_decode_smem_bytes.argtypes = [i32, i32, i32]
+    lib.paged_decode_smem_bytes.argtypes = [i32, i32, i32, i32]
     lib.paged_decode_smem_bytes.restype = i32
     return lib
 
 
-def smem_bytes(G: int, D: int, bs: int) -> int:
+def smem_bytes(G: int, D: int, bs: int, score_words: int = 0) -> int:
     """Dynamic shared memory one CTA of the kernel takes for G query heads
-    per kv head, head dim D and page size bs (from the built library)."""
-    return _lib().paged_decode_smem_bytes(G, D, bs)
+    per kv head, head dim D and page size bs, with ``score_words`` fp32
+    scores kept there (G * NB * bs, or 0 when they go to global memory),
+    from the built library."""
+    return _lib().paged_decode_smem_bytes(G, D, bs, score_words)
+
+
+def score_scratch(what, smem_of, ctas, words, device):
+    """Where each CTA of an attention kernel keeps its ``words`` fp32
+    scores: in shared memory (returns None) if ``smem_of(words)`` bytes
+    fit the card's, else in a global scratch of ``ctas * words`` floats
+    (returned).  Raises ValueError where even ``smem_of(0)`` does not
+    fit."""
+    if smem_of(words) <= MAX_SMEM_BYTES:
+        return None
+    smem = smem_of(0)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: needs {smem} bytes of shared memory, "
+                         f"over {MAX_SMEM_BYTES}")
+    return torch.empty(ctas * words, dtype=torch.float32, device=device)
 
 
 def check_paged_args(what, q_layout, q, k_pages, v_pages, block_tables, pos,
@@ -124,10 +141,10 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
     _, bs, Hkv, _ = k_pages.shape
     NB = block_tables.shape[1]
     lib = _lib()
-    smem = smem_bytes(H // Hkv, D, bs)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"paged decode: block size {bs} needs {smem} bytes "
-                         f"of shared memory, over {MAX_SMEM_BYTES}")
+    G = H // Hkv
+    scores = score_scratch("paged decode",
+                           lambda words: smem_bytes(G, D, bs, words),
+                           B * Hkv, G * NB * bs, q.device)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -136,8 +153,9 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
             k_pages.data_ptr(), v_pages.data_ptr(),
             None if k_scales is None else k_scales.data_ptr(),
             None if v_scales is None else v_scales.data_ptr(),
-            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H,
-            Hkv, D, bs, NB, int(window), D ** -0.5, stream)
+            block_tables.data_ptr(), pos.data_ptr(),
+            None if scores is None else scores.data_ptr(), out.data_ptr(), B,
+            H, Hkv, D, bs, NB, int(window), D ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"paged decode kernel launch failed: error {err}")
     return out

@@ -23,8 +23,9 @@ import torch
 
 from repro_torch.device import on_cpu
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_decode import (MAX_SMEM_BYTES, PAGE_DTYPES,
-                                              Q_DTYPES, check_paged_args)
+from repro_torch.kernels.paged_decode import (PAGE_DTYPES, Q_DTYPES,
+                                              check_paged_args,
+                                              score_scratch)
 from repro_torch.models.attention import (paged_verify_attention,
                                           paged_verify_attention_quant)
 
@@ -54,19 +55,21 @@ def _lib():
     lib = build.load("paged_verify")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_verify_launch.argtypes = (
-        [i32, i32] + [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr])
+        [i32, i32] + [ptr] * 9 + [i32] * 8 + [ctypes.c_float, ptr])
     lib.paged_verify_launch.restype = i32
-    lib.paged_verify_smem_bytes.argtypes = [i32, i32]
+    lib.paged_verify_smem_bytes.argtypes = [i32, i32, i32]
     lib.paged_verify_smem_bytes.restype = i32
     lib.paged_verify_tile_rows.argtypes = []
     lib.paged_verify_tile_rows.restype = i32
     return lib
 
 
-def smem_bytes(D: int, bs: int) -> int:
+def smem_bytes(D: int, bs: int, score_words: int = 0) -> int:
     """Dynamic shared memory one CTA of the kernel takes for head dim D and
-    page size bs (from the built library)."""
-    return _lib().paged_verify_smem_bytes(D, bs)
+    page size bs, with ``score_words`` fp32 scores kept there
+    (tile_rows() * NB * bs, or 0 when they go to global memory), from the
+    built library."""
+    return _lib().paged_verify_smem_bytes(D, bs, score_words)
 
 
 def tile_rows() -> int:
@@ -83,10 +86,11 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
         raise ValueError(f"paged verify: {T} query tokens per slot, the "
                          f"kernel takes 1..{MAX_TOKENS}")
     lib = _lib()
-    smem = smem_bytes(D, bs)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"paged verify: block size {bs} needs {smem} bytes "
-                         f"of shared memory, over {MAX_SMEM_BYTES}")
+    rows = tile_rows()
+    ctas = B * Hkv * -(-T * (H // Hkv) // rows)
+    scores = score_scratch("paged verify",
+                           lambda words: smem_bytes(D, bs, words), ctas,
+                           rows * NB * bs, q.device)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -95,8 +99,9 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
             k_pages.data_ptr(), v_pages.data_ptr(),
             None if k_scales is None else k_scales.data_ptr(),
             None if v_scales is None else v_scales.data_ptr(),
-            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, T,
-            H, Hkv, D, bs, NB, int(window), D ** -0.5, stream)
+            block_tables.data_ptr(), pos.data_ptr(),
+            None if scores is None else scores.data_ptr(), out.data_ptr(), B,
+            T, H, Hkv, D, bs, NB, int(window), D ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"paged verify kernel launch failed: error {err}")
     return out

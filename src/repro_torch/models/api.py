@@ -1,10 +1,10 @@
-"""Public model API of the attention family: spec/init, the paged and dense
-KV cache layouts, monolithic prefill (with embedding spans and, on a
-prefix-cache hit, against cached prefix K/V), chunked prefill into either
-cache, the batched paged and dense decode steps and the speculative verify
-step (ports of ``repro/models/api.py``).  The dense decode step serves the
-engine's dense backend and the speculative draft model; its attention runs
-the flash-decode kernel on the card.
+"""Public model API of the attention family, dense and MoE: spec/init,
+the paged and dense KV cache layouts, monolithic prefill (with embedding
+spans and, on a prefix-cache hit, against cached prefix K/V), chunked
+prefill into either cache, the batched paged and dense decode steps and
+the speculative verify step (ports of ``repro/models/api.py``).  The
+dense decode step serves the engine's dense backend and the speculative
+draft model; its attention runs the flash-decode kernel on the card.
 
 Paged cache layout: ``k_pages``/``v_pages`` [L, P, bs, Hkv, Dh] bf16, or
 int8 with fp32 row scales ``k_scales``/``v_scales`` [L, P, bs, Hkv]
@@ -202,7 +202,15 @@ class Model:
         o = lm._attn_out(pl["attn"], cfg, o.reshape(B, -1), x.dtype)
         if cfg.post_norms:
             o = lm._norm(pl, o, cfg.norm, "pn1")
-        return lm._ffn(pl, cfg, (x + o)[:, None])[:, 0]
+        if not cfg.n_experts:
+            return lm._ffn(pl, cfg, (x + o)[:, None])[:, 0]
+        # the JAX decode layer calls moe_apply on the B tokens directly,
+        # without moe_scan_chunks or dispatch_axes
+        y = x + o
+        f = lm.moe(pl, cfg, lm._norm(pl, y[:, None], cfg.norm, "ln2")[:, 0])
+        if cfg.post_norms:
+            f = lm._norm(pl, f, cfg.norm, "pn2")
+        return y + f
 
     def _chunk_layer(self, pl, x, kv, qpos, rope, window, attend):
         """One chunked-prefill layer: ``_decode_layer`` with a C-token

@@ -6,9 +6,11 @@ Layouts: q [B, H, D] (decode) or [B, C, H, D] (chunk); caches
 [B, NB] (-1 = unallocated, clamped to the null page 0 and masked).
 
 The softmax runs in fp32 and the probabilities are cast to the cache's
-type before the value product, as the JAX functions do; a row with no
-visible key gets the uniform softmax of ``NEG_INF`` fills (garbage the
-callers never read).  These are the plain versions of the CUDA kernels
+type before the value product, as the JAX functions do (the CUDA
+kernels round them the same way); a row with no visible key gets the
+uniform softmax of ``NEG_INF`` fills (no caller reads its attention, but
+an MoE layer routes its token, so the CUDA kernels give such rows the
+same output).  These are the plain versions of the CUDA kernels
 (``kernels/paged_decode.py``, ``kernels/paged_verify.py``,
 ``kernels/flash_decode.py``), which the serving path calls for paged
 decode, speculative verify, chunked-prefill attention and dense decode.

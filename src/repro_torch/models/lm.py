@@ -1,6 +1,7 @@
-"""Attention-family decoder stack (port of the dense subset of
-``repro/models/lm.py``): parameter specs, embedding, norms, the attention
-and MLP sub-blocks, per-layer windows, rope tables and the logits head.
+"""Attention-family decoder stack (port of the attention subset of
+``repro/models/lm.py``, dense and MoE): parameter specs, embedding, norms,
+the attention and MLP or MoE sub-blocks, per-layer windows, rope tables
+and the logits head.
 
 Parameters are a plain dict with the JAX tree's keys; per-layer leaves are
 stacked on dim 0.  Norms accumulate in fp32 (RMS norms through the fused
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import flash_attention
 from repro_torch.nn.layers import apply_rope, rope_frequencies
 from repro_torch.nn.spec import TensorSpec
@@ -143,13 +145,12 @@ def mlp_spec(cfg: ArchConfig, L: int, d: int, ff: int):
 
 
 def build_spec(cfg: ArchConfig) -> Tree:
-    """Spec tree of a dense attention-family decoder."""
-    if cfg.block_kind != "attn" or cfg.cross_attention or cfg.n_experts \
-            or cfg.act == "gelu":
+    """Spec tree of an attention-family decoder, dense or MoE."""
+    if cfg.block_kind != "attn" or cfg.cross_attention or cfg.act == "gelu":
         raise NotImplementedError(
-            f"{cfg.name}: the port covers dense attention-family decoders "
-            "only (MoE, recurrent, hybrid and encoder-decoder families are "
-            "ROADMAP queue 1 items 10-11)")
+            f"{cfg.name}: the port covers attention-family decoders only "
+            "(recurrent, hybrid and encoder-decoder families are ROADMAP "
+            "queue 1 item 11)")
     d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
     spec: dict = {"embed": {"table": TensorSpec((V, d), ("vocab", "embed"),
                                                 "embed", scale=d ** -0.5)}}
@@ -164,7 +165,11 @@ def build_spec(cfg: ArchConfig) -> Tree:
         layer.update(_norm_spec(L, d, cfg.norm, "pn1"))
         layer.update(_norm_spec(L, d, cfg.norm, "pn2"))
     layer["attn"] = attn_spec(cfg, L, d)
-    layer["mlp"] = mlp_spec(cfg, L, d, cfg.d_ff)
+    if cfg.n_experts:
+        layer["moe"] = moe_lib.moe_spec(L, d, cfg.n_experts, cfg.moe_ff,
+                                        cfg.shared_ff)
+    else:
+        layer["mlp"] = mlp_spec(cfg, L, d, cfg.d_ff)
     spec["layers"] = layer
     return spec
 
@@ -225,11 +230,34 @@ def _mlp(pl, cfg, xn):
     return h @ pl["w_down"].to(dt)
 
 
+def moe(pl, cfg, xt, dispatch_axes=None):
+    """The layer's MoE block on the tokens xt [T, d] (``moe_lib.moe_apply``
+    with the config's routing knobs)."""
+    return moe_lib.moe_apply(pl["moe"], xt, top_k=cfg.top_k,
+                             norm_topk=cfg.norm_topk,
+                             capacity_factor=cfg.capacity_factor,
+                             act=_act(cfg.act), dispatch_axes=dispatch_axes,
+                             tp_axis=cfg.tp_axis, tp_shards=cfg.tp_shards)
+
+
 def _ffn(pl, cfg, x):
-    """Dense MLP sub-block with residual, on [B, S, d]."""
+    """MLP or MoE sub-block with residual, on [B, S, d].  The MoE block
+    sees all B*S tokens at once (they compete for each expert's capacity)
+    or, with ``moe_scan_chunks`` dividing them into chunks of at least
+    4 * n_experts tokens, one chunk at a time."""
+    B, S, d = x.shape
+    xn = _norm(pl, x, cfg.norm, "ln2")
     if cfg.n_experts:
-        raise NotImplementedError("MoE layers are ROADMAP queue 1 item 10")
-    y = _mlp(pl["mlp"], cfg, _norm(pl, x, cfg.norm, "ln2"))
+        xt = xn.reshape(B * S, d)
+        nc = cfg.moe_scan_chunks
+        if nc and (B * S) % nc == 0 and (B * S) // nc >= 4 * cfg.n_experts:
+            y = torch.cat([moe(pl, cfg, t, cfg.moe_dispatch_axes)
+                           for t in xt.reshape(nc, (B * S) // nc, d)])
+        else:
+            y = moe(pl, cfg, xt, cfg.moe_dispatch_axes)
+        y = y.reshape(B, S, d)
+    else:
+        y = _mlp(pl["mlp"], cfg, xn)
     if cfg.post_norms:
         y = _norm(pl, y, cfg.norm, "pn2")
     return x + y

@@ -40,11 +40,14 @@ of the features, which ``lm.embed_inputs`` injects in place of token
 embeddings; the key ids drive the prefix trie, so two requests with the
 same media share its pages.
 
+The attention family includes its MoE members (granite-moe,
+qwen2-moe), as target or as draft: the engine itself has no MoE branch,
+only the model's layers differ.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): non-attention model families on either backend, tensor-parallel
-meshes (``mesh``), admission batching (``sorted_batch_sizes``), KV
-snapshot export/import (``export_kv``, ``evacuate``, imported requests),
-and MoE draft models.
+meshes (``mesh``), admission batching (``sorted_batch_sizes``), and KV
+snapshot export/import (``export_kv``, ``evacuate``, imported requests).
 """
 from __future__ import annotations
 
@@ -320,8 +323,6 @@ class ServingEngine:
                     f"draft vocab {draft_config.vocab} != target vocab "
                     f"{model.cfg.vocab}: token-level rejection sampling "
                     "needs a shared vocabulary")
-            if draft_config.n_experts:
-                raise _unported("MoE draft models", "item 10")
             self.draft_params = (draft_params if draft_params is not None
                                  else self.draft_model.init(
                                      int(draft_seed), device=self.device))

@@ -151,21 +151,51 @@ def _reduced_engine(arch="qwen2-0.5b", **kw):
 @pytest.mark.parametrize("knob", [
     dict(paged=False, arch="zamba2-2.7b"),  # a recurrent family: item 11
     dict(paged=False, kv_dtype="int8"),  # refused as by the JAX engine
-    dict(draft_config=reduced(get_config("qwen2-moe-a2.7b"))),  # MoE draft
+    # a recurrent draft: refused as by the JAX engine
+    dict(draft_config=reduced(get_config("zamba2-2.7b"))),
     dict(mesh=object()), dict(sorted_batch_sizes=[1, 2])])
 def test_unported_knobs_raise(knob):
     """Knobs the port does not serve raise: unported ones
     ``NotImplementedError`` naming their ROADMAP item; an int8 dense cache
-    ``ValueError``, as in the JAX engine (test_kv_quant.py:183-186).  The
-    dense backend and monolithic prefill of the attention family are
-    ported (tests/test_torch_dense_engine.py)."""
-    if knob.get("kv_dtype") == "int8":
-        with pytest.raises(ValueError, match="paged"):
-            _reduced_engine(**knob)
-        return
+    and a draft outside the attention family ``ValueError``, as in the JAX
+    engine (test_kv_quant.py:183-186, engine.py's draft check).  The dense
+    backend and monolithic prefill of the attention family, and MoE
+    drafts, are ported (tests/test_torch_dense_engine.py,
+    test_moe_draft_is_served)."""
+    refused = {"kv_dtype": "paged", "draft_config": "attention-family"}
+    for key, match in refused.items():
+        if key in knob:
+            with pytest.raises(ValueError, match=match):
+                _reduced_engine(**knob)
+            return
     match = "ROADMAP queue 1 item 11" if "arch" in knob else "ROADMAP"
     with pytest.raises(NotImplementedError, match=match):
         _reduced_engine(**knob)
+
+
+def test_moe_draft_is_served():
+    """An MoE draft (a 1-layer reduced granite-moe, the same vocab) for a
+    dense target: served to every budget, and verification keeps the
+    target's own greedy tokens.  MoE targets and drafts are held to the
+    JAX engine in tests/test_torch_moe.py."""
+    eng = _reduced_engine()
+    draft = reduced(get_config("granite-moe-1b-a400m"), act_dtype="float32",
+                    n_layers=1)
+    dparams = build_model(draft).init(1, param_dtype=torch.float32,
+                                      device="cpu")
+    spec = ServingEngine(eng.model, eng.params, max_batch=2, max_seq=64,
+                         page_size=8, device="cpu", draft_config=draft,
+                         draft_params=dparams, spec_k=3)
+    outs = []
+    for e in (eng, spec):
+        reqs = [Request(i, np.arange(5 + 7 * i) % 97, max_new_tokens=6)
+                for i in range(3)]
+        for r in reqs:
+            e.submit(r)
+        e.run_until_drained()
+        outs.append([tuple(r.output) for r in reqs])
+    assert outs[0] == outs[1] and all(len(o) == 6 for o in outs[1])
+    assert spec.stats()["draft_steps"] > 0
 
 
 def test_unported_requests_raise():
