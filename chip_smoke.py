@@ -8,35 +8,41 @@ exits non-zero without printing a result:
 
   1. device: the card's name and ``nvidia-smi`` name and power limit;
   2. build: compiles ``kernels/csrc/paged_decode.cu``, ``paged_verify.cu``,
-     ``flash_attention.cu``, ``rmsnorm.cu``, ``flash_decode.cu`` and
-     ``moe_gmm.cu`` for sm_90a, all nvcc runs at once (seconds, registers,
-     shared memory, spills);
+     ``flash_attention.cu``, ``rmsnorm.cu``, ``flash_decode.cu``,
+     ``moe_gmm.cu`` and ``ssd_scan.cu`` for sm_90a, all nvcc runs at once
+     (seconds, registers, shared memory, spills);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (verify also at
      the CPU tests' cases, T = 4 and T = 64); flash attention at the CPU
      tests' cases, the draft's causal prefill at qwen2-0.5b's heads (S 16
-     to 1024), gemma3-1b's windowed layers, llama3.2-3b's heads and the
-     encoder's non-causal D 448; the fused RMSNorm at a decode tick, a
+     to 1024), gemma3-1b's windowed layers, llama3.2-3b's heads, the
+     encoder's non-causal D 448 and zamba2-2.7b's shared attention (32
+     heads of 80, S 16 to 768); the fused RMSNorm at a decode tick, a
      prefill chunk and the CPU tests' shapes, bf16 and fp32 x and scale,
      zero-centred or not; flash decode over bf16, fp32 and int8 caches
      with bf16 and fp32 queries at the CPU tests' cases, qwen2-0.5b's
      serving shape (B 8, max_seq 1024, contexts 60-1000, a parked slot),
-     gemma3-1b's windowed layers, llama3.2-3b's heads and the reduced
-     configs' D 16; free slots (no visible key) of paged decode, verify
+     gemma3-1b's windowed layers, llama3.2-3b's heads, zamba2-2.7b's
+     shared attention (B 8, max_seq 1024, D 80) and the reduced configs'
+     D 16; free slots (no visible key) of paged decode, verify
      and flash decode, bf16 and int8, held to the plain version's uniform
      softmax; the grouped matmul in bf16 and fp32 at the CPU tests' cases
      and at granite-moe-1b-a400m's and qwen2-moe-a2.7b's expert shapes
-     (decode, verify, chunk and 1024-bucket capacities);
+     (decode, verify, chunk and 1024-bucket capacities); the SSD scan,
+     y and the final state, in bf16 and fp32, from zeros and from a given
+     state, at the CPU tests' sweep and at zamba2-2.7b's width (80 heads
+     of 64, state 64) over 48-1024 tokens;
   4. kernel, plain version and one library call's times at the main
      path's shapes (decode: B 8; verify: the speculative B 8, T 4 and the
      prefill chunk B 1, T 64; flash attention: the encoder's batch at
      S 256 and the draft's prefill buckets; RMSNorm: [8, 896] and
      [64, 896]; flash decode: the dense cache at B 8, max_seq 1024;
      grouped matmul: granite-moe's decode, verify, chunk and monolithic
-     capacities and qwen2-moe's decode, against ``torch.bmm``), beside the
-     least time the card could take, and the kernel held to its plain
-     version there;
+     capacities and qwen2-moe's decode, against ``torch.bmm``; the SSD
+     scan at a zamba2 prefill of 256 and 1024 tokens, which no single
+     PyTorch call computes), beside the least time the card could take,
+     and the kernel held to its plain version there;
   5. the text path: qwen2-0.5b at full width, cut to its first
      MAIN_LAYERS (12) of 24 layers to keep the run's time (random seeded
      bf16 weights; phases 5-9 use this model), serves 12 requests through ``ServingEngine`` with a
@@ -75,6 +81,14 @@ exits non-zero without printing a result:
      steps + prefill chunks + monolithic prefills + verify passes) + 3 x
      draft layers x (draft prefills + draft steps), the other kernels' as
      in phases 5-8;
+  9c. the hybrid path: zamba2-2.7b at full width and depth (54 Mamba2
+     layers in 9 groups of 6, one shared attention+MLP block, 2.44 B
+     parameters drawn on the card from seed 0 in bf16) serves 12 text
+     requests of 1-768 tokens through ``ServingEngine`` on the dense
+     backend with exact-shape monolithic prefill; ssd_scan launches must
+     equal 54 x prefills, flash attention 9 x prefills, flash decode 9 x
+     decode steps, RMSNorm the norms of every prefill and step; a
+     300-token prompt is refused with the prompt-length ValueError;
   10. reduced qwen2-0.5b, gemma3-1b, granite-moe-1b-a400m and
      qwen2-moe-a2.7b in fp32, and granite-moe with capacity_factor 0.3
      and 16 slots (experts overflow beside free slots), text and
@@ -88,6 +102,9 @@ exits non-zero without printing a result:
      speculation on the card gives the tokens of plain decode (an MoE
      layer's drops depend on how a call batches its tokens, so there it is
      printed); the reduced encoder on the card gives the CPU's features;
+     reduced zamba2-2.7b in fp32 with scan_chunk 16 (text prompts of 1-64
+     tokens, several chunks) on the dense backend with monolithic
+     prefill gives the CPU engine's tokens on the card;
  11. one JSON line for the kernels, then the result line.
 
 Needs a CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
@@ -98,6 +115,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import subprocess
@@ -116,6 +134,7 @@ from repro_torch.data.taskgen import make_taskset  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, paged_verify  # noqa: E402
 from repro_torch.kernels import flash_decode  # noqa: E402
+from repro_torch.kernels import ssd_scan as scan_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
@@ -127,6 +146,8 @@ from repro_torch.kernels.paged_verify import (  # noqa: E402
     paged_verify_quant_ref, paged_verify_ref)
 from repro_torch.kernels.quant import quantize_kv  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_ref  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import mm_encoder as enc  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -181,7 +202,15 @@ TOL = {"paged_decode": dict(atol=5e-2, rtol=5e-2),
 #    test_kernels.py's 1e-2 / 5e-2 in bf16 (TOL above).
 GMM_EXACT_TOL = {torch.bfloat16: dict(atol=1e-3, rtol=2 ** -7),
                  torch.float32: dict(atol=1e-3, rtol=1e-4)}
-# 4. A row with no visible key (a free slot) gets the plain version's
+# 4. The SSD scan (y and the final state, both fp32) against its plain
+#    version on the same inputs, which computes in fp32 as the kernel does
+#    (bf16 x, B and C are the same numbers to both): the same products
+#    summed in other orders, over up to 256 keys per chunk and a state
+#    carried across up to 4 chunks, so 1e-4 relative plus 1e-4 of the
+#    compared tensor's RMS (SCAN_TOL); a wrong mask, decay or chunk
+#    boundary moves outputs by far more.  max_abs_err is this error.
+SCAN_TOL = dict(atol_rms=1e-4, rtol=1e-4)
+# 5. A row with no visible key (a free slot) gets the plain version's
 #    uniform softmax over every key it reads: the same weighted value rows
 #    summed in another order, so EXACT_TOL's parts scale the plain version
 #    on |v| instead of the output (poisoned scales make these rows ~1e8).
@@ -193,7 +222,8 @@ SOURCES = {"paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
            "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
-           "moe_gmm": "src/repro_torch/kernels/csrc/moe_gmm.cu"}
+           "moe_gmm": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
 # the source of each kernel whose name is not its source's
 SOURCE_OF = {"grouped_matmul": "moe_gmm"}
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:92",
@@ -204,7 +234,8 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:92",
             "rmsnorm": "src/repro/kernels/rmsnorm.py:23",
             "flash_decode": "src/repro/kernels/flash_decode.py:71",
             "flash_decode_quant": "src/repro/kernels/flash_decode.py:125",
-            "grouped_matmul": "src/repro/kernels/moe_gmm.py:38"}
+            "grouped_matmul": "src/repro/kernels/moe_gmm.py:38",
+            "ssd_scan": "src/repro/kernels/mamba2_scan.py:60"}
 WRAPPERS = {"paged_decode": ops.paged_decode,
             "paged_decode_quant": ops.paged_decode_quant,
             "paged_verify": ops.paged_verify,
@@ -213,7 +244,8 @@ WRAPPERS = {"paged_decode": ops.paged_decode,
             "rmsnorm": ops.rmsnorm,
             "flash_decode": ops.flash_decode,
             "flash_decode_quant": ops.flash_decode_quant,
-            "grouped_matmul": ops.grouped_matmul}
+            "grouped_matmul": ops.grouped_matmul,
+            "ssd_scan": ops.ssd_scan}
 PLAINS = {"paged_decode": paged_decode_ref,
           "paged_decode_quant": paged_decode_quant_ref,
           "paged_verify": paged_verify_ref,
@@ -222,7 +254,8 @@ PLAINS = {"paged_decode": paged_decode_ref,
           "rmsnorm": rmsnorm_ref,
           "flash_decode": flash_decode_ref,
           "flash_decode_quant": flash_decode_quant_ref,
-          "grouped_matmul": grouped_matmul_ref}
+          "grouped_matmul": grouped_matmul_ref,
+          "ssd_scan": ssd_scan_ref}
 SPEC_K = 3
 # the layers of qwen2-0.5b (24) that phases 5-9 run: cut from 24 to 12
 # to make room for the MoE phases within the run's time
@@ -231,6 +264,8 @@ MAIN_LAYERS = 12
 # a 4-layer cut of itself as the speculative draft
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_DRAFT_LAYERS = 4
+# the hybrid path (phase 9c): zamba2-2.7b at full width and depth
+HYBRID_ARCH = "zamba2-2.7b"
 # the edge encoder of the multimodal path: fig11's settings at qwen2-0.5b's
 # width (benchmarks/fig11_multimodal_split.py:78), fp32, seeded params
 ENC_CFG = enc.MMEncoderConfig(d_model=896, img_size=32, patch=8,
@@ -260,20 +295,27 @@ FLASH_CASES = [
     (1, 512, 512, 24, 8, 128, True, 0),
     (4, 16, 16, 2, 2, 448, False, 0), (4, 256, 256, 2, 2, 448, False, 0),
     (2, 48, 48, 4, 2, 16, True, 0)]
+# zamba2-2.7b's shared attention: 32 heads of 80, causal prompts of 16-768
+FLASH_CASES += [(1, S, S, 32, 32, 80, True, 0) for S in (16, 200, 512, 768)]
 # RMSNorm held to its plain version: a decode tick and a prefill chunk of
-# qwen2-0.5b, then test_kernels.py::test_rmsnorm's shapes
+# qwen2-0.5b, test_kernels.py::test_rmsnorm's shapes, then zamba2-2.7b's
+# norms at d 2560 (pre-norm, shared ln2, final) and d_inner / 2d 5120
+# (gated norm, shared ln1 on concat(x, x0)) at a decode tick of 8 slots,
+# a 1-token prompt and a 768-token prompt
 RMS_SHAPES = [(8, 896), (64, 896), (3, 50, 96), (7, 128), (260, 64)]
+RMS_SHAPES += [(8, 2560), (8, 5120), (1, 5120), (768, 2560), (768, 5120)]
 # flash decode held to its plain version: (B, S, H, Hkv, D, window,
 # engine), test_kernels.py::test_flash_decode's cases (full caches), then
 # caches as the engines leave them (``engine``: -1 past each context, the
 # query up to 3 positions before the last entry, a parked slot at pos = S):
 # qwen2-0.5b's serving shape, gemma3-1b's windowed local layers,
-# llama3.2-3b's heads and the reduced configs' D 16
+# llama3.2-3b's heads, the reduced configs' D 16 and zamba2-2.7b's shared
+# attention (B 8, max_seq 1024, 32 heads of 80)
 DECODE_CASES = [
     (2, 96, 8, 2, 64, 0, False), (2, 128, 4, 4, 32, 24, False),
     (1, 70, 8, 1, 64, 0, False), (8, 1024, 14, 2, 64, 0, True),
     (2, 1024, 4, 1, 256, 512, True), (4, 512, 24, 8, 128, 0, True),
-    (3, 64, 4, 2, 16, 0, True)]
+    (3, 64, 4, 2, 16, 0, True), (8, 1024, 32, 32, 80, 0, True)]
 # phase 10's engine variants: (label, engine keywords, speculative)
 VARIANTS = {"bf16": ({}, False), "bf16 spec": ({}, True),
             "int8": (dict(kv_dtype="int8"), False),
@@ -318,6 +360,15 @@ GMM_CASES += [(f"granite {what} C {C}", 32, C, K, N)
 GMM_CASES += [(f"qwen2-moe {what} C {C}", 60, C, K, N) for C in (8, 88)
               for what, K, N in (("gate/up", 2048, 1408),
                                  ("down", 1408, 2048))]
+# the SSD scan held to its plain version: (b, S, h, p, n, chunk), the CPU
+# tests' sweep (test_kernels.py::test_ssd_scan), then zamba2-2.7b's width
+# (80 heads of 64, state 64) over prompts of 1 token (a chunk of 1, as
+# phase 9c serves), 48, 200, 256 (one chunk), 512, 768 and 1024 tokens
+# (2, 3 and 4 chunks of 256)
+SCAN_CASES = [(b, S, h, p, n, c) for b, S, h, p, n in
+              ((2, 64, 4, 16, 8), (1, 128, 2, 32, 16)) for c in (16, 32, 64)]
+SCAN_CASES += [(1, S, 80, 64, 64, 256)
+               for S in (1, 48, 200, 256, 512, 768, 1024)]
 
 
 def check(cond: bool, msg: str):
@@ -530,6 +581,9 @@ def phase_build():
               f"{arch} (G={H // Hkv}, D={D}): "
               f"{flash_decode.smem_bytes(H // Hkv, D, H // Hkv * 1024)} "
               "bytes" for arch, H, Hkv, D, _ in WIDTHS))
+    print("[build]   ssd scan: dynamic shared memory per CTA " + ", ".join(
+        f"chunk {Q}, p {p}, n {n}: {scan_kernel.smem_bytes(Q, p, n)} bytes"
+        for Q, p, n in ((256, 64, 64), (64, 16, 8), (16, 16, 16))))
     rows = paged_verify.tile_rows()
     for arch, H, Hkv, D, _ in WIDTHS:
         G = H // Hkv
@@ -672,6 +726,7 @@ def phase_compare(rng) -> dict:
               f"{f', {len(dead)} slots with no key too' if dead else ''}; "
               f"max |err| vs fp32 plain: " + ", ".join(errs))
     worst["grouped_matmul"] = compare_gmm()
+    worst["ssd_scan"] = compare_scan(rng)
     return worst
 
 
@@ -716,6 +771,71 @@ def compare_gmm() -> float:
               f"bf16 and fp32 agree with the plain version; max |err| vs "
               f"fp32 plain: " + ", ".join(errs))
         del x, w
+    return worst
+
+
+def scan_inputs(rng, b, S, h, p, n, dtype, init=False):
+    """SSD-scan inputs on the card, drawn as test_kernels.py::test_ssd_scan
+    draws them: x, B, C unit normals in ``dtype``; dt in [0.1, 0.9) and
+    a_neg in (-1, -0.1] fp32; with ``init`` a unit-normal initial state."""
+    dev = torch.device("cuda")
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    return (t(rng.normal(size=(b, S, h, p)), dtype),
+            t(rng.uniform(0.1, 0.9, (b, S, h))),
+            t(-rng.uniform(0.1, 1.0, (h,))), t(rng.normal(size=(b, S, n)),
+                                               dtype),
+            t(rng.normal(size=(b, S, n)), dtype),
+            t(rng.normal(size=(b, h, p, n))) if init else None)
+
+
+def hold_scan(y, state, args, chunk, where) -> float:
+    """Holds the SSD scan's y and final state to its plain version on the
+    same inputs (SCAN_TOL); returns the largest error."""
+    x, dt, a_neg, B, C, s0 = args
+    b, S, h, p = x.shape
+    check(y.dtype == torch.float32 and y.shape == (b, S, h, p)
+          and state.dtype == torch.float32
+          and state.shape == (b, h, p, B.shape[-1]),
+          f"ssd_scan {where}: outputs {y.dtype} {tuple(y.shape)}, "
+          f"{state.dtype} {tuple(state.shape)}")
+    wy, ws = ssd_scan_ref(x, dt, a_neg, B, C, chunk=min(chunk, S),
+                          init_state=s0)
+    err = 0.0
+    for name, got, want in (("y", y, wy), ("final state", state, ws)):
+        check(bool(torch.isfinite(got).all()),
+              f"ssd_scan {where}: non-finite {name}")
+        e = (got - want).abs()
+        rms = float(want.pow(2).mean().sqrt())
+        bound = SCAN_TOL["atol_rms"] * rms + SCAN_TOL["rtol"] * want.abs()
+        check(bool((e <= bound).all()), f"ssd_scan {where}: {name} off by "
+              f"up to {float(e.max())} (RMS {rms:.3g})")
+        err = max(err, float(e.max()))
+    return err
+
+
+def compare_scan(rng) -> float:
+    """The SSD scan against its plain version at SCAN_CASES, bf16 and fp32
+    x, from zeros and from a given state; returns the largest error."""
+    worst = 0.0
+    for b, S, h, p, n, chunk in SCAN_CASES:
+        errs = []
+        for dt, init in itertools.product((torch.bfloat16, torch.float32),
+                                          (False, True)):
+            args = scan_inputs(rng, b, S, h, p, n, dt, init)
+            y, state = ops.ssd_scan(*args[:5], chunk=chunk,
+                                    init_state=args[5])
+            err = hold_scan(y, state, args, chunk,
+                            f"b={b} S={S} h={h} p={p} n={n} chunk={chunk} "
+                            f"{dt} init={init}")
+            worst = max(worst, err)
+            errs.append(f"{str(dt)[6:]}{' init' if init else ''} {err:.3g}")
+        print(f"[compare] ssd scan b={b} S={S} h={h} p={p} n={n} chunk "
+              f"{min(chunk, S)}: y and final state, bf16 and fp32 x, from "
+              f"zeros and from a state, agree with the plain version; max "
+              f"|err|: " + ", ".join(errs))
     return worst
 
 
@@ -925,6 +1045,56 @@ def phase_timing_new(smi: str) -> dict:
         out.setdefault("rmsnorm", row)
     out.update(_time_flash_decode(smi))
     out.update(_time_gmm(smi))
+    out.update(_time_scan(smi))
+    return out
+
+
+def _time_scan(smi: str) -> dict:
+    """The SSD scan at a zamba2-2.7b prefill: b 1, 80 heads of 64, state
+    64, chunk 256, bf16 x, B and C, S 256 (one chunk) and 1024 (four; the
+    kernels-line entry).  Eight input sets are taken in turn, so each call
+    reads its inputs from HBM as a layer of the model does.  The bound
+    counts x, dt, a_neg, B, C, y and the final state once against the
+    causal work: per (head, chunk) Q(Q+1)/2 visible (query, key) pairs of
+    C.B (n multiply-adds each) and of scores.xd (p each), then C.state and
+    the state update (Q n p each), at the bf16 peak (the inputs' type; the
+    kernel's fp32 CUDA-core products are printed against 67 TFLOP/s too).
+    No single PyTorch call computes the scan: there is no library
+    yardstick (library ms: none)."""
+    rng = np.random.default_rng(11)
+    b, h, p, n, chunk = 1, 80, 64, 64, 256
+    out = {}
+    for S in (256, 1024):
+        sets = [scan_inputs(rng, b, S, h, p, n, torch.bfloat16)
+                for _ in range(8)]
+        Q = min(chunk, S)
+        x, dt, a_neg, B, C, _ = sets[0]
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (x, dt, a_neg, B, C)) \
+            + 4 * (b * S * h * p + b * h * p * n)
+        nops = b * h * (S // Q) * (Q * (Q + 1) * (n + p) + 4 * Q * n * p)
+        y, state = ops.ssd_scan(x, dt, a_neg, B, C, chunk=chunk)
+        err = hold_scan(y, state, sets[0], chunk, f"timing S={S}")
+        row = {"ms": cuda_ms(lambda i=0: ops.ssd_scan(
+                   *sets[i % 8][:5], chunk=chunk), 240),
+               "plain_ms": cuda_ms(lambda i=0: ssd_scan_ref(
+                   *sets[i % 8][:5], chunk=Q), 24),
+               "library_ms": None, "main_shapes_max_abs_err": err}
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        ops_s = nops / PEAK_OPS_PER_S[torch.bfloat16]
+        fp32_s = nops / PEAK_OPS_PER_S[torch.float32]
+        row["bound_ms"] = max(bytes_s, ops_s) * 1e3
+        row["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
+        print(f"[timing] ssd_scan (zamba2 prefill: b={b} S={S} h={h} p={p} "
+              f"n={n} chunk {Q}, bf16 x): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library: none (no single PyTorch "
+              f"call computes the SSD scan), bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}; {nbytes} bytes, {nops} operations at "
+              f"the bf16 peak; {fp32_s * 1e3:.5f} ms at fp32's 67 TFLOP/s), "
+              f"{row['bound_ms'] / row['ms']:.2%} of bound; max |err| "
+              f"{err:.3g} vs the plain version ({smi})")
+        out["ssd_scan"] = row
+        del sets
     return out
 
 
@@ -1062,7 +1232,11 @@ def _drive(eng, reqs) -> "tuple[float, dict, dict]":
     the wall time, the counts read just after, and the engine's stats.
     ``reqs`` may be a callable run after the counts are zeroed that makes
     the requests (the multimodal path encodes its media there).  Every
-    request must get its full budget of in-vocabulary tokens."""
+    request must get its full budget of in-vocabulary tokens.  Engines of
+    earlier runs are collected first (an engine's metric views refer back
+    to it, so only the cycle collector frees its cache), so the peak
+    memory is this run's."""
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     for w in WRAPPERS.values():
         w.launches = 0
@@ -1106,8 +1280,8 @@ def main_model():
     torch.cuda.synchronize()
     print(f"[main] qwen2-0.5b full width: {cfg.n_layers} of its "
           f"{full.n_layers} layers, d "
-          f"{cfg.d_model}, vocab {cfg.vocab}, bf16 weights from seed 0 in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{cfg.d_model}, vocab {cfg.vocab}, bf16 weights drawn on the card "
+          f"from seed 0 in {time.perf_counter() - t0:.2f} s")
     return model, params
 
 
@@ -1549,7 +1723,8 @@ def moe_model():
     print(f"[moe] {MOE_ARCH} full width: {cfg.n_layers} layers, d "
           f"{cfg.d_model}, {cfg.n_experts} experts of {cfg.moe_ff} (top "
           f"{cfg.top_k}), vocab {cfg.vocab}, {n / 1e9:.3f} B parameters, "
-          f"bf16 weights from seed 0 in {time.perf_counter() - t0:.1f} s")
+          f"bf16 weights drawn on the card from seed 0 in "
+          f"{time.perf_counter() - t0:.2f} s")
     return model, params
 
 
@@ -1616,6 +1791,141 @@ def phase_moe(model, params, smi: str) -> dict:
               + ", ".join(f"{n} {c}" for n, c in counts.items()
                           if c and n != "grouped_matmul") + f" ({smi})")
     return out
+
+
+def hybrid_model():
+    """zamba2-2.7b at full width and depth, random bf16 weights drawn on
+    the card from seed 0."""
+    cfg = get_config(HYBRID_ARCH)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(0, param_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    G, P = lm.zamba2_groups(cfg)
+    print(f"[hybrid] {HYBRID_ARCH} full width and depth: {cfg.n_layers} "
+          f"Mamba2 layers in {G} groups of {P}, d {cfg.d_model}, d_inner "
+          f"{cfg.d_inner}, {cfg.d_inner // cfg.ssm_headdim} SSM heads of "
+          f"{cfg.ssm_headdim}, state {cfg.ssm_state}, conv width "
+          f"{cfg.conv_width}; one shared attention+MLP block ({cfg.n_heads} "
+          f"heads of {cfg.hd}, d_ff {cfg.d_ff}) after each group; vocab "
+          f"{cfg.vocab}; {n / 1e9:.3f} B parameters, {nbytes / 1e9:.2f} GB "
+          f"in bf16, drawn on the card from seed 0 in {secs:.2f} s")
+    return model, params
+
+
+def hybrid_prompts(vocab):
+    """12 prompts of 1-768 tokens that obey the prompt-length rule (any
+    length up to scan_chunk 256, past it whole chunks): a 1-token prompt,
+    lengths 37-256, and 512 and 768; four of them share a 200-token
+    prefix."""
+    rng = np.random.default_rng(12)
+    shared = rng.integers(0, vocab, 200)
+    tails = {0: 56, 2: 312, 4: 568, 7: 56}  # 256, 512, 768, 256 tokens
+    lengths = [0, 37, 0, 1, 0, 130, 256, 0, 512, 64, 200, 768]
+    return [np.concatenate([shared, rng.integers(0, vocab, tails[i])])
+            if i in tails else rng.integers(0, vocab, m)
+            for i, m in enumerate(lengths)]
+
+
+def phase_hybrid(model, params, smi: str) -> int:
+    """The hybrid family at full width: zamba2-2.7b serves 12 text
+    requests (``hybrid_prompts``, 32 new tokens each) through
+    ``ServingEngine(max_batch=8, max_seq=1024)``, which takes the dense
+    backend and exact-shape monolithic prefill for it.  Launches must be
+    exactly: ssd_scan = Mamba2 layers x prefills; flash attention = groups
+    x prefills; flash decode = groups x decode steps; RMSNorm = (2 per
+    Mamba2 layer + 2 per shared block + the final norm) x (prefills +
+    decode steps); nothing else.  A 300-token prompt (past scan_chunk 256,
+    not a multiple of it) is refused at submission with the prompt-length
+    ValueError.  Returns the run's ssd_scan launches."""
+    cfg = model.cfg
+    L, (G, P) = cfg.n_layers, lm.zamba2_groups(cfg)
+    nps = 2 * L + 2 * G + 1
+    eng = _engine(model, params, "bf16")
+    refused = ""
+    try:
+        eng.submit(Request(-2, np.arange(300) % cfg.vocab, max_new_tokens=4))
+    except ValueError as e:
+        refused = str(e)
+    check("multiple" in refused and not eng.busy(),
+          f"a 300-token prompt was not refused by the prompt-length rule: "
+          f"{refused!r}")
+    print(f"[hybrid] a 300-token prompt is refused at submission: "
+          f"ValueError: {refused}")
+    reqs = [Request(i, pr, max_new_tokens=32)
+            for i, pr in enumerate(hybrid_prompts(cfg.vocab))]
+    wall, counts, st = _drive(eng, reqs)
+    prefills, steps = st["prefills"], st["decode_steps"]
+    want = {n: 0 for n in WRAPPERS}
+    want["ssd_scan"] = L * prefills
+    want["flash_attention"] = G * prefills
+    want["flash_decode"] = G * steps
+    want["rmsnorm"] = nps * (prefills + steps)
+    check(counts == want, f"{HYBRID_ARCH} launched {counts}, want {want} "
+          f"({prefills} prefills, {steps} decode steps)")
+    check(not st["paged"] and not st["chunked"] and not st["bucketed"]
+          and prefills == len(reqs) and st["prefill_chunks"] == 0,
+          f"{HYBRID_ARCH}: paged {st['paged']}, chunked {st['chunked']}, "
+          f"{prefills} prefills, {st['prefill_chunks']} chunks")
+    sizes = ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]} "
+                      f"{v.numel() * v.element_size() / 1e6:.1f} MB"
+                      for k, v in eng.cache.items())
+    print(f"[hybrid] dense cache at {eng.max_batch} slots, max_seq "
+          f"{eng.max_seq}: {sizes}")
+    print(f"[hybrid] dense backend, monolithic exact-shape prefill: 12 "
+          f"requests, prompts {sum(len(r.tokens) for r in reqs)} tokens "
+          f"(lengths {[len(r.tokens) for r in reqs]}) in {prefills} "
+          f"prefills, {st['decode_tokens']} decode tokens in {steps} decode "
+          f"steps, {wall:.3f} s wall; {_latency_line(st, wall)}; launches: "
+          f"ssd_scan {want['ssd_scan']} = {L} x {prefills}, flash_attention "
+          f"{want['flash_attention']} = {G} x {prefills}, flash_decode "
+          f"{want['flash_decode']} = {G} x {steps}, rmsnorm "
+          f"{want['rmsnorm']} = {nps} x ({prefills} + {steps}) ({smi})")
+    return counts["ssd_scan"]
+
+
+def hybrid_parity():
+    """Reduced zamba2-2.7b in fp32 with scan_chunk 16: 10 text prompts of
+    1-64 tokens that obey the prompt-length rule (several chunks; two
+    share a 16-token prefix) through the dense backend with monolithic
+    prefill, on the CPU (plain versions) and on the card (kernels):
+    identical tokens."""
+    cfg = reduced(get_config(HYBRID_ARCH), act_dtype="float32", scan_chunk=16)
+    model = build_model(cfg)
+    cpu_params = model.init(0, param_dtype=torch.float32, device="cpu")
+    gpu_params = _tree_map(lambda t: t.to("cuda"), cpu_params)
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, cfg.vocab, 16)
+    prompts = [rng.integers(0, cfg.vocab, n)
+               for n in (1, 6, 16, 32, 48, 9, 64, 13)]
+    prompts += [np.concatenate([shared, rng.integers(0, cfg.vocab, 16)])
+                for _ in range(2)]
+
+    def serve(dev, params):
+        eng = ServingEngine(model, params, max_batch=3, max_seq=128,
+                            device=dev)
+        reqs = [Request(i, pr, max_new_tokens=8)
+                for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        check(not eng.paged and not eng.chunked,
+              f"reduced {HYBRID_ARCH} {dev}: paged {eng.paged}, chunked "
+              f"{eng.chunked}")
+        return [tuple(r.output) for r in reqs]
+
+    cpu, cuda = serve("cpu", cpu_params), serve("cuda", gpu_params)
+    check(cpu == cuda, f"reduced {HYBRID_ARCH}: CPU and CUDA engines "
+          f"disagree:\n{cpu}\n{cuda}")
+    print(f"[parity] reduced {HYBRID_ARCH} fp32, scan_chunk 16, dense "
+          f"monolithic engine: CPU (plain) and CUDA (kernels) engines give "
+          f"identical tokens for {len(prompts)} text requests of "
+          f"{sorted({len(pr) for pr in prompts})} tokens")
 
 
 def reduced_mm_features(d_model) -> dict:
@@ -1772,8 +2082,13 @@ def main():
         moe, moe_params = moe_model()
         moe_launches = phase_moe(moe, moe_params, smi)
         del moe, moe_params
+    with timed("hybrid path"):
+        hybrid, hybrid_params = hybrid_model()
+        hybrid_launches = phase_hybrid(hybrid, hybrid_params, smi)
+        del hybrid, hybrid_params
     with timed("reduced parity"):
         phase_reduced_parity()
+        hybrid_parity()
     kernels = []
     for name in WRAPPERS:
         t = timing[name]
@@ -1783,7 +2098,8 @@ def main():
         # (encoder, draft prefills, every step's norms); flash decode: the
         # dense chunked run's (phase 8); its int8 instance: no serving path
         # launches it (every run above held its count to 0); the grouped
-        # matmul: the MoE path's paged bf16 chunked run (phase 9b)
+        # matmul: the MoE path's paged bf16 chunked run (phase 9b); the SSD
+        # scan: the hybrid path's run (phase 9c)
         if name in ("flash_attention", "rmsnorm"):
             n = mm_launches[name]
         elif name == "flash_decode":
@@ -1792,6 +2108,8 @@ def main():
             n = 0
         elif name == "grouped_matmul":
             n = moe_launches["paged bf16, chunked"]
+        elif name == "ssd_scan":
+            n = hybrid_launches
         else:
             n = spec_launches.get(name, launches[name])
         kernels.append({

@@ -28,9 +28,11 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 # every head dim a ported path needs: the reduced test configs' 16, the
-# kernel tests' 32 and 64, qwen2-0.5b 64, llama3.2-3b 128, gemma3-1b 256,
-# and the multimodal encoder at qwen2-0.5b's width with two heads, 448
-HEAD_DIMS = (16, 32, 64, 128, 256, 448)
+# kernel tests' 32 and 64, qwen2-0.5b 64, zamba2-2.7b's shared attention
+# 80, llama3.2-3b 128, gemma3-1b 256, and the multimodal encoder at
+# qwen2-0.5b's width with two heads, 448 (the kernel takes D at run time:
+# any multiple of 8 fills whole 16-byte vectors in bf16 and in fp32)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256, 448)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 227 * 1024  # per-block dynamic shared memory on Hopper
 

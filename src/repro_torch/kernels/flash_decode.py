@@ -32,7 +32,10 @@ from repro_torch.kernels.paged_decode import score_scratch
 from repro_torch.models.attention import (decode_attention,
                                           decode_attention_quant)
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+# the reduced configs' 16, the kernel tests' 32, qwen2-0.5b 64,
+# zamba2-2.7b's shared attention 80, llama3.2-3b 128, gemma3-1b 256 (the
+# kernel takes D at run time in whole 16-byte vectors of the cache type)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 MAX_GROUP = 16  # query heads per kv head
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the dense serving caches are bf16; fp32 caches for the JAX kernel sweep

@@ -11,3 +11,4 @@ from repro_torch.kernels.paged_decode import paged_decode_quant  # noqa: F401
 from repro_torch.kernels.paged_verify import paged_verify  # noqa: F401
 from repro_torch.kernels.paged_verify import paged_verify_quant  # noqa: F401
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: F401
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401

@@ -1,10 +1,20 @@
-"""Public model API of the attention family, dense and MoE: spec/init,
-the paged and dense KV cache layouts, monolithic prefill (with embedding
-spans and, on a prefix-cache hit, against cached prefix K/V), chunked
-prefill into either cache, the batched paged and dense decode steps and
-the speculative verify step (ports of ``repro/models/api.py``).  The
-dense decode step serves the engine's dense backend and the speculative
-draft model; its attention runs the flash-decode kernel on the card.
+"""Public model API of the attention family, dense and MoE, and of the
+zamba2 hybrid: spec/init, the paged and dense KV cache layouts, monolithic
+prefill (with embedding spans and, on a prefix-cache hit, against cached
+prefix K/V), chunked prefill into either cache, the batched paged and
+dense decode steps and the speculative verify step (ports of
+``repro/models/api.py``).  The dense decode step serves the engine's
+dense backend and the speculative draft model; its attention runs the
+flash-decode kernel on the card.
+
+zamba2 (``block_kind="mamba_hybrid"``) has the dense cache only, with
+exact-shape monolithic prefill, as in the JAX package: conv windows
+``conv`` [G, P, B, W-1, Ch] bf16 and SSM states ``ssm`` [G, P, B, nh, p,
+N] fp32 per Mamba2 layer (G groups of P), the shared block's ``k``/``v``
+[G, B, Sa, Hkv, Dh] bf16 per group and ``pos_map``.  Its prefill runs the
+SSD-scan kernel in every Mamba2 layer and the flash-attention kernel in
+every shared block; its decode step the flash-decode kernel in every
+shared block.
 
 Paged cache layout: ``k_pages``/``v_pages`` [L, P, bs, Hkv, Dh] bf16, or
 int8 with fp32 row scales ``k_scales``/``v_scales`` [L, P, bs, Hkv]
@@ -36,7 +46,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import quantize_kv
+from repro_torch.kernels.ssd_scan import chunk_length
 from repro_torch.models import lm
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.attention import chunk_prefill_attention
 from repro_torch.nn.layers import apply_rope
 from repro_torch.nn.spec import init_params
@@ -69,36 +81,63 @@ class Model:
     # ------------------------------------------------------------- caches
     def abstract_cache(self, B: int, Sa: int):
         """The dense cache's leaves as ``meta`` tensors: k/v
-        [L, B, Sa, Hkv, Dh] bf16 and pos_map [B, Sa] int32."""
+        [L, B, Sa, Hkv, Dh] bf16 and pos_map [B, Sa] int32; for zamba2 also
+        conv [G, P, B, W-1, Ch] bf16 and ssm [G, P, B, nh, p, N] fp32, with
+        k/v per group [G, B, Sa, Hkv, Dh]."""
         cfg = self.cfg
-        if cfg.block_kind != "attn" or cfg.cross_attention:
+        if not lm.ported_family(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: dense caches of recurrent, hybrid and "
-                "encoder-decoder families are not ported to repro_torch yet "
-                "(ROADMAP queue 1 item 11)")
-        shape = (cfg.n_layers, B, Sa, cfg.n_kv_heads, cfg.hd)
-        return {"k": torch.empty(shape, dtype=torch.bfloat16, device="meta"),
-                "v": torch.empty(shape, dtype=torch.bfloat16, device="meta"),
-                "pos_map": torch.empty((B, Sa), dtype=torch.int32,
-                                       device="meta")}
+                f"{cfg.name}: dense caches of the xlstm and encoder-decoder "
+                "families are not ported to repro_torch yet (ROADMAP queue 1 "
+                "item 11 B)")
+
+        def meta(shape, dt):
+            return torch.empty(shape, dtype=dt, device="meta")
+
+        kv = (cfg.n_layers, B, Sa, cfg.n_kv_heads, cfg.hd)
+        out = {}
+        if cfg.block_kind == "mamba_hybrid":
+            G, P = lm.zamba2_groups(cfg)
+            Ch = cfg.d_inner + 2 * cfg.ssm_state
+            nh = cfg.d_inner // cfg.ssm_headdim
+            kv = (G,) + kv[1:]
+            out["conv"] = meta((G, P, B, cfg.conv_width - 1, Ch),
+                               torch.bfloat16)
+            out["ssm"] = meta((G, P, B, nh, cfg.ssm_headdim, cfg.ssm_state),
+                              torch.float32)
+        out["k"] = meta(kv, torch.bfloat16)
+        out["v"] = meta(kv, torch.bfloat16)
+        out["pos_map"] = meta((B, Sa), torch.int32)
+        return out
 
     @property
     def supports_paged(self) -> bool:
-        """Paged KV serving covers the pure-attention family."""
+        """Paged KV serving covers the pure-attention family; zamba2's
+        recurrent states live in the dense cache."""
         return self.cfg.block_kind == "attn" and not self.cfg.cross_attention
 
     @property
     def supports_embed_spans(self) -> bool:
+        """Embedding spans need the attention family (zamba2's recurrent
+        state updates are fused with its token scans)."""
         return self.supports_paged
 
     @property
     def supports_bucketed_prefill(self) -> bool:
-        """Padded prefill needs a positional cache (attention family)."""
+        """Padded prefill needs a positional cache (attention family): a
+        recurrent state integrates every input token, padding included."""
         return self.cfg.block_kind == "attn"
 
     @property
     def supports_chunked_prefill(self) -> bool:
         return self.supports_paged
+
+    def check_prompt_length(self, T: int):
+        """Raise ValueError for a prompt length the model cannot prefill:
+        zamba2's SSD scan takes a prompt past ``scan_chunk`` only in whole
+        chunks (``ssd_scan.chunk_length``)."""
+        if self.cfg.block_kind == "mamba_hybrid":
+            chunk_length(T, self.cfg.scan_chunk, "scan_chunk")
 
     def abstract_paged_cache(self, num_pages: int, block_size: int,
                              kv_dtype: str = "bf16"):
@@ -135,32 +174,52 @@ class Model:
     # ------------------------------------------------------------ prefill
     def prefill(self, params, batch):
         """Monolithic prefill of a whole prompt batch: (last-token logits
-        [B, V], dense cache {k, v [L, B, S, Hkv, Dh], pos_map [B, S]}).
+        [B, V], dense cache {k, v [L, B, S, Hkv, Dh], pos_map [B, S]}; for
+        zamba2 also conv and ssm, with k/v per group).
 
         ``batch["length"]`` [B] int32 optionally carries the true prompt
         lengths of a batch right-padded to a shape bucket: pos_map marks
         the padding empty (-1) and the logits are taken at ``length - 1``;
         causal masking keeps the padding out of every real position.
         ``batch["embeds"]`` [B, S, d] and ``batch["embed_mask"]`` [B, S]
-        optionally inject embedding spans (``lm.embed_inputs``).
+        optionally inject embedding spans (``lm.embed_inputs``).  zamba2
+        takes neither (ValueError, as in the JAX package), and a prompt
+        past ``scan_chunk`` only in whole chunks (ValueError).
         """
         cfg = self.cfg
         tokens, length = batch["tokens"], batch.get("length")
+        embeds = batch.get("embeds")
         B, S = tokens.shape
-        if not self.supports_bucketed_prefill:
-            raise NotImplementedError(
-                f"{cfg.name}: prefill of non-attention families is not "
-                "ported to repro_torch yet (ROADMAP queue 1 item 11)")
+        if length is not None and not self.supports_bucketed_prefill:
+            raise ValueError(
+                f"{cfg.name}: bucketed (padded) prefill needs a positional "
+                "cache; recurrent state would integrate the padding")
+        if embeds is not None and not self.supports_embed_spans:
+            raise ValueError(
+                f"{cfg.name}: embedding-span prefill needs the attention "
+                "family (see Model.supports_embed_spans)")
         if length is None:
             pos_map = torch.arange(S, dtype=torch.int32,
                                    device=tokens.device).expand(B, S)
         else:
             pos_map = lm.prompt_pos_map(length, S)
-        h, (k, v) = lm.attn_forward(cfg, params, tokens, return_cache=True,
-                                    embeds=batch.get("embeds"),
-                                    embed_mask=batch.get("embed_mask"))
+        if cfg.block_kind == "mamba_hybrid":
+            h, ((conv, ssm), (k, v)) = lm.zamba2_forward(
+                cfg, params, tokens, return_cache=True)
+            cache = {"conv": conv, "ssm": ssm, "k": k, "v": v,
+                     "pos_map": pos_map}
+        elif lm.ported_family(cfg):
+            h, (k, v) = lm.attn_forward(cfg, params, tokens,
+                                        return_cache=True, embeds=embeds,
+                                        embed_mask=batch.get("embed_mask"))
+            cache = {"k": k, "v": v, "pos_map": pos_map}
+        else:
+            raise NotImplementedError(
+                f"{cfg.name}: prefill of the xlstm and encoder-decoder "
+                "families is not ported to repro_torch yet (ROADMAP queue 1 "
+                "item 11 B)")
         logits = lm.last_logits(cfg, params, lm.last_hidden(h, length))
-        return logits, {"k": k, "v": v, "pos_map": pos_map}
+        return logits, cache
 
     def prefill_with_prefix(self, params, batch, prefix_k, prefix_v):
         """Suffix prefill against cached prefix K/V (the paged engine's
@@ -256,13 +315,15 @@ class Model:
         writes nothing (the JAX package's out-of-bounds drop) and its
         logits are garbage nobody reads.  Attention runs
         ``ops.flash_decode`` over each layer's cache view (the CUDA kernel
-        on the card, its plain version on the CPU).  The cache is updated
-        in place; returns (logits [B, V] fp32, cache)."""
+        on the card, its plain version on the CPU); zamba2 dispatches to
+        ``_zamba2_decode``.  The cache is updated in place; returns
+        (logits [B, V] fp32, cache)."""
         cfg = self.cfg
-        if cfg.block_kind != "attn" or cfg.cross_attention:
+        if not lm.ported_family(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: dense decode of non-attention families is not "
-                "ported to repro_torch yet (ROADMAP queue 1 item 11)")
+                f"{cfg.name}: dense decode of the xlstm and encoder-decoder "
+                "families is not ported to repro_torch yet (ROADMAP queue 1 "
+                "item 11 B)")
         tokens, pos = batch["tokens"], batch["pos"].long()
         x = lm.embed_tokens(cfg, params, tokens)  # [B, d]
         B = x.shape[0]
@@ -273,6 +334,9 @@ class Model:
         pos_map = cache["pos_map"]
         _masked_write(pos_map, (rows, wpos), pos.to(pos_map.dtype), live)
         pos32 = pos.to(torch.int32)
+        if cfg.block_kind == "mamba_hybrid":
+            return self._zamba2_decode(params, cache, x, wpos, rows, live,
+                                       pos32)
 
         def attend(q1, k1, v1, kv, window):
             kc, vc = kv
@@ -286,6 +350,47 @@ class Model:
                              attend, self._decode_layer)
         x = lm._norm(params, x, cfg.norm, "final")
         return lm.last_logits(cfg, params, x), cache
+
+    def _zamba2_decode(self, params, cache, x, wpos, rows, live, pos32):
+        """zamba2's dense decode step (``api.py:786`` of the JAX package,
+        with Python loops in place of its scans): every group's Mamba2
+        layers advance their conv windows and SSM states by one token,
+        then the shared block writes its K/V at ``wpos`` (nothing for a
+        parked slot, ``live`` False) and attends through the flash-decode
+        kernel.  States are updated in place; the conv leaf first takes
+        the activation type where it differs (the JAX step returns its
+        conv windows in the promoted type, which the engine keeps)."""
+        cfg = self.cfg
+        x0 = x
+        Sa = cache["k"].shape[2]
+        rope, _ = self._rope(Sa, x.device)
+        conv, ssm = cache["conv"], cache["ssm"]
+        dt = torch.promote_types(conv.dtype, x.dtype)
+        if conv.dtype != dt:
+            conv = conv.to(dt)
+        pos_map = cache["pos_map"]
+        G, P = lm.zamba2_groups(cfg)
+        for g in range(G):
+            pm = lm.layer_slice(params["mamba"], g)
+            for i in range(P):
+                y, cs, ss = m2.mamba2_decode(
+                    lm.layer_slice(pm, i), x, conv[g, i], ssm[g, i],
+                    n_state=cfg.ssm_state, headdim=cfg.ssm_headdim)
+                conv[g, i] = cs
+                ssm[g, i] = ss
+                x = x + y
+            kc, vc = cache["k"][g], cache["v"][g]
+
+            def attend(q1, k1, v1, kc=kc, vc=vc):
+                _masked_write(kc, (rows, wpos), k1, live)
+                _masked_write(vc, (rows, wpos), v1, live)
+                return ops.flash_decode(q1.contiguous(), kc, vc, pos_map,
+                                        pos32)
+
+            x, _ = lm._shared_attn_apply(cfg, params["shared_attn"], x, x0,
+                                         rope, wpos[:, None], attend=attend)
+        x = lm._norm(params, x, cfg.norm, "final")
+        return lm.last_logits(cfg, params, x), {**cache, "conv": conv}
 
     def serve_step_paged(self, params, cache, batch):
         """One token for the whole batch against the paged KV cache.

@@ -1,7 +1,8 @@
-"""Attention-family decoder stack (port of the attention subset of
-``repro/models/lm.py``, dense and MoE): parameter specs, embedding, norms,
-the attention and MLP or MoE sub-blocks, per-layer windows, rope tables
-and the logits head.
+"""Decoder stacks of the attention family, dense and MoE, and of the
+zamba2 hybrid (ports of ``repro/models/lm.py``): parameter specs,
+embedding, norms, the attention and MLP or MoE sub-blocks, per-layer
+windows, rope tables, the logits head, and zamba2's Mamba2 groups with
+their shared attention+MLP block.
 
 Parameters are a plain dict with the JAX tree's keys; per-layer leaves are
 stacked on dim 0.  Norms accumulate in fp32 (RMS norms through the fused
@@ -11,6 +12,7 @@ runs the flash-attention kernel on the card.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import flash_attention
 from repro_torch.nn.layers import apply_rope, rope_frequencies
@@ -144,13 +147,22 @@ def mlp_spec(cfg: ArchConfig, L: int, d: int, ff: int):
     }
 
 
+def ported_family(cfg: ArchConfig) -> bool:
+    """The families the port serves: attention decoders (dense, MoE) and
+    the zamba2 hybrid; xlstm and whisper are ROADMAP queue 1 item 11 B."""
+    if cfg.block_kind == "mamba_hybrid":
+        return True
+    return (cfg.block_kind == "attn" and not cfg.cross_attention
+            and cfg.act != "gelu")
+
+
 def build_spec(cfg: ArchConfig) -> Tree:
-    """Spec tree of an attention-family decoder, dense or MoE."""
-    if cfg.block_kind != "attn" or cfg.cross_attention or cfg.act == "gelu":
+    """Spec tree of an attention-family decoder (dense or MoE) or of the
+    zamba2 hybrid."""
+    if not ported_family(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers attention-family decoders only "
-            "(recurrent, hybrid and encoder-decoder families are ROADMAP "
-            "queue 1 item 11)")
+            f"{cfg.name}: the xlstm and encoder-decoder (whisper) families "
+            "are not ported to repro_torch yet (ROADMAP queue 1 item 11 B)")
     d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
     spec: dict = {"embed": {"table": TensorSpec((V, d), ("vocab", "embed"),
                                                 "embed", scale=d ** -0.5)}}
@@ -158,6 +170,9 @@ def build_spec(cfg: ArchConfig) -> Tree:
     if not cfg.tie_embeddings:
         spec["lm_head"] = TensorSpec((d, V), ("embed", "vocab"), "normal",
                                      scale=d ** -0.5)
+    if cfg.block_kind == "mamba_hybrid":
+        spec.update(_zamba2_spec(cfg))
+        return spec
     layer = {}
     layer.update(_norm_spec(L, d, cfg.norm, "ln1"))
     layer.update(_norm_spec(L, d, cfg.norm, "ln2"))
@@ -172,6 +187,24 @@ def build_spec(cfg: ArchConfig) -> Tree:
         layer["mlp"] = mlp_spec(cfg, L, d, cfg.d_ff)
     spec["layers"] = layer
     return spec
+
+
+def _zamba2_spec(cfg: ArchConfig) -> Tree:
+    """zamba2's Mamba2 leaves stacked as (groups, per) and the shared
+    attention+MLP block, whose attention reads concat(x, x0) [2d]."""
+    d = cfg.d_model
+    groups, per = cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
+    m = m2.mamba2_spec(cfg.n_layers, d, cfg.d_inner, cfg.ssm_state,
+                       cfg.ssm_headdim, cfg.conv_width)
+    mamba = {k: TensorSpec((groups, per) + s.shape[1:],
+                           ("layers", None) + s.axes[1:], s.init, s.scale)
+             for k, s in m.items()}
+    shared_cfg = dataclasses.replace(cfg, qkv_bias=False, qk_norm=False)
+    shared = {"attn": attn_spec(shared_cfg, 0, 2 * d)}
+    shared.update(_norm_spec(0, 2 * d, cfg.norm, "ln1"))
+    shared.update(_norm_spec(0, d, cfg.norm, "ln2"))
+    shared["mlp"] = mlp_spec(cfg, 0, d, cfg.d_ff)
+    return {"mamba": mamba, "shared_attn": shared}
 
 
 # --------------------------------------------------------------- layer flags
@@ -321,6 +354,81 @@ def attn_forward(cfg: ArchConfig, params, tokens, *, return_cache=False,
         vs.append(v)
     x = _norm(params, x, cfg.norm, "final")
     return (x, (torch.stack(ks), torch.stack(vs))) if return_cache else x
+
+
+# --------------------------------------------------------------- zamba2 family
+
+
+def _shared_attn_apply(cfg: ArchConfig, ps, x, x0, rope, positions, *,
+                       attend=None):
+    """Shared attention+MLP block on concat(x, x0) (``lm.py:480`` of the
+    JAX package).  Prefill (``attend`` None): x [B, S, d], causal
+    attention over the prompt through the flash-attention kernel; returns
+    (y, (k, v)) with k/v rope'd [B, S, Hkv, Dh].  Decode: x [B, d] at
+    ``positions`` [B, 1]; ``attend(q1, k1, v1)`` owns the cache write and
+    the attention (the flash-decode kernel); returns (y, None)."""
+    B, dt = x.shape[0], x.dtype
+    cat = torch.cat([x, x0], -1)
+    if cat.dim() == 2:  # decode: [B, 2d]
+        cat = cat[:, None]
+    S = cat.shape[1]
+    xn = _norm(ps, cat, cfg.norm, "ln1")
+    q, k, v = _qkv(ps["attn"], cfg, xn, B, S)
+    cos, sin = rope
+    q = apply_rope(q, cos, sin, positions)
+    k = apply_rope(k, cos, sin, positions)
+    if attend is None:
+        o, kv = flash_attention(q, k, v, causal=True), (k, v)
+    else:
+        o, kv = attend(q[:, 0], k[:, 0], v[:, 0]), None
+    o = o.reshape(x.shape[:-1] + (-1,))
+    y = x + o @ ps["attn"]["wo"].to(dt)
+    yn = _norm(ps, y, cfg.norm, "ln2")
+    return y + _mlp(ps["mlp"], cfg, yn).reshape(x.shape), kv
+
+
+def zamba2_groups(cfg: ArchConfig) -> "tuple[int, int]":
+    """(groups, Mamba2 layers per group): the shared block follows each
+    group."""
+    return cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
+
+
+def zamba2_forward(cfg: ArchConfig, params, tokens, *, return_cache=False):
+    """tokens [B, S] -> final-normed hidden [B, S, d] (``lm.py:515`` of the
+    JAX package, with Python loops in place of its two scans): each group's
+    Mamba2 layers in order, then the shared block on concat(x, x0).  With
+    ``return_cache`` also ((conv [G, P, B, min(S, W-1), Ch], ssm
+    [G, P, B, nh, p, N] fp32), (k, v) [G, B, S, Hkv, Dh])."""
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    x0 = x
+    positions = torch.arange(S, device=tokens.device)
+    rope, _ = _rope_tables(cfg, S, tokens.device)
+    G, P = zamba2_groups(cfg)
+    convs, ssms, ks, vs = [], [], [], []
+    for g in range(G):
+        pm = layer_slice(params["mamba"], g)
+        for i in range(P):
+            y, (cs, ss) = m2.mamba2_forward(
+                layer_slice(pm, i), x, n_state=cfg.ssm_state,
+                headdim=cfg.ssm_headdim, chunk=cfg.scan_chunk)
+            x = x + y
+            convs.append(cs)
+            ssms.append(ss)
+        x, (k, v) = _shared_attn_apply(cfg, params["shared_attn"], x, x0,
+                                       rope, positions)
+        ks.append(k)
+        vs.append(v)
+    x = _norm(params, x, cfg.norm, "final")
+    if not return_cache:
+        return x
+
+    def stacked(ts):
+        t = torch.stack(ts)
+        return t.reshape((G, P) + t.shape[1:])
+
+    return x, ((stacked(convs), stacked(ssms)),
+               (torch.stack(ks), torch.stack(vs)))
 
 
 def layer_slice(tree, i: int):

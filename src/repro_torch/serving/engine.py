@@ -1,5 +1,6 @@
 """Slot-based continuous-batching serving engine (port of
-``repro/serving/engine.py`` for the attention family).
+``repro/serving/engine.py`` for the attention family and the zamba2
+hybrid).
 
 A fixed decode batch of ``max_batch`` slots steps in lockstep, one batched
 decode step per tick with the argmax on the device.  Two cache backends:
@@ -12,6 +13,13 @@ decode step per tick with the argmax on the device.  Two cache backends:
 * dense (``paged=False``): ``Model.serve_step`` over one contiguous
   ``[L, max_batch, max_seq]`` region per slot, bf16 only, no prefix reuse;
   its decode attention runs the CUDA flash-decode kernel on the card.
+
+``paged=None`` picks the paged backend where the model supports it
+(``Model.supports_paged``) and the dense one otherwise, as the JAX engine
+does: zamba2 is served on the dense backend, its recurrent conv and SSM
+states in the dense cache beside the shared block's K/V, with exact-shape
+monolithic prefill (neither bucketed nor chunked: a recurrent state
+integrates every token, padding included).
 
 Prompts are prefilled ``prefill_chunk`` tokens at a time under a per-tick
 ``prefill_budget``, sharing ticks with the decode step, or, with
@@ -42,10 +50,11 @@ same media share its pages.
 
 The attention family includes its MoE members (granite-moe,
 qwen2-moe), as target or as draft: the engine itself has no MoE branch,
-only the model's layers differ.
+only the model's layers differ.  Speculation and embedding spans need the
+attention family, so zamba2 refuses both, as in the JAX package.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): non-attention model families on either backend, tensor-parallel
+item): the xlstm and encoder-decoder (whisper) families, tensor-parallel
 meshes (``mesh``), admission batching (``sorted_batch_sizes``), and KV
 snapshot export/import (``export_kv``, ``evacuate``, imported requests).
 """
@@ -61,6 +70,7 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.kernels.quant import dequantize_kv, quantize_kv
+from repro_torch.models import lm
 from repro_torch.models.api import Model, build_model
 from repro_torch.serving import segments as sg
 from repro_torch.serving.kv_cache import (BlockPool, BlockTable, KVSnapshot,
@@ -70,9 +80,10 @@ from repro_torch.serving.request import ContinuumRequest, StreamEvent
 from repro_torch.serving.telemetry import MetricsRegistry, latency_summary
 
 
-# batch and sequence dims of the dense cache leaves (Model.abstract_cache);
-# the leaves of the other families come with ROADMAP queue 1 item 11
-_BATCH_DIM = {"k": 1, "v": 1, "pos_map": 0}
+# batch and sequence dims of the dense cache leaves (Model.abstract_cache):
+# zamba2's conv windows and SSM states [G, P, B, ...] have no sequence dim;
+# the leaves of xlstm and whisper come with ROADMAP queue 1 item 11 B
+_BATCH_DIM = {"k": 1, "v": 1, "pos_map": 0, "conv": 2, "ssm": 2}
 _SEQ_DIM = {"k": 2, "v": 2, "pos_map": 1}
 
 
@@ -182,17 +193,22 @@ class ServingEngine:
         cache and the steps run; None means the CUDA card and raises when
         there is none.  ``params`` must already be on that device.
         """
+        if not lm.ported_family(model.cfg):
+            raise _unported(f"{model.cfg.name}: the xlstm and "
+                            "encoder-decoder cache families", "item 11 B")
+        self.paged = model.supports_paged if paged is None else bool(paged)
+        if self.paged and not model.supports_paged:
+            raise ValueError(
+                f"{model.cfg.name}: paged serving needs an attention-family "
+                "cache; use paged=False")
         if draft_config is not None:
-            if paged is False:
+            if not self.paged:
                 raise ValueError(
                     "speculative decoding needs the paged cache backend "
                     "(the verify pass writes draft K/V through block "
                     "tables); use paged=True")
             if int(spec_k) < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
-        if not model.supports_paged:
-            raise _unported(f"{model.cfg.name}: non-attention cache families",
-                            "item 11")
         if mesh is not None:
             raise _unported("tensor-parallel serving (mesh)", "item 12")
         if sorted_batch_sizes is not None:
@@ -201,7 +217,7 @@ class ServingEngine:
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(
                 f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
-        if kv_dtype != "bf16" and paged is False:
+        if kv_dtype != "bf16" and not self.paged:
             raise ValueError(
                 "kv_dtype='int8' needs the paged cache backend (dense "
                 "caches stay bf16)")
@@ -220,11 +236,10 @@ class ServingEngine:
         self.slots: list[Request | None] = [None] * max_batch
         self.pos = np.zeros(max_batch, np.int64)  # next position per slot
         self.budget = np.zeros(max_batch, np.int64)
-        self.paged = paged is not False
         self.kv_dtype = kv_dtype
         self.return_logits = return_logits
         self.bucketing = bucket_prompts and model.supports_bucketed_prefill
-        self.chunked = prefill_chunk > 0
+        self.chunked = prefill_chunk > 0 and model.supports_chunked_prefill
         self.prefill_chunk = prefill_chunk
         self.prefill_budget = (prefill_budget if prefill_budget is not None
                                else 2 * max(prefill_chunk, 1))
@@ -791,6 +806,9 @@ class ServingEngine:
                 "prompt")
         if len(req.tokens) < 1:
             raise ValueError(f"request {req.uid}: empty prompt")
+        # zamba2: a prompt past scan_chunk must be whole chunks (the JAX
+        # engine fails the same prompt at admission, with an assertion)
+        self.model.check_prompt_length(len(req.tokens))
         if not req.token_times:
             req.t_submit = self._now()
         self._c_submitted.inc()
@@ -846,16 +864,34 @@ class ServingEngine:
     @staticmethod
     def _splice_cache(cache: dict, slot: int, req_cache: dict) -> dict:
         """Insert a one-request prefill cache into slot ``slot`` of a dense
-        batch cache (in place), padding its sequence dim to the cache's
-        with zeros (pos_map: -1, empty)."""
+        batch cache (in place), padding the sequence dim of the K/V and
+        pos_map leaves to the cache's with zeros (pos_map: -1, empty).  A
+        leaf without a sequence dim (zamba2's conv windows and SSM states)
+        is copied as it is, broadcast to the slot's shape as the JAX
+        splice's ``.at[].set`` broadcasts it: a 1-token prompt's one conv
+        row fills all W-1 rows of its window, and a prompt of 2 to W-2
+        tokens raises ValueError before any leaf is written, as the JAX
+        splice raises."""
+        rcs = {}
         for name, leaf in cache.items():
             rc = req_cache[name]
-            sdim = _SEQ_DIM[name]
-            pad = list(rc.shape)
-            pad[sdim] = leaf.shape[sdim] - rc.shape[sdim]
-            fill = rc.new_full(pad, -1 if name == "pos_map" else 0)
-            leaf.narrow(_BATCH_DIM[name], slot, 1).copy_(
-                torch.cat([rc, fill], sdim))
+            if name in _SEQ_DIM:
+                sdim = _SEQ_DIM[name]
+                pad = list(rc.shape)
+                pad[sdim] = leaf.shape[sdim] - rc.shape[sdim]
+                rc = torch.cat([rc, rc.new_full(pad, -1 if name == "pos_map"
+                                                else 0)], sdim)
+            want = list(leaf.shape)
+            want[_BATCH_DIM[name]] = 1
+            if rc.dim() != len(want) or any(
+                    a not in (b, 1) for a, b in zip(rc.shape, want)):
+                raise ValueError(
+                    f"Incompatible shapes for broadcasting: "
+                    f"{tuple(rc.shape)} and requested shape {tuple(want)} "
+                    f"(cache leaf {name!r})")
+            rcs[name] = rc
+        for name, leaf in cache.items():
+            leaf.narrow(_BATCH_DIM[name], slot, 1).copy_(rcs[name])
         return cache
 
     def _draft_install(self, slot: int, tokens):

@@ -149,7 +149,7 @@ def _reduced_engine(arch="qwen2-0.5b", **kw):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(paged=False, arch="zamba2-2.7b"),  # a recurrent family: item 11
+    dict(paged=False, arch="xlstm-1.3b"),  # a recurrent family: item 11 B
     dict(paged=False, kv_dtype="int8"),  # refused as by the JAX engine
     # a recurrent draft: refused as by the JAX engine
     dict(draft_config=reduced(get_config("zamba2-2.7b"))),
@@ -159,9 +159,9 @@ def test_unported_knobs_raise(knob):
     ``NotImplementedError`` naming their ROADMAP item; an int8 dense cache
     and a draft outside the attention family ``ValueError``, as in the JAX
     engine (test_kv_quant.py:183-186, engine.py's draft check).  The dense
-    backend and monolithic prefill of the attention family, and MoE
-    drafts, are ported (tests/test_torch_dense_engine.py,
-    test_moe_draft_is_served)."""
+    backend and monolithic prefill of the attention family, MoE drafts and
+    zamba2 are ported (tests/test_torch_dense_engine.py,
+    test_moe_draft_is_served, tests/test_torch_mamba2.py)."""
     refused = {"kv_dtype": "paged", "draft_config": "attention-family"}
     for key, match in refused.items():
         if key in knob:

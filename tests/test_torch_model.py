@@ -150,9 +150,9 @@ def test_init_is_seeded_per_leaf():
 
 
 def test_unported_families_raise():
-    """Families still unported raise (the MoE family is ported:
-    tests/test_torch_moe.py)."""
+    """Families still unported raise (the MoE family and zamba2 are
+    ported: tests/test_torch_moe.py, tests/test_torch_mamba2.py)."""
     with pytest.raises(NotImplementedError):
         build_model(reduced(get_config("xlstm-1.3b"))).spec
     with pytest.raises(NotImplementedError):
-        build_model(reduced(get_config("zamba2-2.7b"))).spec
+        build_model(reduced(get_config("whisper-large-v3"))).spec
