@@ -10,7 +10,10 @@ exits non-zero without printing a result:
   2. build: compiles ``kernels/csrc/paged_decode.cu``, ``paged_verify.cu``,
      ``flash_attention.cu``, ``rmsnorm.cu``, ``flash_decode.cu``,
      ``moe_gmm.cu`` and ``ssd_scan.cu`` for sm_90a, all nvcc runs at once
-     (seconds, registers, shared memory, spills);
+     (seconds; each kernel's registers, shared memory and spills; where
+     ``cuobjdump`` is installed, each library's count of HMMA tensor-core
+     instructions; which instantiation of flash attention and the grouped
+     matmul runs for which dtype and D or C);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (verify also at
@@ -29,17 +32,20 @@ exits non-zero without printing a result:
      and flash decode, bf16 and int8, held to the plain version's uniform
      softmax; the grouped matmul in bf16 and fp32 at the CPU tests' cases
      and at granite-moe-1b-a400m's and qwen2-moe-a2.7b's expert shapes
-     (decode, verify, chunk and 1024-bucket capacities); the SSD scan,
+     (decode, verify, chunk and 1024-bucket capacities), C 1, C 17 and a
+     split K; the SSD scan,
      y and the final state, in bf16 and fp32, from zeros and from a given
      state, at the CPU tests' sweep and at zamba2-2.7b's width (80 heads
      of 64, state 64) over 48-1024 tokens;
   4. kernel, plain version and one library call's times at the main
      path's shapes (decode: B 8; verify: the speculative B 8, T 4 and the
      prefill chunk B 1, T 64; flash attention: the encoder's batch at
-     S 256 and the draft's prefill buckets; RMSNorm: [8, 896] and
-     [64, 896]; flash decode: the dense cache at B 8, max_seq 1024;
-     grouped matmul: granite-moe's decode, verify, chunk and monolithic
-     capacities and qwen2-moe's decode, against ``torch.bmm``; the SSD
+     S 256, the draft's prefill buckets and zamba2-2.7b's shared attention
+     at S 768; RMSNorm: [8, 896] and [64, 896]; flash decode: the dense
+     cache at B 8, max_seq 1024; grouped matmul: granite-moe's decode,
+     verify, chunk and monolithic capacities and qwen2-moe's decode and
+     C 88, against ``torch.bmm``; each flash-attention and grouped-matmul
+     row names the instantiation that ran; the SSD
      scan at a zamba2 prefill of 256 and 1024 tokens, which no single
      PyTorch call computes), beside the least time the card could take,
      and the kernel held to its plain version there;
@@ -118,6 +124,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -132,7 +139,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.data.taskgen import make_taskset  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.kernels import flash_attention, paged_verify  # noqa: E402
+from repro_torch.kernels import flash_attention, moe_gmm  # noqa: E402
+from repro_torch.kernels import paged_verify  # noqa: E402
 from repro_torch.kernels import flash_decode  # noqa: E402
 from repro_torch.kernels import ssd_scan as scan_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -156,8 +164,9 @@ from repro_torch.serving.segments import (EmbedSegment,  # noqa: E402
 from repro_torch.serving.telemetry import Telemetry  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet (dense): HBM rate and peak operation rates
-# (fp32: 67 TFLOP/s outside the tensor cores, the rate of the kernels'
-# fp32 CUDA-core products)
+# (bf16: the tensor cores, on which flash attention and the grouped matmul
+# multiply bf16; fp32: 67 TFLOP/s outside the tensor cores, the rate of
+# the fp32 CUDA-core products of every kernel, TF32 never used)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.int8: 1979e12,
                   torch.float32: 67e12}
@@ -360,6 +369,12 @@ GMM_CASES += [(f"granite {what} C {C}", 32, C, K, N)
 GMM_CASES += [(f"qwen2-moe {what} C {C}", 60, C, K, N) for C in (8, 88)
               for what, K, N in (("gate/up", 2048, 1408),
                                  ("down", 1408, 2048))]
+# the edges of the bf16 instantiations: one token (the small-C tile; at E
+# 4 its grid has fewer CTAs than the card has SMs, so K is split), one
+# past the small-C tile (C 17, the chunk tile) and an unaligned K through
+# the small-C tile's scalar staging
+GMM_CASES += [("C 1", 4, 1, 512, 256), ("C 17", 4, 17, 512, 256),
+              ("unaligned K", 3, 5, 70, 64)]
 # the SSD scan held to its plain version: (b, S, h, p, n, chunk), the CPU
 # tests' sweep (test_kernels.py::test_ssd_scan), then zamba2-2.7b's width
 # (80 heads of 64, state 64) over prompts of 1 token (a chunk of 1, as
@@ -389,6 +404,34 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def dev_us(e) -> float:
+    """A profiler event's own device time in microseconds (the attribute's
+    name differs across torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, name):
+            return getattr(e, name)
+    return 0
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Mean device time per call of ``fn(i)``: the kernels it launches as
+    ``torch.profiler`` records them, without the host's time between
+    launches (which sets ``cuda_ms`` of a call whose kernels are short)."""
+    fn(0)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(dev_us(e) for e in prof.key_averages()
+             if getattr(e, "device_type", None) == cuda)
+    check(us > 0, "the profiler saw no device time")
+    return us / calls / 1e3
 
 
 def paged_case(rng, B, H, Hkv, D, bs, NB, ctx, *, T=0, layers=1,
@@ -560,21 +603,70 @@ def phase_device() -> str:
     return smi
 
 
+def cuda_tool(name: str) -> "str | None":
+    """A CUDA toolkit binary on the PATH or under /usr/local/cuda/bin."""
+    tool = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+    return tool if Path(tool).exists() else None
+
+
+def hmma_count(path) -> "int | None":
+    """HMMA (tensor-core) instructions in a built library's SASS, or None
+    where ``cuobjdump`` is not installed."""
+    tool = cuda_tool("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    return sass.count("HMMA")
+
+
+def kernel_names(mangled: list) -> list:
+    """ptxas entry names as ``name<template arguments>`` where
+    ``cu++filt`` demangles them (one call for all), else as ptxas prints
+    them."""
+    tool = cuda_tool("cu++filt")
+    if tool is None or not mangled:
+        return mangled
+    names = subprocess.run([tool, *mangled], capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    if len(names) != len(mangled):
+        return mangled
+    out = []
+    for name in names:
+        for noise in ("void ", "<unnamed>::", "(anonymous namespace)::"):
+            name = name.replace(noise, "")
+        out.append(name.split("(", 1)[0])
+    return out
+
+
 def phase_build():
     """Every source at once, one nvcc each."""
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
         infos = dict(zip(SOURCES, pool.map(build.build, SOURCES)))
     for name, info in infos.items():
         build.load(name)
+        hmma = hmma_count(info["path"])
         print(f"[build] {name}.cu -> sm_90a in {info['seconds']:.2f} s"
-              f"{'' if info['built'] else ' (already built)'}")
-        for line in info["ptxas"].splitlines():
-            if "Used" in line or "spill" in line or "smem" in line:
-                print("[build]   " + line.strip())
-    print(f"[build]   flash attention: {flash_attention.tile_rows()} query "
-          "rows per CTA; dynamic shared memory per CTA " + ", ".join(
-              f"D {D}: {flash_attention.smem_bytes(D)} bytes"
-              for D in flash_attention.HEAD_DIMS))
+              f"{'' if info['built'] else ' (already built)'}; "
+              + ("cuobjdump not found" if hmma is None
+                 else f"{hmma} HMMA instructions in its SASS"))
+        lines = info["ptxas"].splitlines()
+        names = iter(kernel_names([line.split("'")[1] for line in lines
+                                   if "Compiling entry" in line]))
+        for line in lines:
+            if "Compiling entry" in line:
+                print("[build]   " + next(names))
+            elif "Used" in line or "spill" in line or "smem" in line:
+                print("[build]     " + line.strip())
+    for dt in (torch.bfloat16, torch.float32):
+        print(f"[build]   flash attention {str(dt)[6:]}: " + "; ".join(
+            f"D {D}: {flash_attention.variant(D, dt)}, "
+            f"{flash_attention.tile_rows(D, dt)} query rows and "
+            f"{flash_attention.smem_bytes(D, dt)} bytes of dynamic shared "
+            "memory per CTA" for D in flash_attention.HEAD_DIMS))
+    print("[build]   grouped matmul: " + "; ".join(
+        f"{str(dt)[6:]} C {C}: {moe_gmm.variant(dt, C)}"
+        for dt in (torch.bfloat16, torch.float32) for C in (8, 16, 24, 320)))
     print(f"[build]   flash decode: {flash_decode.tile_keys()} keys per "
           "staged tile; dynamic shared memory per CTA with the scores of "
           "1024 keys " + ", ".join(
@@ -961,7 +1053,9 @@ def _time_call(name, label, args, kw, nbytes, nops, peak, library,
     list of them, one per layer, taken in turn so that consecutive calls
     read HBM as the model does.  The bound is the larger of ``nbytes``
     over the HBM rate and ``nops`` over the peak rate of ``peak``'s
-    type."""
+    type.  Kernel and library are also printed by their device time
+    alone (``device_ms``): where a call's kernels are shorter than the
+    host's time to issue it, back-to-back calls measure the host."""
     wrapper, ref = WRAPPERS[name], PLAINS[name]
     layers = args if isinstance(args, list) else [args]
     L = len(layers)
@@ -974,13 +1068,18 @@ def _time_call(name, label, args, kw, nbytes, nops, peak, library,
     bytes_s = nbytes / HBM_BYTES_PER_S
     ops_s = nops / PEAK_OPS_PER_S[peak]
     row = {"ms": cuda_ms(lambda i=0: wrapper(*layers[i % L], **kw), 240),
+           "device_ms": device_ms(
+               lambda i=0: wrapper(*layers[i % L], **kw)),
            "plain_ms": cuda_ms(lambda i=0: ref(*layers[i % L], **kw), 48),
            "library_ms": cuda_ms(library, 240),
+           "library_device_ms": device_ms(library),
            "bound_ms": max(bytes_s, ops_s) * 1e3,
            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
            "main_shapes_max_abs_err": err}
-    print(f"[timing] {name} ({label}): kernel {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+    print(f"[timing] {name} ({label}): kernel {row['ms']:.4f} ms (device "
+          f"{row['device_ms']:.4f} ms), plain "
+          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+          f"(device {row['library_device_ms']:.4f} ms), "
           f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}; {nbytes} "
           f"bytes, {nops} operations at the {str(peak)[6:]} peak), "
           f"{row['bound_ms'] / row['ms']:.2%} of bound; max |err| {err:.3g} "
@@ -993,23 +1092,28 @@ def phase_timing_new(smi: str) -> dict:
     """Flash attention and RMSNorm at the main path's shapes.  Flash: the
     encoder's batch of four 128x128 images (B 4, S 256, two heads of 448,
     fp32, non-causal; the kernels-line entry), its four 32x32 images
-    (S 16), and the draft's causal prefill at qwen2-0.5b heads for each
-    prompt bucket the smoke's requests reach (B 1, S 64-1024, bf16); the
-    yardstick is ``F.scaled_dot_product_attention`` on [B, H, S, D] copies
-    (``enable_gqa``, ``is_causal``).  RMSNorm: a decode tick [8, 896] (the
-    kernels-line entry) and a prefill chunk [64, 896] of bf16 activations
-    with bf16 scales, and the encoder's [1024, 896] in fp32; the yardstick
-    is ``F.rms_norm`` with the scale in x's type.  The flash bound counts
-    the visible (query, key) pairs' q.k and p.v multiply-adds (2 flops
-    each) at the peak of the inputs' type: bf16 989 TFLOP/s, fp32
-    67 TFLOP/s (outside the tensor cores, which this kernel does not
-    use)."""
+    (S 16), the draft's causal prefill at qwen2-0.5b heads for each
+    prompt bucket the smoke's requests reach (B 1, S 64-1024, bf16) and
+    zamba2-2.7b's shared attention at its longest prompt (B 1, S 768, 32
+    heads of 80, causal bf16); each row names the instantiation that ran;
+    the yardstick is ``F.scaled_dot_product_attention`` on [B, H, S, D]
+    copies (``enable_gqa``, ``is_causal``).  RMSNorm: a decode tick
+    [8, 896] (the kernels-line entry) and a prefill chunk [64, 896] of
+    bf16 activations with bf16 scales, and the encoder's [1024, 896] in
+    fp32; the yardstick is ``F.rms_norm`` with the scale in x's type.
+    The flash bound counts the visible (query, key) pairs' q.k and p.v
+    multiply-adds (2 flops each) at the peak of the inputs' type: bf16
+    989 TFLOP/s (the tensor cores, on which the bf16 instantiation
+    multiplies), fp32 67 TFLOP/s (outside the tensor cores: the fp32
+    instantiation multiplies on the CUDA cores, never in TF32)."""
     dev = torch.device("cuda")
     out = {}
     shapes = [("encoder 128x128", 4, 256, 2, 2, 448, torch.float32, False),
               ("encoder 32x32", 4, 16, 2, 2, 448, torch.float32, False)]
     shapes += [(f"draft prefill S {S}", 1, S, 14, 2, 64, torch.bfloat16,
                 True) for S in (64, 128, 256, 512, 1024)]
+    shapes += [("zamba2 shared attention", 1, 768, 32, 32, 80,
+                torch.bfloat16, True)]
     for label, B, S, H, Hkv, D, dt, causal in shapes:
         q = torch.randn(B, S, H, D, device=dev, dtype=dt)
         k = torch.randn(B, S, Hkv, D, device=dev, dtype=dt)
@@ -1024,7 +1128,8 @@ def phase_timing_new(smi: str) -> dict:
 
         row = _time_call("flash_attention",
                          f"{label}: B={B} S={S} H={H}/{Hkv} D={D} "
-                         f"{'causal' if causal else 'non-causal'}",
+                         f"{'causal' if causal else 'non-causal'}; "
+                         f"{flash_attention.variant(D, dt)}",
                          (q, k, v), dict(causal=causal), nbytes,
                          4 * pairs * H * D, dt, library, smi)
         out.setdefault("flash_attention", row)
@@ -1103,12 +1208,13 @@ def _time_gmm(smi: str) -> dict:
     experts (E 32, d 1024, ff 512) at a decode tick (C 8; gate/up, the
     kernels-line entry, and down), a verify pass (C 16), a 64-token chunk
     (C 24) and a 1024-token bucket (C 320; gate/up and down), and
-    qwen2-moe-a2.7b's (E 60, d 2048, ff 1408) at a decode tick.  The
-    weights of 24 layers (4 for qwen2-moe: 346 MB each) are taken in turn,
-    so each call reads them from HBM as the model does.  The bound counts
-    x, w and the output once against 2*E*C*K*N operations at the bf16
-    tensor-core peak; the yardstick is ``torch.bmm`` on the same
-    operands."""
+    qwen2-moe-a2.7b's (E 60, d 2048, ff 1408) at a decode tick and a
+    1024-token bucket (C 88, gate/up).  Each row names the instantiation
+    that ran.  The weights of 24 layers (4 for qwen2-moe: 346 MB each)
+    are taken in turn, so each call reads them from HBM as the model does.
+    The bound counts x, w and the output once against 2*E*C*K*N
+    operations at the bf16 tensor-core peak; the yardstick is
+    ``torch.bmm`` on the same operands."""
     dev = torch.device("cuda")
     out = {}
     for label, E, C, K, N, L in (
@@ -1118,7 +1224,8 @@ def _time_gmm(smi: str) -> dict:
             ("granite chunk gate/up", 32, 24, 1024, 512, 24),
             ("granite monolithic gate/up", 32, 320, 1024, 512, 24),
             ("granite monolithic down", 32, 320, 512, 1024, 24),
-            ("qwen2-moe decode gate/up", 60, 8, 2048, 1408, 4)):
+            ("qwen2-moe decode gate/up", 60, 8, 2048, 1408, 4),
+            ("qwen2-moe monolithic gate/up", 60, 88, 2048, 1408, 4)):
         w = torch.randn(L, E, K, N, device=dev, dtype=torch.bfloat16)
         x = torch.randn(E, C, K, device=dev, dtype=torch.bfloat16)
         nbytes = 2 * (x.numel() + E * K * N + E * C * N)
@@ -1127,7 +1234,8 @@ def _time_gmm(smi: str) -> dict:
             torch.bmm(x, w[i % L])
 
         row = _time_call("grouped_matmul",
-                         f"{label}: E={E} C={C} K={K} N={N} bf16",
+                         f"{label}: E={E} C={C} K={K} N={N} bf16; "
+                         f"{moe_gmm.variant(torch.bfloat16, C)}",
                          [(x, w[l]) for l in range(L)], {}, nbytes,
                          2 * E * C * K * N, torch.bfloat16, library, smi)
         out.setdefault("grouped_matmul", row)
@@ -1685,13 +1793,6 @@ def phase_profile(model, params, smi: str):
             spans[ev["name"]] = (n + 1, t + ev["dur"] / 1e6)
     check(spans.get("decode_tick", (0,))[0] > 0,
           f"the profiled window ran no decode tick: {spans}")
-
-    def dev_us(e):  # the attribute's name differs across torch versions
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, name):
-                return getattr(e, name)
-        return 0
-
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch/<name>-<digest>.so`` at
-the repository root (the digest is of the source, so an edit rebuilds),
+the repository root (the digest is of the source and the shared
+``csrc/*.cuh`` headers, so an edit rebuilds),
 then loaded with ``ctypes``.  No PyTorch headers are included, which keeps
 a build to seconds.  A failed build raises with nvcc's output.
 """
@@ -38,7 +39,8 @@ def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns {"path", "seconds", "ptxas", "built"}."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():
         return {"path": out, "seconds": 0.0, "ptxas": "", "built": False}

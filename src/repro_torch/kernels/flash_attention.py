@@ -10,6 +10,9 @@ every whole-prompt prefill runs: the engine's monolithic admission, a
 suffix against its cached prefix (``Sk = Spre + Sq``), the draft model's
 bucketed prefill.  The source note in the ``.cu`` file
 says what bounds it on an H100 and what its design does about that.
+Which hand-written instantiation runs is chosen by (dtype, D) in the C
+entry point (``variant`` names it): bf16 on the tensor cores at every head
+dim but 448, fp32 (and bf16 at D 448) on the CUDA cores.
 
 ``flash_attention`` takes the JAX signature plus ``q_offset``.  For
 tensors on the CPU it runs the plain version; for CUDA tensors it
@@ -83,22 +86,30 @@ def _lib():
     lib.flash_attention_launch.argtypes = (
         [i32] + [ptr] * 4 + [i32] * 9 + [ctypes.c_float, ptr])
     lib.flash_attention_launch.restype = i32
-    lib.flash_attention_smem_bytes.argtypes = [i32]
+    lib.flash_attention_smem_bytes.argtypes = [i32, i32]
     lib.flash_attention_smem_bytes.restype = i32
-    lib.flash_attention_tile_rows.argtypes = []
+    lib.flash_attention_tile_rows.argtypes = [i32, i32]
     lib.flash_attention_tile_rows.restype = i32
+    lib.flash_attention_variant.argtypes = [i32, i32]
+    lib.flash_attention_variant.restype = ctypes.c_char_p
     return lib
 
 
-def smem_bytes(D: int) -> int:
-    """Dynamic shared memory one CTA of the kernel takes for head dim D
-    (from the built library)."""
-    return _lib().flash_attention_smem_bytes(D)
+def smem_bytes(D: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory one CTA of the kernel that runs for ``dtype``
+    and head dim D takes (from the built library)."""
+    return _lib().flash_attention_smem_bytes(DTYPES[dtype], D)
 
 
-def tile_rows() -> int:
-    """Query rows one CTA of the kernel takes."""
-    return _lib().flash_attention_tile_rows()
+def tile_rows(D: int, dtype=torch.bfloat16) -> int:
+    """Query rows one CTA of the kernel that runs for ``dtype`` and D
+    takes."""
+    return _lib().flash_attention_tile_rows(DTYPES[dtype], D)
+
+
+def variant(D: int, dtype=torch.bfloat16) -> str:
+    """The hand-written instantiation that runs for ``dtype`` and D."""
+    return _lib().flash_attention_variant(DTYPES[dtype], D).decode()
 
 
 def _check(q, k, v, window):
@@ -146,7 +157,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if out.numel() == 0:  # a launch of 0 CTAs is refused
         return out
     lib = _lib()
-    smem = smem_bytes(D)
+    smem = smem_bytes(D, q.dtype)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"flash attention: head dim {D} needs {smem} bytes "
                          f"of shared memory, over {MAX_SMEM_BYTES}")

@@ -7,6 +7,10 @@ expert contractions of every MoE layer call (``models/moe.py``
 ``moe_apply``).  The source note in the ``.cu`` file says what bounds it
 on an H100 and what its design does about that.
 
+Which hand-written instantiation runs is chosen by (dtype, C) in the C
+entry point (``variant`` names it): bf16 on the tensor cores, with a
+small-C tile at C <= 16, fp32 on the CUDA cores.
+
 ``grouped_matmul`` takes the JAX signature.  For tensors on the CPU it
 runs the plain version; for CUDA tensors it launches the kernel or raises,
 never falling back.  It counts its kernel launches in its ``launches``
@@ -37,10 +41,28 @@ def _lib():
     stream as ``c_void_p``, so ctypes does not cut them to 32 bits)."""
     lib = build.load("moe_gmm")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.grouped_matmul_launch.argtypes = ([i32] + [ptr] * 3 + [i32] * 6
+    lib.grouped_matmul_launch.argtypes = ([i32] + [ptr] * 4 + [i32] * 7
                                           + [ptr])
     lib.grouped_matmul_launch.restype = i32
+    lib.grouped_matmul_splits.argtypes = [i32] * 6
+    lib.grouped_matmul_splits.restype = i32
+    lib.grouped_matmul_variant.argtypes = [i32, i32]
+    lib.grouped_matmul_variant.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _splits(dtype: int, E: int, C: int, K: int, N: int, device: int) -> int:
+    """How many ways the kernel splits K at these shapes on this card (1
+    unless its grid has fewer CTAs than the card has SMs)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _lib().grouped_matmul_splits(dtype, E, C, K, N, sms)
+
+
+def variant(dtype, C: int) -> str:
+    """The hand-written instantiation that runs for ``dtype`` and C (from
+    the built library)."""
+    return _lib().grouped_matmul_variant(DTYPES[dtype], C).decode()
 
 
 def _check(x, w):
@@ -73,11 +95,18 @@ def grouped_matmul(x, w):
     out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:  # a launch of 0 CTAs is refused
         return out
+    dtype = DTYPES[x.dtype]
+    splits = _splits(dtype, E, C, K, N, x.device.index)
+    # the fp32 partials of a split K, summed in order by the kernel's
+    # second pass
+    work = (torch.empty((splits, E, C, N), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().grouped_matmul_launch(
-            DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(), E,
-            C, K, N, _rows_aligned(x), _rows_aligned(w), stream)
+            dtype, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            work.data_ptr() if work is not None else None, E, C, K, N,
+            _rows_aligned(x), _rows_aligned(w), splits, stream)
     if err != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: error "
                            f"{err}")

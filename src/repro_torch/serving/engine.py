@@ -258,6 +258,14 @@ class ServingEngine:
         self._c_submitted = m.counter("requests_submitted")
         self._c_finished = m.counter("requests_finished")
         self._c_decode_tokens = m.counter("decode_tokens")
+        # KV snapshot traffic (disaggregated prefill/decode) and the
+        # admission-group sizes under the saxml batching knobs: the JAX
+        # engine registers them in every engine; they stay 0 / empty here
+        # until KV export/import and admission batching are ported
+        for name in ("kv_exported_pages", "kv_imported_pages",
+                     "kv_export_bytes", "kv_import_bytes"):
+            m.counter(name)
+        m.histogram("batch_admit_size")
         # batched decode steps run: the kernel launch count of a tick is
         # n_layers per step, which is how a run proves it used the kernel
         self._c_decode_steps = m.counter("decode_steps")

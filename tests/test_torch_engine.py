@@ -103,6 +103,36 @@ def test_engine_matches_jax(need_jax, arch, kv_dtype, workload):
         assert ts["prefix_hits"] > 0 and ts["prefix_tokens_reused"] >= 3 * 24
 
 
+# registered by the JAX engine for KV export/import and admission
+# batching (repro/serving/engine.py); the port registers them too and
+# leaves them at 0 / empty until those are ported
+UNPORTED_STATS = ("kv_exported_pages", "kv_imported_pages",
+                  "kv_export_bytes", "kv_import_bytes", "batch_admit_size")
+
+
+def test_stats_have_the_jax_engines_keys(need_jax):
+    """The same reduced qwen2-0.5b workload drained through both engines:
+    every key of the JAX engine's ``stats()`` is in the port's, and the
+    five metrics of the unported paths agree."""
+    cfg = jreduced(jget_config("qwen2-0.5b"), act_dtype="float32")
+    jmodel = jbuild(cfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0), param_dtype=jnp.float32)
+    model = build_model(reduced(get_config("qwen2-0.5b"),
+                                act_dtype="float32"))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams),
+                             device="cpu")
+    prompts, new, kw = _mixed(cfg.vocab)
+    jeng, want = _run(JEngine, JRequest, jmodel, jparams, prompts, new, **kw)
+    eng, got = _run(ServingEngine, Request, model, params, prompts, new,
+                    device="cpu", **kw)
+    assert got == want
+    js, ts = jeng.stats(), eng.stats()
+    assert sorted(set(js) - set(ts)) == []
+    assert {k: ts[k] for k in UNPORTED_STATS} == \
+        {k: js[k] for k in UNPORTED_STATS}
+    assert ts["kv_exported_pages"] == 0 and ts["kv_import_bytes"] == 0
+
+
 def test_padded_chunk_past_max_seq_matches_jax(need_jax):
     """A prefix hit of 56 tokens leaves 7 to prefill, padded to a 16-token
     chunk at positions 56..71, past max_seq 64: the rope positions of the

@@ -151,6 +151,41 @@ def test_grouped_matmul_runs_plain_version_on_cpu_only():
         ops.grouped_matmul(x, w.to("meta"))
 
 
+def _gmm_tc_emulation(x, w, splits=1, bk=64):
+    """The bf16 tensor-core instantiations of ``csrc/moe_gmm.cu`` in their
+    own order, on the CPU: exact bf16 products summed in fp32 as 16-deep
+    blocks in ascending K; with ``splits``, K cut at ``bk``-deep steps
+    into that many ranges whose fp32 partials are summed in order (the
+    kernel's split of K); rounded once to bf16."""
+    E, C, K = x.shape
+    xf, wf = x.float(), w.float()
+    steps = -(-K // bk)
+    per = -(-steps // splits)
+    out = torch.zeros(E, C, w.shape[2])
+    for k_lo in range(0, K, per * bk):
+        part = torch.zeros_like(out)
+        for k0 in range(k_lo, min(K, k_lo + per * bk), 16):
+            part = part + xf[:, :, k0:k0 + 16] @ wf[:, k0:k0 + 16]
+        out = out + part
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("E,C,K,N", GMM_CASES)
+def test_grouped_matmul_tc_arithmetic_within_exact_tol(E, C, K, N, splits):
+    """The bf16 kernel's k16-blocked fp32 accumulation (K split or not),
+    emulated on the CPU, stays within EXACT_TOL of the fp32 plain version
+    on the widened inputs (what the card's kernel is held to)."""
+    rng = np.random.default_rng(42)
+    x = _t(rng.normal(size=(E, C, K)), torch.bfloat16)
+    w = _t(rng.normal(size=(E, K, N)), torch.bfloat16)
+    got = _gmm_tc_emulation(x, w, splits, bk=32 if C > 64 else 64)
+    assert got.dtype == torch.bfloat16 and got.shape == (E, C, N)
+    np.testing.assert_allclose(
+        _np(got), _np(grouped_matmul_ref(x.float(), w.float())),
+        **EXACT_TOL["bfloat16"])
+
+
 # ------------------------------------------------------------ moe_apply
 
 
@@ -573,6 +608,11 @@ GPU_GMM_CASES = GMM_CASES + [
     (32, C, K, N) for C in (8, 16, 24, 320)
     for K, N in ((1024, 512), (512, 1024))] + [
     (60, C, K, N) for C in (8, 88) for K, N in ((2048, 1408), (1408, 2048))]
+# the edges of the bf16 instantiations: one token (at E 4 the grid has
+# fewer CTAs than the card has SMs, so K is split), one past the small-C
+# tile (C 17), and unaligned K through the small-C and chunk tiles
+GPU_GMM_CASES += [(4, 1, 512, 256), (32, 1, 1024, 512), (4, 17, 512, 256),
+                  (32, 17, 1024, 512), (3, 5, 70, 64), (2, 40, 70, 96)]
 
 
 @pytest.mark.gpu

@@ -191,6 +191,94 @@ def test_wrappers_run_plain_versions_on_cpu_only():
         ops.rmsnorm(x, s.to("meta"))
 
 
+# ------------------------- the bf16 kernel's arithmetic, emulated (CPU)
+
+
+def _flash_tc_emulation(q, k, v, *, causal, window, split=True):
+    """The bf16 tensor-core instantiation of ``csrc/flash_attention.cu`` in
+    its own order, on the CPU: 64-key tiles (32 past D 128), q.k as
+    16-deep blocks of exact bf16 products with fp32 sums, scaled to log2
+    units, the online max / rescale / sum per tile, and p.v per 16-key
+    block with each fp32 probability split into bf16 hi + lo (``split``;
+    else rounded once to bf16), normalized by max(l, 1e-30) and rounded
+    once to bf16.  q [B, Sq, H, D], k/v [B, Sk, Hkv, D], bf16."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    keys = 32 if D > 128 else 64
+    q_offset = Sk - Sq if causal else 0
+    qf = q.float().transpose(1, 2)                      # [B, H, Sq, D]
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    scale_log2 = torch.tensor(D ** -0.5, dtype=torch.float32) * \
+        torch.tensor(1.4426950408889634, dtype=torch.float32)
+    qpos = q_offset + torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq, 1), NEG_INF)
+    l = torch.zeros(B, H, Sq, 1)
+    o = torch.zeros(B, H, Sq, D)
+    for k0 in range(0, Sk, keys):
+        kt, vt = kf[:, :, k0:k0 + keys], vf[:, :, k0:k0 + keys]
+        s = torch.zeros(B, H, Sq, kt.shape[2])
+        for d0 in range(0, D, 16):
+            s = s + qf[..., d0:d0 + 16] @ kt[..., d0:d0 + 16].transpose(-1, -2)
+        x = s * scale_log2
+        kpos = k0 + torch.arange(kt.shape[2])[None, :]
+        live = torch.ones(Sq, kt.shape[2], dtype=torch.bool)
+        if causal:
+            live &= kpos <= qpos
+        if window:
+            live &= (qpos - kpos) < window
+        x = torch.where(live, x, torch.tensor(NEG_INF))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        corr = torch.where(m > MASKED, torch.exp2(m - m_new),
+                           torch.ones(()))
+        p = torch.where(x > MASKED, torch.exp2(x - m_new), torch.zeros(()))
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        o = o * corr
+        hi = p.bfloat16().float()
+        parts = (hi, (p - hi).bfloat16().float()) if split else (hi,)
+        for j0 in range(0, kt.shape[2], 16):
+            for part in parts:
+                o = o + part[..., j0:j0 + 16] @ vt[:, :, j0:j0 + 16]
+    out = o / l.clamp(min=1e-30)
+    return out.transpose(1, 2).bfloat16()
+
+
+NEG_INF, MASKED = -1e30, -1e29  # the kernel's fill and masked threshold
+
+
+def _emulation_errors(B, Sq, Sk, H, Hkv, D, causal, window, split):
+    """The emulation against the plain version on the widened inputs:
+    (max |err|, max of |err| over EXACT_TOL's bound)."""
+    q, k, v = (_t(a, torch.bfloat16)
+               for a in _flash_inputs(B, Sq, Sk, H, Hkv, D, seed=42))
+    got = _flash_tc_emulation(q, k, v, causal=causal, window=window,
+                              split=split).float()
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    tol = EXACT_TOL["bfloat16"]
+    err = (got - want).abs()
+    return (float(err.max()),
+            float((err / (tol["atol"] + tol["rtol"] * want.abs())).max()))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", FLASH_CASES)
+def test_flash_tc_arithmetic_within_exact_tol(B, Sq, Sk, H, Hkv, D, causal,
+                                              window):
+    """The bf16 kernel's order of operations with p = hi + lo, emulated on
+    the CPU, stays within EXACT_TOL of the fp32 plain version on the
+    widened inputs (what the card's kernel is held to)."""
+    q, k, v = (_t(a, torch.bfloat16)
+               for a in _flash_inputs(B, Sq, Sk, H, Hkv, D, seed=42))
+    got = _flash_tc_emulation(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, D)
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(want),
+                               **EXACT_TOL["bfloat16"])
+
+
 # --------------------------------------------------------- the encoder
 
 
@@ -462,6 +550,12 @@ GPU_FLASH_CASES = FLASH_CASES + [
     (1, 256, 256, 24, 8, 128, True, 0),    # llama3.2-3b
     (2, 256, 256, 2, 2, 448, False, 0),    # encoder, 128x128 image
     (2, 48, 48, 4, 2, 16, True, 0),        # reduced configs
+    (1, 200, 200, 32, 32, 80, True, 0),    # zamba2-2.7b shared attention
+    (1, 768, 768, 32, 32, 80, True, 0),    # ... at its longest prompt
+    (2, 130, 130, 8, 8, 128, False, 0),    # ragged Sq = Sk, D 128
+    (1, 100, 100, 4, 1, 256, True, 40),    # ragged, windowed, D 256
+    (1, 70, 150, 8, 2, 128, True, 0),      # a suffix (q_offset 80), D 128
+    (2, 37, 300, 4, 4, 256, True, 0),      # a suffix (q_offset 263), D 256
 ]
 
 
@@ -570,3 +664,12 @@ def _on(tree, device):
     if isinstance(tree, dict):
         return {k: _on(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+if __name__ == "__main__":
+    # the largest error of the bf16 kernel's arithmetic against the fp32
+    # plain version on FLASH_CASES (seed 42), with p split into hi + lo
+    # and with p rounded once to bf16: (max |err|, max |err| / EXACT_TOL)
+    for case in FLASH_CASES:
+        print(case, "split", _emulation_errors(*case, split=True),
+              "one rounding", _emulation_errors(*case, split=False))
