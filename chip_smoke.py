@@ -12,12 +12,16 @@ exits non-zero without printing a result:
      ``moe_gmm.cu`` and ``ssd_scan.cu`` for sm_90a, all nvcc runs at once
      (seconds; each kernel's registers, shared memory and spills; where
      ``cuobjdump`` is installed, each library's count of HMMA tensor-core
-     instructions; which instantiation of flash attention and the grouped
-     matmul runs for which dtype and D or C);
+     instructions, at least one in ``paged_verify.cu``; which
+     instantiation of flash attention, the grouped matmul and paged verify
+     runs for which dtype and D or C; paged verify's launch plan, rows a
+     tile, keys a split and CTAs, and its shared memory a CTA at the
+     speculative and chunk shapes);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (verify also at
-     the CPU tests' cases, T = 4 and T = 64); flash attention at the CPU
+     the CPU tests' cases, T = 4 and T = 64, and a table whose last
+     split is ragged); flash attention at the CPU
      tests' cases, the draft's causal prefill at qwen2-0.5b's heads (S 16
      to 1024), gemma3-1b's windowed layers, llama3.2-3b's heads, the
      encoder's non-causal D 448 and zamba2-2.7b's shared attention (32
@@ -38,8 +42,10 @@ exits non-zero without printing a result:
      state, at the CPU tests' sweep and at zamba2-2.7b's width (80 heads
      of 64, state 64) over 48-1024 tokens;
   4. kernel, plain version and one library call's times at the main
-     path's shapes (decode: B 8; verify: the speculative B 8, T 4 and the
-     prefill chunk B 1, T 64; flash attention: the encoder's batch at
+     path's shapes (decode: B 8; verify: the speculative B 8, T 4, the
+     same with two free slots, and the prefill chunk B 1, T 64; the paged
+     kernels and SDPA also by their device time alone; flash attention:
+     the encoder's batch at
      S 256, the draft's prefill buckets and zamba2-2.7b's shared attention
      at S 768; RMSNorm: [8, 896] and [64, 896]; flash decode: the dense
      cache at B 8, max_seq 1024; grouped matmul: granite-moe's decode,
@@ -51,10 +57,11 @@ exits non-zero without printing a result:
      and the kernel held to its plain version there;
   5. the text path: qwen2-0.5b at full width, cut to its first
      MAIN_LAYERS (12) of 24 layers to keep the run's time (random seeded
-     bf16 weights; phases 5-9 use this model), serves 12 requests through ``ServingEngine`` with a
-     bf16 and an int8 pool; decode launches must equal n_layers x decode
-     steps, verify launches (chunked-prefill attention) n_layers x
-     prefill chunks, RMSNorm launches the norms of every step;
+     bf16 weights; phases 5-9 use this model), serves 12 requests
+     through ``ServingEngine`` with a bf16 and an int8 pool; decode
+     launches must equal n_layers x decode steps, verify launches
+     (chunked-prefill attention) n_layers x prefill chunks, RMSNorm
+     launches the norms of every step;
   6. speculation: the same 12 requests with ``spec_k=3``, a bf16 pool
      drafted by the target's own weights and an int8 pool drafted by a
      4-layer cut of the target; verify launches must equal n_layers x
@@ -78,7 +85,7 @@ exits non-zero without printing a result:
   9. a window of PROFILE_STEPS engine steps of the bf16 text path, run
      once plainly and once under ``torch.profiler`` with the engine's trace
      spans: device busy share, engine-span totals, top kernels by device
-     time;
+     time, and the device time of paged verify's kernels;
   9b. the MoE path: granite-moe-1b-a400m at full width and depth (random
      seeded bf16 weights) serves the 12 text requests through paged
      chunked engines (bf16 and int8 pools), a paged monolithic engine, a
@@ -415,23 +422,38 @@ def dev_us(e) -> float:
     return 0
 
 
-def device_ms(fn, calls: int = 20) -> float:
+def device_ms(fn, calls: int = 20, by_kernel: "dict | None" = None
+              ) -> float:
     """Mean device time per call of ``fn(i)``: the kernels it launches as
     ``torch.profiler`` records them, without the host's time between
-    launches (which sets ``cuda_ms`` of a call whose kernels are short)."""
+    launches (which sets ``cuda_ms`` of a call whose kernels are short).
+    The window is profiled three times and the fullest reading kept: on
+    the card's host a session now and then records none or only some of
+    the window's kernels (an SDPA call read 0.0009 ms of its usual 0.022
+    once, and whole windows came back empty), and a lost kernel can only
+    lower a reading.  ``by_kernel``, if given,
+    receives that reading's kernels (name -> ms a call)."""
     fn(0)
     torch.cuda.synchronize()
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
-    with prof:
-        for i in range(calls):
-            fn(i)
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = sum(dev_us(e) for e in prof.key_averages()
-             if getattr(e, "device_type", None) == cuda)
-    check(us > 0, "the profiler saw no device time")
-    return us / calls / 1e3
+    best_us, best = 0.0, []
+    for _ in range(3):
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            for i in range(calls):
+                fn(i)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == cuda
+                  and dev_us(e) > 0]
+        us = sum(dev_us(e) for e in events)
+        if us > best_us:
+            best_us, best = us, events
+    check(best_us > 0, "the profiler saw no device time")
+    if by_kernel is not None:
+        by_kernel.update({e.key: dev_us(e) / calls / 1e3 for e in best})
+    return best_us / calls / 1e3
 
 
 def paged_case(rng, B, H, Hkv, D, bs, NB, ctx, *, T=0, layers=1,
@@ -676,16 +698,33 @@ def phase_build():
     print("[build]   ssd scan: dynamic shared memory per CTA " + ", ".join(
         f"chunk {Q}, p {p}, n {n}: {scan_kernel.smem_bytes(Q, p, n)} bytes"
         for Q, p, n in ((256, 64, 64), (64, 16, 8), (16, 16, 16))))
-    rows = paged_verify.tile_rows()
+    hmma = hmma_count(infos["paged_verify"]["path"])
+    check(hmma is None or hmma > 0,
+          "paged_verify.cu: no HMMA (tensor-core) instruction in its SASS")
+    print("[build]   paged verify: " + "; ".join(
+        f"{str(dt)[6:]} q: {paged_verify.variant(dt)}"
+        for dt in (torch.bfloat16, torch.float32)))
     for arch, H, Hkv, D, _ in WIDTHS:
         G = H // Hkv
-        print(f"[build]   dynamic shared memory per CTA with the scores of "
-              f"1024 keys, {arch} (G={G}, D={D}, page 16): decode "
-              f"{smem_bytes(G, D, 16, G * 1024)} bytes; verify "
-              f"{paged_verify.smem_bytes(D, 16, rows * 1024)} bytes at "
-              f"T = 4 and at T = 64 alike ({rows} query rows per CTA: "
-              f"{-(-4 * G // rows) * Hkv * 8} CTAs at B 8, T 4; "
-              f"{-(-64 * G // rows) * Hkv} CTAs at B 1, T 64)")
+        plans = []
+        for B, T in ((8, SPEC_K + 1), (1, 64)):
+            p = paged_verify.plan(B, T, G, Hkv, 64, 16, D)
+            smem = [paged_verify.smem_bytes(D, 16, p.rows, p.split_keys,
+                                            p.splits, dt)
+                    for dt in (torch.bfloat16, torch.int8)]
+            plans.append(
+                f"B {B}, T {T}: {p.rows} query rows a tile, {p.split_keys} "
+                f"keys a split ({p.splits} splits), {p.ctas} CTAs, "
+                f"{smem[0]} (bf16 pages) and {smem[1]} (int8) bytes of "
+                "dynamic shared memory a CTA")
+        rows = paged_verify.fp32_tile_rows()
+        print(f"[build]   {arch} (G={G}, D={D}, page 16, 1024-key tables): "
+              f"decode {smem_bytes(G, D, 16, G * 1024)} bytes of dynamic "
+              f"shared memory a CTA with the scores of 1024 keys; verify, "
+              f"bf16 q: " + "; ".join(plans) + f"; verify, fp32 q: {rows} "
+              f"query rows a CTA, "
+              f"{paged_verify.fp32_smem_bytes(D, 16, rows * 1024)} bytes "
+              "with the scores of 1024 keys")
 
 
 def phase_compare(rng) -> dict:
@@ -721,11 +760,14 @@ def phase_compare(rng) -> dict:
                   f"{', the free slot too' if inactive else ''}; max |err| "
                   f"vs fp32 plain: " + ", ".join(errs))
     # verify: the CPU tests' cases (tests/test_torch_speculative.py CASES:
-    # B, last context, H, Hkv, D, page, T, window), then the three model
-    # layouts at the speculative T = 4 (B 8) and a 64-token chunk (B 2)
+    # B, last context, H, Hkv, D, page, T, window), a 65-page table (its
+    # last split ragged), then the three model layouts at the speculative
+    # T = 4 (B 8; gemma3-1b's window skips whole splits) and a 64-token
+    # chunk (B 2)
     cases = [(2, 96, 8, 2, 64, 16, 4, 0), (1, 64, 4, 4, 32, 8, 3, 24),
              (2, 72, 8, 1, 64, 8, 5, 0), (2, 128, 14, 2, 64, 16, 4, 0),
-             (1, 160, 14, 2, 64, 16, 64, 0), (2, 96, 4, 1, 256, 16, 6, 40)]
+             (1, 160, 14, 2, 64, 16, 64, 0), (2, 96, 4, 1, 256, 16, 6, 40),
+             (2, 1040, 14, 2, 64, 16, 4, 0)]
     for arch, H, Hkv, D, window in WIDTHS:
         cases += [(8, 2048, H, Hkv, D, 16, 4, window),
                   (2, 1024, H, Hkv, D, 16, 64, window)]
@@ -931,6 +973,12 @@ def compare_scan(rng) -> float:
     return worst
 
 
+def _short(kernel: str) -> str:
+    """A profiler kernel name without its namespace and arguments."""
+    name = kernel.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0]
+
+
 def _gathered(pool, bt, S):
     """[L, P, bs, Hkv, D] pool -> [L, B, Hkv, S, D] contiguous through the
     block table (the library yardstick's input; never timed)."""
@@ -942,7 +990,7 @@ def _gathered(pool, bt, S):
 
 
 def _time_kernel(name, label, q, pools, bt, pos, mask, keys, row_keys,
-                 smi) -> dict:
+                 smi, inactive=()) -> dict:
     """Kernel, plain version and one SDPA call on the pre-gathered cache
     (int8: dequantized to bf16 first; gather and dequantization not
     timed), with ``mask`` [B, 1, rows, S] the keys each query row sees;
@@ -950,7 +998,10 @@ def _time_kernel(name, label, q, pools, bt, pos, mask, keys, row_keys,
     ``keys`` distinct keys read per kv head and ``row_keys`` (query row,
     key) pairs per query head: the bound is the larger of the bytes
     (each K/V row once, q in, out, tables, positions) over the HBM rate
-    and the q.k plus p.v multiply-adds over the peak rate."""
+    and the q.k plus p.v multiply-adds over the peak rate.  Kernel and
+    SDPA are also timed by their device time alone (``device_ms``).
+    Slots in ``inactive`` are free: their rows are held to the plain
+    version's uniform softmax."""
     L = pools[0].shape[0]
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     Hkv = pools[0].shape[3]
@@ -968,6 +1019,8 @@ def _time_kernel(name, label, q, pools, bt, pos, mask, keys, row_keys,
     io_bytes = 2 * q.numel() * q.element_size() + bt.numel() * 4 + B * 4
     ops_count = 4 * H * D * row_keys
     layer = [tuple(p[l] for p in pools) for l in range(L)]
+    # [B, H, rows, D]: decode has one row, verify T
+    qs = (q[:, :, None] if q.dim() == 3 else q.transpose(1, 2)).contiguous()
 
     def kernel(i=0):
         wrapper(q, *layer[i % L], bt, pos)
@@ -975,30 +1028,45 @@ def _time_kernel(name, label, q, pools, bt, pos, mask, keys, row_keys,
     def plain(i=0):
         ref(q, *layer[i % L], bt, pos)
 
-    # [B, H, rows, D]: decode has one row, verify T
-    qs = (q[:, :, None] if q.dim() == 3 else q.transpose(1, 2)).contiguous()
-
     def library(i=0):
         F.scaled_dot_product_attention(qs, kg[i % L], vg[i % L],
                                        attn_mask=mask, enable_gqa=True)
 
+    live = torch.ones(qs.shape[0], qs.shape[2], dtype=torch.bool,
+                      device=q.device)
+    live[list(inactive)] = False
+    rows, dead = (live.squeeze(1) if q.dim() == 3 else live), None
+    if inactive:
+        dead = ~rows
     err32, err = hold(name, wrapper(q, *layer[0], bt, pos),
-                      (q,) + layer[0] + (bt, pos), {}, slice(None),
-                      f"{label} shapes")
+                      (q,) + layer[0] + (bt, pos), {}, rows,
+                      f"{label} shapes", dead)
     bytes_s = (kv_bytes + io_bytes) / HBM_BYTES_PER_S
     ops_s = ops_count / PEAK_OPS_PER_S[pools[0].dtype]
-    row = {"ms": cuda_ms(kernel, 240), "plain_ms": cuda_ms(plain, 48),
+    split: dict = {}
+    row = {"ms": cuda_ms(kernel, 240),
+           "device_ms": device_ms(kernel, by_kernel=split),
+           "plain_ms": cuda_ms(plain, 48),
            "library_ms": cuda_ms(library, 240),
+           "library_device_ms": device_ms(library),
            "bound_ms": max(bytes_s, ops_s) * 1e3,
            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
            "main_shapes_max_abs_err": err}
     print(f"[timing] {name} at the {label} shapes: max |err| {err:.3g} vs "
           f"the plain version, {err32:.3g} vs the fp32 plain version")
-    print(f"[timing] {name} ({label}): kernel {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, sdpa on the gathered cache "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-          f"({row['bound_by']}; {kv_bytes + io_bytes} bytes, {ops_count} "
-          f"operations), {row['bound_ms'] / row['ms']:.2%} of bound ({smi})")
+    print(f"[timing] {name} ({label}): kernel {row['ms']:.4f} ms (device "
+          f"{row['device_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+          f"sdpa on the gathered cache {row['library_ms']:.4f} ms (device "
+          f"{row['library_device_ms']:.4f} ms), bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}; "
+          f"{kv_bytes + io_bytes} bytes, {ops_count} operations), "
+          f"{row['bound_ms'] / row['ms']:.2%} of bound, "
+          f"{row['bound_ms'] / row['device_ms']:.2%} of it by device time "
+          f"({smi})")
+    if len(split) > 1:  # the verify kernel's passes
+        print(f"[timing]   {name} ({label}) device time by kernel: " +
+              "; ".join(f"{_short(key)} {ms:.4f} ms"
+                        for key, ms in split.items()))
     return row
 
 
@@ -1006,20 +1074,22 @@ def phase_timing(rng, smi: str) -> dict:
     """Times at the main path's shapes, qwen2-0.5b heads (14/2, D 64),
     page 16, 24 pools: the decode kernels at B 8 over the mixed contexts
     below (max_seq 1024 tables); the verify kernels at the speculative
-    shape (B 8, T 4, the same contexts: 3820 keys) and at a prefill chunk
-    (B 1, T 64, the chunk's last query at key 700).  Returns the
-    kernels-line numbers: decode at its shape, verify at the speculative
-    one (the chunk's are printed)."""
+    shape (B 8, T 4, the same contexts: 3820 keys), at the same shape with
+    its last two slots free (a serving batch that is not full: 1980 keys,
+    and the free slots' rows average the null page's 16 value rows) and
+    at a prefill chunk (B 1, T 64, the chunk's last query at key 700).
+    Returns the kernels-line numbers: decode at its shape, verify at the
+    speculative one (the others are printed)."""
     L, H, Hkv, D, bs = 24, 14, 2, 64, 16
     out = {}
-    for shape, B, T, NB, ctx in (
-            ("decode", 8, 0, 64,
-             np.asarray([60, 150, 290, 400, 520, 640, 760, 1000])),
-            ("speculative", 8, SPEC_K + 1, 64,
-             np.asarray([60, 150, 290, 400, 520, 640, 760, 1000])),
-            ("chunk", 1, 64, 64, np.asarray([700]))):
+    mixed = np.asarray([60, 150, 290, 400, 520, 640, 760, 1000])
+    for shape, B, T, NB, ctx, inactive in (
+            ("decode", 8, 0, 64, mixed, ()),
+            ("speculative", 8, SPEC_K + 1, 64, mixed, ()),
+            ("speculative, 2 free slots", 8, SPEC_K + 1, 64, mixed, (6, 7)),
+            ("chunk", 1, 64, 64, np.asarray([700]), ())):
         q, k, v, bt, pos = paged_case(rng, B, H, Hkv, D, bs, NB, ctx, T=T,
-                                      layers=L)
+                                      layers=L, inactive=inactive)
         q = q.bfloat16()
         kb, vb = k.bfloat16(), v.bfloat16()
         del k, v
@@ -1030,16 +1100,20 @@ def phase_timing(rng, smi: str) -> dict:
         qpos = pos[:, None].long() + torch.arange(rows, device=q.device)
         mask = (torch.arange(S, device=q.device)[None, None, None, :]
                 <= qpos[:, None, :, None])
-        keys = int(ctx.sum())
-        row_keys = int((qpos + 1).sum())
+        live = [b for b in range(B) if b not in inactive]
+        # a free slot's rows read the null page's value rows (once) and
+        # take p.v over all S keys (half the work of a visible key)
+        keys = int(ctx[live].sum()) + (bs if inactive else 0)
+        row_keys = (int((qpos[live] + 1).sum())
+                    + len(inactive) * rows * S // 2)
         kind = "decode" if shape == "decode" else "verify"
         for name, pools in ((f"paged_{kind}", (kb, vb)),
                             (f"paged_{kind}_quant", (k8, v8, ks, vs))):
             label = f"{shape} (B={B}{f', T={T}' if T else ''}, contexts " \
                     f"{ctx.tolist()})"
             row = _time_kernel(name, label, q, pools, bt, pos, mask, keys,
-                               row_keys, smi)
-            if shape != "chunk":
+                               row_keys, smi, inactive)
+            if shape in ("decode", "speculative"):
                 out[name] = row
         del kb, vb, k8, v8
     return out
@@ -1809,6 +1883,11 @@ def phase_profile(model, params, smi: str):
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} x "
               f"{e.key[:90]}")
+    verify = [e for e in kernels if "verify_split" in e.key
+              or "verify_combine" in e.key]
+    print(f"[profile] paged verify (its scores, values and combine "
+          f"kernels): {sum(dev_us(e) for e in verify) / 1e3:.3f} ms of "
+          f"device time, {sum(e.count for e in verify)} kernel launches")
 
 
 def moe_model():

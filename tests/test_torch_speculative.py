@@ -5,8 +5,10 @@ chunked-prefill attention; ``Model.prefill`` (bucketed), the dense
 ``serve_step`` and ``verify_step_paged`` held to JAX on the same fp32
 weights; the speculative engine's tokens and accept counts held to the
 JAX speculative engine (bf16 and int8 pools, int8 held to int8 only);
-the validation errors; and, on a CUDA card only, the hand-written verify
-kernel held to its plain version.
+the validation errors; the kernel's launch plan and a CPU emulation of
+its order of operations (split-KV, two passes) held to the plain version;
+and, on a CUDA card only, the hand-written verify kernel held to its
+plain version.
 
 Inputs are made with numpy from a seed and handed to both packages.  The
 JAX side runs on the CPU on any host (the ``need_jax`` fixture pins it
@@ -28,13 +30,17 @@ Tolerances (each with its reason):
   layer's RMS, or one int8 step (``_hold_pages`` says why);
 * the CUDA kernel vs its plain version on the same values widened to fp32:
   summation order and the kernel's final rounding to q's type only -
-  EXACT_TOL, as test_torch_kernels.py.
+  EXACT_TOL, as test_torch_kernels.py; over bf16 pages, whose
+  probabilities both round to bf16, ROUNDED_TOL on the plain version on
+  |v| (test_torch_kernels.py says why); the emulation of the kernel's
+  order is held the same way.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 try:
     import jax
@@ -53,6 +59,8 @@ except ImportError:  # JAX (the reference) is not installed
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_verify as pv
+from repro_torch.kernels.paged_decode import paged_decode_ref
 from repro_torch.kernels.paged_verify import (paged_verify_quant_ref,
                                               paged_verify_ref)
 from repro_torch.kernels.quant import quantize_kv
@@ -61,7 +69,7 @@ from repro_torch.models.attention import (
     paged_chunk_prefill_attention, paged_chunk_prefill_attention_quant)
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.weights import from_jax_params
-from test_torch_kernels import hold_rounded
+from test_torch_kernels import ROUNDED_TOL, hold_rounded
 
 PLAIN_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
              "bfloat16": dict(atol=1e-2, rtol=2 ** -7)}
@@ -100,10 +108,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _verify_inputs(B, S, H, Hkv, D, bs, T, seed, *, inactive=()):
+def _verify_inputs(B, S, H, Hkv, D, bs, T, seed, *, inactive=(),
+                   short=()):
     """q [B,T,H,D], fp32 pools, block tables with -1 tails covering each
     slot's pos+T positions, first-query positions; slots in ``inactive``
-    get an all -1 row (and position 0)."""
+    get an all -1 row (and position 0), slots in ``short`` position 3 (a
+    context of T + 3 keys)."""
     rng = np.random.default_rng(seed)
     NB = S // bs
     P = 1 + B * NB
@@ -118,6 +128,8 @@ def _verify_inputs(B, S, H, Hkv, D, bs, T, seed, *, inactive=()):
         if b in inactive:
             pos[b] = 0
             continue
+        if b in short:
+            pos[b] = 3
         nb = -(-int(pos[b] + T) // bs)
         bt[b, :nb] = perm[used:used + nb]
         used += nb
@@ -235,6 +247,226 @@ def test_wrappers_run_plain_versions_on_cpu_only():
             ops.paged_verify_quant.launches) == before  # no kernel here
     with pytest.raises(ValueError):
         ops.paged_verify(_t(q), _t(kp).to("meta"), _t(vp), _t(bt), _t(pos))
+
+
+# ------------------------- the kernel's launch plan and order, on the CPU
+
+
+@pytest.mark.parametrize("B,T,G,Hkv,NB,bs,D", [
+    (8, 4, 7, 2, 64, 16, 64),     # the speculative shape (qwen2-0.5b)
+    (1, 64, 7, 2, 64, 16, 64),    # a prefill chunk
+    (2, 4, 4, 1, 65, 16, 256),    # gemma3-1b heads, a ragged last split
+    (3, 5, 4, 2, 9, 8, 16),       # the reduced configs' D 16, 72 keys
+    (1, 1, 1, 1, 1, 16, 32),      # one page, one row
+    (64, 64, 16, 8, 256, 16, 128),  # many pairs: one split
+])
+def test_verify_plan_covers_every_key_once(B, T, G, Hkv, NB, bs, D):
+    """Every key of the table lies in exactly one split (the last may be
+    ragged), splits are whole key tiles, every query row in one tile, and
+    the plan depends on the shapes alone."""
+    p = pv.plan(B, T, G, Hkv, NB, bs, D)
+    S = NB * bs
+    assert p.rows in (16, 32, 64) and p.tiles * p.rows >= T * G
+    assert (p.tiles - 1) * p.rows < T * G
+    assert p.split_keys % p.key_tile == 0 and p.key_tile == pv.key_tile(D)
+    assert 1 <= p.splits <= pv.MAX_SPLITS
+    covered = np.zeros(S, int)
+    for s in range(p.splits):  # the kernel's split s
+        k0, k1 = s * p.split_keys, min((s + 1) * p.split_keys, S)
+        assert 0 <= k0 < k1 <= S
+        assert k1 - k0 == p.split_keys or s == p.splits - 1
+        covered[k0:k1] += 1
+    assert (covered == 1).all()
+    assert p.ctas == B * Hkv * p.tiles * p.splits
+    assert p.ml_floats == 2 * p.ctas * p.rows
+    assert p.partial_floats == (p.ctas * p.rows * D if p.splits > 1 else 0)
+
+
+def test_verify_plan_fills_the_card_at_the_speculative_shape():
+    """B 8, T 4, G 7, Hkv 2, NB 64 (16 slot x kv-head pairs of 28 rows):
+    one 32-row tile a pair, keys split into 128 or more CTAs."""
+    p = pv.plan(8, 4, 7, 2, 64, 16, 64)
+    assert p.rows == 32 and p.tiles == 1
+    assert p.ctas >= 128
+    chunk = pv.plan(1, 64, 7, 2, 64, 16, 64)
+    assert chunk.rows == 64 and chunk.tiles == 7 and chunk.ctas >= 128
+
+
+NEG_INF, MASKED = -1e30, -1e29  # the kernel's fill and masked threshold
+LOG2E = 1.4426950408889634
+
+
+def _verify_emulation(q, k_pages, v_pages, block_tables, pos, *, window=0,
+                      scales=None, online=False):
+    """The bf16-q instantiation of ``csrc/paged_verify.cu`` in its own
+    order, on the CPU.  Scores: exact bf16 products with fp32 sums (times
+    the key's scale for int8 pages), in exp2 units, masked.  Per split of
+    ``plan(...).split_keys`` keys: the row max m_i and sum l_i of exp2(s -
+    m_i), online over the split's key tiles; merged in split order
+    (splits with l_i = 0 skipped); p = exp2(s - m) / l rounded to bf16
+    (bf16 pages) or, int8 pages, p * v_scale split into bf16 hi + lo; a
+    row with no visible key p = 1/(NB*bs) on every key of the table; the
+    [rows, D] partials summed in split order and rounded to q's type.
+    ``online``: one pass instead, p rounded against the running max (bf16
+    pages), what the kernel does not do."""
+    B, T, H, D = q.shape
+    _, bs, Hkv, _ = k_pages.shape
+    NB = block_tables.shape[1]
+    G, S = H // Hkv, NB * bs
+    p = pv.plan(B, T, G, Hkv, NB, bs, D)
+    SK, NS, KT = p.split_keys, p.splits, p.key_tile
+    pad = NS * SK - S
+    idx = block_tables.long().clamp(min=0)  # -1: the null page 0
+    K = k_pages[idx].reshape(B, S, Hkv, D).float()
+    V = v_pages[idx].reshape(B, S, Hkv, D).float()
+    s = torch.einsum("btkgd,bskd->bkgts", q.float().reshape(B, T, Hkv, G, D),
+                     K)
+    if scales is not None:
+        ks = scales[0][idx].reshape(B, S, Hkv).permute(0, 2, 1)
+        s = s * ks[:, :, None, None, :]
+    s = s * torch.tensor(D ** -0.5) * torch.tensor(LOG2E)
+    alloc = (block_tables >= 0)[:, :, None].expand(B, NB, bs).reshape(B, S)
+    qpos = pos[:, None].long() + torch.arange(T)[None]
+    kpos = torch.arange(S)
+    vis = alloc[:, None, :] & (kpos[None, None] <= qpos[:, :, None])
+    if window:
+        vis &= (qpos[:, :, None] - kpos[None, None]) < window
+    x = torch.where(vis[:, None, None], s, torch.tensor(NEG_INF))
+    zero, one = torch.zeros(()), torch.ones(())
+    Vt = V.permute(0, 2, 1, 3)[:, :, None]  # [B, Hkv, 1, S, D]
+    if online:
+        m = torch.full(x.shape[:-1], NEG_INF)
+        l = torch.zeros(x.shape[:-1])
+        o = torch.zeros(x.shape[:-1] + (D,))
+        for k0 in range(0, S, KT):
+            xt = x[..., k0:k0 + KT]
+            m_new = torch.maximum(m, xt.amax(-1))
+            corr = torch.where(m > MASKED, torch.exp2(m - m_new), one)
+            e = torch.where(xt > MASKED, torch.exp2(xt - m_new[..., None]),
+                            zero)
+            l = l * corr + e.sum(-1)
+            o = o * corr[..., None] + e.bfloat16().float() @ \
+                Vt[..., k0:k0 + KT, :]
+            m = m_new
+        out = o / l.clamp(min=1e-30)[..., None]
+        return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
+    xs = F.pad(x, (0, pad), value=NEG_INF).reshape(x.shape[:-1] + (NS, SK))
+    ms = torch.full(xs.shape[:-1], NEG_INF)
+    ls = torch.zeros(xs.shape[:-1])
+    for j in range(SK // KT):  # pass 1: online over a split's key tiles
+        xt = xs[..., j * KT:(j + 1) * KT]
+        m_new = torch.maximum(ms, xt.amax(-1))
+        corr = torch.where(ms > MASKED, torch.exp2(ms - m_new), one)
+        e = torch.where(xt > MASKED, torch.exp2(xt - m_new[..., None]), zero)
+        ls = ls * corr + e.sum(-1)
+        ms = m_new
+    m = torch.full(x.shape[:-1], NEG_INF)
+    l = torch.zeros(x.shape[:-1])
+    for t in range(NS):  # pass 2: the merge, in split order
+        m = torch.where(ls[..., t] > 0, torch.maximum(m, ms[..., t]), m)
+    for t in range(NS):
+        l = l + torch.where(ls[..., t] > 0,
+                            ls[..., t] * torch.exp2(ms[..., t] - m), zero)
+    dead = l == 0
+    inv_l = torch.where(dead, zero, 1 / torch.where(dead, one, l))
+    prob = torch.exp2(xs - m[..., None, None]) * inv_l[..., None, None]
+    inside = F.pad(torch.ones(S, dtype=torch.bool), (0, pad)).reshape(NS, SK)
+    uniform = torch.tensor(1.0) / S
+    prob = torch.where(dead[..., None, None],
+                       torch.where(inside, uniform, zero), prob)[..., None, :]
+    Vs = F.pad(V, (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3).reshape(
+        B, Hkv, 1, 1, NS, SK, D)
+    if scales is not None:
+        vs = F.pad(scales[1][idx].reshape(B, S, Hkv), (0, 0, 0, pad))
+        pp = prob * vs.permute(0, 2, 1).reshape(B, Hkv, 1, 1, NS, 1, SK)
+        hi = pp.bfloat16().float()
+        part = hi @ Vs + (pp - hi).bfloat16().float() @ Vs
+    else:
+        part = prob.bfloat16().float() @ Vs
+    out = torch.zeros(x.shape[:-1] + (D,))
+    for t in range(NS):  # pass 3: the partials, in split order
+        out = out + part[..., t, 0, :]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
+
+
+def _emulation_inputs(B, S, H, Hkv, D, bs, T, window, pages):
+    """bf16 q and pages (or int8 pages with the null page's scales
+    poisoned), a free last slot, and the rows that see a key."""
+    inactive = (B - 1,) if B > 1 else ()
+    q, kp, vp, bt, pos = _verify_inputs(B, S, H, Hkv, D, bs, T, seed=5,
+                                        inactive=inactive)
+    args = [_t(q, torch.bfloat16), _t(kp, torch.bfloat16),
+            _t(vp, torch.bfloat16), _t(bt), _t(pos)]
+    if pages == "int8":
+        k8, ks = quantize_kv(args[1])
+        v8, vs = quantize_kv(args[2])
+        ks[0], vs[0] = 1e6, 1e6
+        args = [args[0], k8, v8, ks, vs] + args[3:]
+    return args, _rows_with_keys(pos, bt, bs, T, window)
+
+
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("B,S,H,Hkv,D,bs,T,window", CASES)
+def test_verify_split_order_within_tolerance(B, S, H, Hkv, D, bs, T, window,
+                                             pages):
+    """The kernel's order (per-split m and l merged in split order, p
+    rounded with the merged m and l, partials summed in split order; int8
+    p * v_scale as bf16 hi + lo), emulated on the CPU, against the plain
+    version on the values widened to fp32: ROUNDED_TOL on |v| over bf16
+    pages, EXACT_TOL over int8 pages (whose p stays fp32); rows with no
+    visible key (the free slot) as on the card."""
+    args, rows = _emulation_inputs(B, S, H, Hkv, D, bs, T, window, pages)
+    kw = dict(window=window)
+    if pages == "bf16":
+        got = _verify_emulation(*args, **kw)
+        plain = paged_verify_ref
+        hold_rounded(got, plain, args, kw, rows)
+    else:
+        got = _verify_emulation(*args[:3], *args[5:],
+                                scales=(args[3], args[4]), **kw)
+        plain = paged_verify_quant_ref
+        want = _np(plain(*_widened(args), **kw))
+        np.testing.assert_allclose(_np(got)[rows], want[rows],
+                                   **EXACT_TOL["bfloat16"])
+    assert got.dtype == torch.bfloat16 and got.shape == (B, T, H, D)
+    assert (~rows).any() == (B > 1)
+    _hold_dead_rows(got, plain, args, ~rows, kw, "bfloat16")
+
+
+def _online_departure(B, S, H, Hkv, D, bs, T, window):
+    """(share of outputs that differ from the plain version in the
+    working type, largest error over EXACT_TOL's bound) of the split order
+    and of one online pass, on the rows that see a key (bf16 pages)."""
+    args, rows = _emulation_inputs(B, S, H, Hkv, D, bs, T, window, "bf16")
+    want = paged_verify_ref(*args, window=window).float()[rows]
+    tol = EXACT_TOL["bfloat16"]
+    res = []
+    for online in (False, True):
+        got = _verify_emulation(*args, window=window,
+                                online=online).float()[rows]
+        err = (got - want).abs()
+        res.append((float((err > 0).float().mean()),
+                    float((err / (tol["atol"] + tol["rtol"]
+                                  * want.abs())).max())))
+    return res
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,bs,T,window", CASES)
+def test_online_rounding_leaves_the_plain_versions_rounding(
+        B, S, H, Hkv, D, bs, T, window):
+    """Why two passes: rounding p to bf16 against a running max (one
+    online pass) rounds about half the probabilities otherwise than the
+    plain version (the CPU engine), which rounds softmax(s) with the final
+    max and sum; against it in the working type the output then leaves
+    EXACT_TOL by 10x or more and about half its elements differ.  The
+    split order rounds as the plain version does: under 1 % of the
+    elements differ (where fp32 p differs in its last bit at a rounding
+    boundary).  Both stay within ROUNDED_TOL of the widened plain version,
+    which bounds the size of each rounding, not where it falls."""
+    (split_share, _), (online_share, online_err) = _online_departure(
+        B, S, H, Hkv, D, bs, T, window)
+    assert split_share < 0.01
+    assert online_share > 0.3 and online_err > 10
 
 
 # ----------------------------------------------------- model steps vs JAX
@@ -562,7 +794,10 @@ GPU_CASES = CASES + [
     (1, 1024, 14, 2, 64, 16, 64, 0),   # qwen2-0.5b, a prefill chunk
     (2, 1024, 4, 1, 256, 16, 64, 512),  # gemma3-1b local layers, a chunk
     (2, 512, 24, 8, 128, 16, 4, 0),    # llama3.2-3b widths
-    (2, 4096, 14, 2, 64, 16, 4, 0),    # 4096 keys: scores in global memory
+    (2, 4096, 14, 2, 64, 16, 4, 0),    # 4096 keys: 32 splits (bf16 q),
+                                       # scores in global memory (fp32)
+    (2, 1040, 14, 2, 64, 16, 4, 0),    # 65 pages: the last split ragged
+    (2, 2048, 4, 1, 256, 16, 4, 512),  # gemma3-1b window: splits skipped
 ]
 
 
@@ -620,6 +855,77 @@ def test_paged_verify_quant_kernel_matches_plain(cuda, B, S, H, Hkv, D, bs,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("B,free,short", [
+    (8, (6, 7), ()),   # the speculative shape with two free slots
+    (3, (), (1,)),     # a slot shorter than one split
+])
+def test_paged_verify_kernels_free_and_short_slots(cuda, B, free, short,
+                                                   pages, q_dtype):
+    """qwen2-0.5b heads, 1024-key tables (16 splits of 64 keys): slots
+    with no key (every split averages its keys for them) and a slot whose
+    keys all lie in the first split, held as in the tests above; and the
+    wrapper makes no device-to-host sync (it never reads pos or the
+    tables on the host)."""
+    S, H, Hkv, D, bs, T = 1024, 14, 2, 64, 16, 4
+    q, kp, vp, bt, pos = _verify_inputs(B, S, H, Hkv, D, bs, T, seed=13,
+                                        inactive=free, short=short)
+    qdt = getattr(torch, q_dtype)
+    kb, vb = _t(kp, torch.bfloat16, cuda), _t(vp, torch.bfloat16, cuda)
+    if pages == "bf16":
+        fn, plain, args = ops.paged_verify, paged_verify_ref, [kb, vb]
+    else:
+        k8, ks = quantize_kv(kb)
+        v8, vs = quantize_kv(vb)
+        ks[0], vs[0] = 1e6, 1e6  # poisoned null page
+        fn, plain, args = ops.paged_verify_quant, paged_verify_quant_ref, [
+            k8, v8, ks, vs]
+    args = [_t(q, qdt, cuda)] + args + [_t(bt, None, cuda),
+                                        _t(pos, None, cuda)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    rows = _rows_with_keys(pos, bt, bs, T, 0)
+    assert rows[list(short)].all() and not rows[list(free)].any()
+    if pages == "bf16":
+        hold_rounded(out, plain, args, {}, rows)
+    else:
+        np.testing.assert_allclose(_np(out)[rows],
+                                   _np(plain(*_widened(args)))[rows],
+                                   **EXACT_TOL[q_dtype])
+    _hold_dead_rows(out, plain, args, ~rows, {}, q_dtype)
+    assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.gpu
+def test_paged_verify_kernel_bf16_row_t_is_decode(cuda):
+    """With bf16 queries (the tensor-core instantiation) verify row t
+    stays within ROUNDED_TOL, on |v|, of the decode kernel at pos + t
+    (CUDA-core products): both round their probabilities to bf16 from
+    fp32 scores summed in other orders, so either may round one the
+    other way."""
+    q, kp, vp, bt, pos = _verify_inputs(4, 256, 14, 2, 64, 16, 4, seed=3)
+    args = [_t(a, torch.bfloat16, cuda) for a in (kp, vp)]
+    bt_c, pos_c = _t(bt, None, cuda), _t(pos, None, cuda)
+    qb = _t(q, torch.bfloat16, cuda)
+    out = ops.paged_verify(qb, *args, bt_c, pos_c)
+    absv = args[1].float().abs()
+    for t in range(q.shape[1]):
+        qt = qb[:, t].contiguous()
+        step = ops.paged_decode(qt, *args, bt_c, pos_c + t)
+        scale = paged_decode_ref(qt.float(), args[0].float(), absv, bt_c,
+                                 pos_c + t)
+        err = (out[:, t].float() - step.float()).abs()
+        assert bool((err <= ROUNDED_TOL["atol"]
+                     + ROUNDED_TOL["rtol"] * scale).all()), float(err.max())
+
+
+@pytest.mark.gpu
 def test_paged_verify_kernel_row_t_is_decode(cuda):
     """On the card too, verify row t equals the decode kernel at pos + t
     (fp32 queries: both form each probability from their stored fp32
@@ -654,3 +960,16 @@ def test_paged_verify_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         ops.paged_verify(*bad)
     ops.paged_verify(*args(8, 64))  # and the same call at [B,T,H,D] runs
+
+
+if __name__ == "__main__":
+    # why two passes, on CASES (seed 5, bf16 pages, the rows that see a
+    # key): (share of outputs that differ from the plain version in the
+    # working type, largest error over EXACT_TOL's bound) of the kernel's
+    # split order and of one online pass that rounds p against a running
+    # max
+    for case in CASES:
+        (s_share, s_err), (o_share, o_err) = _online_departure(*case)
+        print(case, f"split order: {s_share:.4f} of outputs differ, "
+              f"{s_err:.2f} x EXACT_TOL; online: {o_share:.4f}, "
+              f"{o_err:.2f} x EXACT_TOL")
