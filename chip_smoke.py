@@ -13,15 +13,18 @@ exits non-zero without printing a result:
      (seconds; each kernel's registers, shared memory and spills; where
      ``cuobjdump`` is installed, each library's count of HMMA tensor-core
      instructions, at least one in ``paged_verify.cu``; which
-     instantiation of flash attention, the grouped matmul and paged verify
-     runs for which dtype and D or C; paged verify's launch plan, rows a
-     tile, keys a split and CTAs, and its shared memory a CTA at the
-     speculative and chunk shapes);
+     instantiation of flash attention, the grouped matmul, paged decode
+     and paged verify runs for which dtype and D or C; paged decode's
+     launch plan at B 8 and B 1 and paged verify's at the speculative and
+     chunk shapes, keys a split, CTAs and shared memory a CTA; no
+     register spill in ``paged_decode.cu`` at D <= 128);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
-     at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (verify also at
-     the CPU tests' cases, T = 4 and T = 64, and a table whose last
-     split is ragged); flash attention at the CPU
+     at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (decode also
+     at the edges of its split kernel: a ragged last split, one slot at
+     1024 keys, G 16, D 16, slots at pos 0, free slots among live ones;
+     verify also at the CPU tests' cases, T = 4 and T = 64, and a table
+     whose last split is ragged); flash attention at the CPU
      tests' cases, the draft's causal prefill at qwen2-0.5b's heads (S 16
      to 1024), gemma3-1b's windowed layers, llama3.2-3b's heads, the
      encoder's non-causal D 448 and zamba2-2.7b's shared attention (32
@@ -42,9 +45,12 @@ exits non-zero without printing a result:
      state, at the CPU tests' sweep and at zamba2-2.7b's width (80 heads
      of 64, state 64) over 48-1024 tokens;
   4. kernel, plain version and one library call's times at the main
-     path's shapes (decode: B 8; verify: the speculative B 8, T 4, the
-     same with two free slots, and the prefill chunk B 1, T 64; the paged
-     kernels and SDPA also by their device time alone; flash attention:
+     path's shapes (decode: B 8, B 1 at a 1000-token context, B 8 with
+     two free slots; verify: the speculative B 8, T 4, the same with two
+     free slots, and the prefill chunk B 1, T 64; the paged kernels and
+     SDPA also by their device time alone, the split kernels' by pass;
+     paged verify's tensor-core kernel at T = 1 on the decode shape, the
+     alternative to paged decode's CUDA-core passes; flash attention:
      the encoder's batch at
      S 256, the draft's prefill buckets and zamba2-2.7b's shared attention
      at S 768; RMSNorm: [8, 896] and [64, 896]; flash decode: the dense
@@ -85,7 +91,8 @@ exits non-zero without printing a result:
   9. a window of PROFILE_STEPS engine steps of the bf16 text path, run
      once plainly and once under ``torch.profiler`` with the engine's trace
      spans: device busy share, engine-span totals, top kernels by device
-     time, and the device time of paged verify's kernels;
+     time, and the device time of paged decode's and paged verify's
+     kernels;
   9b. the MoE path: granite-moe-1b-a400m at full width and depth (random
      seeded bf16 weights) serves the 12 text requests through paged
      chunked engines (bf16 and int8 pools), a paged monolithic engine, a
@@ -131,6 +138,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -147,7 +155,7 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.data.taskgen import make_taskset  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, moe_gmm  # noqa: E402
-from repro_torch.kernels import paged_verify  # noqa: E402
+from repro_torch.kernels import paged_decode, paged_verify  # noqa: E402
 from repro_torch.kernels import flash_decode  # noqa: E402
 from repro_torch.kernels import ssd_scan as scan_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -156,7 +164,7 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode_quant_ref, flash_decode_ref)
 from repro_torch.kernels.moe_gmm import grouped_matmul_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import (  # noqa: E402
-    paged_decode_quant_ref, paged_decode_ref, smem_bytes)
+    paged_decode_quant_ref, paged_decode_ref)
 from repro_torch.kernels.paged_verify import (  # noqa: E402
     paged_verify_quant_ref, paged_verify_ref)
 from repro_torch.kernels.quant import quantize_kv  # noqa: E402
@@ -291,6 +299,19 @@ AUDIO_FRAMES = 24
 # the model layouts the kernels are held at: (arch, H, Hkv, D, window)
 WIDTHS = [("qwen2-0.5b", 14, 2, 64, 0), ("gemma3-1b", 4, 1, 256, 512),
           ("llama3.2-3b", 24, 8, 128, 0)]
+# paged decode's split kernel at its edges (phase 3): (label, B, H, Hkv, D,
+# NB, window, contexts, free slots), page 16: the last split ragged (1040
+# keys in 17 splits of 64), one slot of a lightly loaded server, G 16, the
+# reduced configs' D 16, slots at pos 0 (one visible key), free slots
+# among live ones
+DECODE_EDGES = [
+    ("ragged last split", 3, 14, 2, 64, 65, 0, [1040, 700, 33], ()),
+    ("B 1 at 1024 keys", 1, 14, 2, 64, 64, 0, [1000], ()),
+    ("G 16", 2, 16, 1, 64, 64, 0, [1024, 300], ()),
+    ("D 16", 3, 4, 2, 16, 9, 0, [144, 50, 1], ()),
+    ("pos 0", 4, 14, 2, 64, 64, 0, [1, 800, 1, 64], ()),
+    ("free slots among live", 8, 14, 2, 64, 64, 0,
+     [60, 150, 290, 400, 520, 640, 760, 1000], (1, 4, 6))]
 # the profiled window of the main path: engine steps SKIP .. SKIP + STEPS
 PROFILE_SKIP, PROFILE_STEPS = 30, 10
 # flash attention held to its plain version: (B, Sq, Sk, H, Hkv, D, causal,
@@ -661,6 +682,23 @@ def kernel_names(mangled: list) -> list:
     return out
 
 
+def ptxas_spills(ptxas: str) -> list:
+    """(entry, head dim or None, spill bytes stored and loaded) of each
+    kernel in ``nvcc -Xptxas -v`` output; the head dim is the first integer
+    template argument of the mangled name (``Li64E``)."""
+    out, entry = [], None
+    for line in ptxas.splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry:
+            spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill",
+                                                   line))
+            dim = re.search(r"Li(\d+)E", entry)
+            out.append((entry, int(dim.group(1)) if dim else None, spill))
+            entry = None
+    return out
+
+
 def phase_build():
     """Every source at once, one nvcc each."""
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -704,8 +742,32 @@ def phase_build():
     print("[build]   paged verify: " + "; ".join(
         f"{str(dt)[6:]} q: {paged_verify.variant(dt)}"
         for dt in (torch.bfloat16, torch.float32)))
+    spills = ptxas_spills(infos["paged_decode"]["ptxas"])
+    spilled = [f"{name} ({n} bytes)" for name, D, n in spills
+               if n and (D is None or D <= 128)]
+    check(not spilled, "paged_decode.cu: register spills at D <= 128: "
+          + ", ".join(spilled))
+    print("[build]   paged decode: " + "; ".join(
+        f"{str(dt)[6:]} q: {paged_decode.variant(dt)}"
+        for dt in (torch.bfloat16, torch.float32))
+        + (f"; {len(spills)} kernels, none spills at D <= 128" if spills
+           else "; already built, ptxas not rerun"))
     for arch, H, Hkv, D, _ in WIDTHS:
         G = H // Hkv
+        plans = []
+        for B in (8, 1):
+            p = paged_decode.plan(B, G, Hkv, 64, 16, D)
+            smem = [paged_decode.smem_bytes(G, D, 16, p.split_keys,
+                                            p.splits, dt)
+                    for dt in (torch.bfloat16, torch.int8)]
+            plans.append(
+                f"B {B}: {p.split_keys} keys a split ({p.splits} splits), "
+                f"{p.ctas} CTAs a launch, {smem[0]} (bf16 pages) and "
+                f"{smem[1]} (int8) bytes of dynamic shared memory a CTA")
+        print(f"[build]   {arch} (G={G}, D={D}, page 16, 1024-key tables): "
+              "decode, bf16 q: " + "; ".join(plans) + "; decode, fp32 q: "
+              f"{paged_decode.fp32_smem_bytes(G, D, 16, G * 1024)} bytes "
+              "with the scores of 1024 keys")
         plans = []
         for B, T in ((8, SPEC_K + 1), (1, 64)):
             p = paged_verify.plan(B, T, G, Hkv, 64, 16, D)
@@ -718,11 +780,8 @@ def phase_build():
                 f"{smem[0]} (bf16 pages) and {smem[1]} (int8) bytes of "
                 "dynamic shared memory a CTA")
         rows = paged_verify.fp32_tile_rows()
-        print(f"[build]   {arch} (G={G}, D={D}, page 16, 1024-key tables): "
-              f"decode {smem_bytes(G, D, 16, G * 1024)} bytes of dynamic "
-              f"shared memory a CTA with the scores of 1024 keys; verify, "
-              f"bf16 q: " + "; ".join(plans) + f"; verify, fp32 q: {rows} "
-              f"query rows a CTA, "
+        print(f"[build]   {arch}: verify, bf16 q: " + "; ".join(plans)
+              + f"; verify, fp32 q: {rows} query rows a CTA, "
               f"{paged_verify.fp32_smem_bytes(D, 16, rows * 1024)} bytes "
               "with the scores of 1024 keys")
 
@@ -759,6 +818,31 @@ def phase_compare(rng) -> dict:
                   f"the plain version"
                   f"{', the free slot too' if inactive else ''}; max |err| "
                   f"vs fp32 plain: " + ", ".join(errs))
+    for label, B, H, Hkv, D, NB, window, ctx, inactive in DECODE_EDGES:
+        q, k, v, bt, pos = paged_case(rng, B, H, Hkv, D, bs, NB,
+                                      np.asarray(ctx), inactive=inactive)
+        rows = [b for b in range(B) if b not in inactive]
+        kb, vb = k.bfloat16(), v.bfloat16()
+        k8, v8, ks, vs = (t[0] for t in quantized(kb, vb))
+        kb, vb = kb[0], vb[0]
+        errs = []
+        for qd in (q.bfloat16(), q):
+            runs = {"paged_decode": (qd, kb, vb, bt, pos),
+                    "paged_decode_quant": (qd, k8, v8, ks, vs, bt, pos)}
+            for name, args in runs.items():
+                out = WRAPPERS[name](*args, window=window)
+                err32, err = hold(name, out, args, dict(window=window), rows,
+                                  f"{label} q {qd.dtype}",
+                                  list(inactive) or None)
+                worst[name] = max(worst[name], err)
+                errs.append(f"{name} q {str(qd.dtype)[6:]} {err32:.3g}")
+        split = paged_decode.plan(B, H // Hkv, Hkv, NB, bs, D)
+        print(f"[compare] decode, {label}: B={B} H={H} Hkv={Hkv} D={D} "
+              f"contexts {ctx} ({split.splits} splits of {split.split_keys} "
+              f"keys for bf16 q): bf16 and int8 pool, bf16 and fp32 q agree "
+              f"with the plain version"
+              f"{', the free slots too' if inactive else ''}; max |err| vs "
+              f"fp32 plain: " + ", ".join(errs))
     # verify: the CPU tests' cases (tests/test_torch_speculative.py CASES:
     # B, last context, H, Hkv, D, page, T, window), a 65-page table (its
     # last split ragged), then the three model layouts at the speculative
@@ -1063,11 +1147,32 @@ def _time_kernel(name, label, q, pools, bt, pos, mask, keys, row_keys,
           f"{row['bound_ms'] / row['ms']:.2%} of bound, "
           f"{row['bound_ms'] / row['device_ms']:.2%} of it by device time "
           f"({smi})")
-    if len(split) > 1:  # the verify kernel's passes
+    if len(split) > 1:  # the split kernels' passes
         print(f"[timing]   {name} ({label}) device time by kernel: " +
               "; ".join(f"{_short(key)} {ms:.4f} ms"
                         for key, ms in split.items()))
     return row
+
+
+def _time_verify_at_t1(name, q, pools, bt, pos, row, smi):
+    """Paged verify's bf16 tensor-core kernel (``mma.sync``, three passes)
+    at T = 1 on the decode inputs, by device time: the alternative to
+    paged decode's CUDA-core split passes, timed beside them (``row``) and
+    held to paged decode's plain version."""
+    twin = name.replace("decode", "verify")
+    layer = [tuple(p[l] for p in pools) for l in range(pools[0].shape[0])]
+    L = len(layer)
+    q1 = q[:, None]
+    out = WRAPPERS[twin](q1, *layer[0], bt, pos)[:, 0]
+    hold(name, out, (q,) + layer[0] + (bt, pos), {}, slice(None),
+         "verify at T = 1 on the decode shapes")
+    ms = device_ms(lambda i=0: WRAPPERS[twin](q1, *layer[i % L], bt, pos))
+    _, bs, Hkv, D = pools[0].shape[1:]
+    p = paged_verify.plan(q.shape[0], 1, q.shape[1] // Hkv, Hkv,
+                          bt.shape[1], bs, D)
+    print(f"[timing] {twin} at T = 1 on the decode shapes (tensor cores, "
+          f"{p.splits} splits, {p.ctas} CTAs): device {ms:.4f} ms against "
+          f"{name}'s {row['device_ms']:.4f} ms (CUDA cores) ({smi})")
 
 
 def phase_timing(rng, smi: str) -> dict:
@@ -1085,6 +1190,8 @@ def phase_timing(rng, smi: str) -> dict:
     mixed = np.asarray([60, 150, 290, 400, 520, 640, 760, 1000])
     for shape, B, T, NB, ctx, inactive in (
             ("decode", 8, 0, 64, mixed, ()),
+            ("decode, one slot", 1, 0, 64, np.asarray([1000]), ()),
+            ("decode, 2 free slots", 8, 0, 64, mixed, (6, 7)),
             ("speculative", 8, SPEC_K + 1, 64, mixed, ()),
             ("speculative, 2 free slots", 8, SPEC_K + 1, 64, mixed, (6, 7)),
             ("chunk", 1, 64, 64, np.asarray([700]), ())):
@@ -1106,7 +1213,7 @@ def phase_timing(rng, smi: str) -> dict:
         keys = int(ctx[live].sum()) + (bs if inactive else 0)
         row_keys = (int((qpos[live] + 1).sum())
                     + len(inactive) * rows * S // 2)
-        kind = "decode" if shape == "decode" else "verify"
+        kind = "verify" if T else "decode"
         for name, pools in ((f"paged_{kind}", (kb, vb)),
                             (f"paged_{kind}_quant", (k8, v8, ks, vs))):
             label = f"{shape} (B={B}{f', T={T}' if T else ''}, contexts " \
@@ -1115,6 +1222,8 @@ def phase_timing(rng, smi: str) -> dict:
                                row_keys, smi, inactive)
             if shape in ("decode", "speculative"):
                 out[name] = row
+            if shape == "decode":
+                _time_verify_at_t1(name, q, pools, bt, pos, row, smi)
         del kb, vb, k8, v8
     return out
 
@@ -1883,6 +1992,11 @@ def phase_profile(model, params, smi: str):
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} x "
               f"{e.key[:90]}")
+    decode = [e for e in kernels if "decode_split" in e.key
+              or "paged_decode_kernel" in e.key]
+    print(f"[profile] paged decode (its scores and values kernels): "
+          f"{sum(dev_us(e) for e in decode) / 1e3:.3f} ms of device time, "
+          f"{sum(e.count for e in decode)} kernel launches")
     verify = [e for e in kernels if "verify_split" in e.key
               or "verify_combine" in e.key]
     print(f"[profile] paged verify (its scores, values and combine "

@@ -73,8 +73,8 @@
 //   * fp32 queries (the tests, fp32 parity runs) run the CUDA-core kernel
 //     of namespace fp32q below instead, whose arithmetic is the paged-decode
 //     kernel's.
-// Later work: wgmma with TMA for long chunks, and the same plan for paged
-// decode (T = 1).
+// Later work: wgmma with TMA for long chunks.  Paged decode (T = 1) splits
+// its keys by the same rule (kernels/paged_decode.py:split_rule).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,21 +1,29 @@
 """Paged decode attention: wrappers of the hand-written CUDA kernel
-``csrc/paged_decode.cu`` and their plain PyTorch versions.
+``csrc/paged_decode.cu``, their plain PyTorch versions, the kernel's launch
+plan and the split rule the paged kernels share.
 
 The kernel replaces the Pallas TPU kernels ``paged_decode_tpu`` and
 ``paged_decode_quant_tpu`` (``repro/kernels/paged_decode.py:92,137``).
-On an H100 it is bound by the bytes of the visible K/V rows; the source
-note in the ``.cu`` file says what its design does about that (reads the
-pool in place, skips masked blocks, stages each page once per kv head for
-all G query heads).
+Every decode tick of a paged engine calls it once per layer.  The source
+note in the ``.cu`` file says what bounds it on an H100 and what its
+design does about that.  Two hand-written instantiations, chosen by q's
+dtype (``variant`` names them): bf16 queries (every bf16 serving path)
+split the table's keys across CTAs by ``plan``, made from the shapes
+alone (the wrapper never reads ``pos`` or the tables on the host), in two
+launches from one C call; fp32 queries (the tests, fp32 parity runs) run
+the two-walk kernel, one CTA per (slot, kv head), whose arithmetic paged
+verify's fp32 kernel shares.
 
 ``paged_decode``/``paged_decode_quant`` take the JAX signatures.  For
 tensors on the CPU they run the plain version; for CUDA tensors they
 launch the kernel or raise, never falling back.  Each wrapper counts its
-kernel launches in its ``launches`` attribute (a plain integer).
+calls that launch the kernel in its ``launches`` attribute (a plain
+integer).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -31,6 +39,60 @@ MAX_SMEM_BYTES = 227 * 1024  # per-block dynamic shared memory on Hopper
 
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PAGE_DTYPES = {torch.bfloat16: 0, torch.int8: 1}  # the serving pools
+SMS = 132  # streaming multiprocessors of an H100 SXM (the plans' default)
+# splits a pass-2 CTA merges at most: beyond it the splits grow instead
+MAX_SPLITS = 32
+
+
+def key_tile(D: int) -> int:
+    """Keys per tile the split kernels stage at head dim D (32 past D 128);
+    a split is a whole number of them."""
+    return 32 if D > 128 else 64
+
+
+def split_rule(S: int, units: int, D: int, sms: int = SMS) -> tuple:
+    """(keys a split, splits) for a table of S keys read by ``units``
+    independent CTA rows (slot x kv head, times the row tiles of paged
+    verify): splits of whole ``key_tile(D)`` tiles, about two CTAs per SM
+    over all units, at most ``MAX_SPLITS`` splits (the last may be
+    ragged).  The one rule of the paged decode and verify plans."""
+    kt = key_tile(D)
+    want = max(1, -(-2 * sms // units))
+    split_keys = max(-(-S // want), -(-S // MAX_SPLITS))
+    split_keys = -(-split_keys // kt) * kt
+    return split_keys, -(-S // split_keys)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the bf16-q kernel cuts one call: the S = NB*bs keys of the table
+    in ``splits`` splits of ``split_keys`` (split s holds keys
+    s * split_keys up to min((s + 1) * split_keys, S)); ``ctas`` of each
+    of its two launches; the scratch: ``partial_floats`` for every split's
+    fp32 [G, D] partial (none with one split), ``ml_floats`` for every
+    split's max and sum of each query head, ``counters`` int32 arrival
+    counters, one per (slot, kv head) (none with one split)."""
+    key_tile: int
+    split_keys: int
+    splits: int
+    ctas: int
+    partial_floats: int
+    ml_floats: int
+    counters: int
+
+
+@functools.cache
+def plan(B: int, G: int, Hkv: int, NB: int, bs: int, D: int,
+         sms: int = SMS) -> Plan:
+    """The launch plan from the shapes alone: ``split_rule`` over the B*Hkv
+    (slot, kv head) pairs, as paged verify's plan cuts its keys at
+    T = 1."""
+    split_keys, splits = split_rule(NB * bs, B * Hkv, D, sms)
+    ctas = B * Hkv * splits
+    many = splits > 1
+    return Plan(key_tile(D), split_keys, splits, ctas,
+                ctas * G * D if many else 0, 2 * ctas * G,
+                B * Hkv if many else 0)
 
 
 def paged_decode_ref(q, k_pages, v_pages, block_tables, pos, *, window=0):
@@ -55,19 +117,52 @@ def _lib():
     lib = build.load("paged_decode")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode_launch.argtypes = (
-        [i32, i32] + [ptr] * 9 + [i32] * 7 + [ctypes.c_float, ptr])
+        [i32] + [ptr] * 12 + [i32] * 9 + [ctypes.c_float, ptr])
     lib.paged_decode_launch.restype = i32
-    lib.paged_decode_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.paged_decode_smem_bytes.argtypes = [i32] * 6
     lib.paged_decode_smem_bytes.restype = i32
+    lib.paged_decode_key_tile.argtypes = [i32]
+    lib.paged_decode_key_tile.restype = i32
+    lib.paged_decode_variant.argtypes = [i32]
+    lib.paged_decode_variant.restype = ctypes.c_char_p
+    lib.paged_decode_fp32_launch.argtypes = (
+        [i32] + [ptr] * 9 + [i32] * 7 + [ctypes.c_float, ptr])
+    lib.paged_decode_fp32_launch.restype = i32
+    lib.paged_decode_fp32_smem_bytes.argtypes = [i32] * 4
+    lib.paged_decode_fp32_smem_bytes.restype = i32
     return lib
 
 
-def smem_bytes(G: int, D: int, bs: int, score_words: int = 0) -> int:
-    """Dynamic shared memory one CTA of the kernel takes for G query heads
-    per kv head, head dim D and page size bs, with ``score_words`` fp32
-    scores kept there (G * NB * bs, or 0 when they go to global memory),
-    from the built library."""
-    return _lib().paged_decode_smem_bytes(G, D, bs, score_words)
+@functools.cache
+def smem_bytes(G: int, D: int, bs: int, split_keys: int, splits: int,
+               page_dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory one CTA of the bf16-q kernel's launches takes
+    (from the built library)."""
+    lib = _lib()
+    if lib.paged_decode_key_tile(D) != key_tile(D):
+        raise RuntimeError("paged decode: the library's key tile differs "
+                           "from the plan's")
+    return lib.paged_decode_smem_bytes(PAGE_DTYPES[page_dtype], D, G,
+                                       split_keys, splits, bs)
+
+
+def fp32_smem_bytes(G: int, D: int, bs: int, score_words: int = 0) -> int:
+    """Dynamic shared memory one CTA of the fp32-q kernel takes for G query
+    heads per kv head, head dim D and page size bs, with ``score_words``
+    fp32 scores kept there (G * NB * bs, or 0 when they go to global
+    memory), from the built library."""
+    return _lib().paged_decode_fp32_smem_bytes(G, D, bs, score_words)
+
+
+def variant(dtype=torch.bfloat16) -> str:
+    """The hand-written instantiation that runs for queries of ``dtype``."""
+    return _lib().paged_decode_variant(Q_DTYPES[dtype]).decode()
+
+
+@functools.cache
+def device_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the plans')."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def score_scratch(what, smem_of, ctas, words, device):
@@ -135,27 +230,64 @@ def check_paged_args(what, q_layout, q, k_pages, v_pages, block_tables, pos,
         raise ValueError(f"{what}: window {window} < 0")
 
 
+def _split_args(q, k_pages, block_tables):
+    """The bf16-q kernel's scratch pointers and plan arguments, and the
+    scratch itself (kept alive by the caller until the launch): one fp32
+    tensor of the partials (first, so they are 16-byte aligned), every
+    split's maxima and sums, and the arrival counters."""
+    B, H, D = q.shape
+    _, bs, Hkv, _ = k_pages.shape
+    NB = block_tables.shape[1]
+    G = H // Hkv
+    p = plan(B, G, Hkv, NB, bs, D, device_sms(q.device.index))
+    smem = smem_bytes(G, D, bs, p.split_keys, p.splits, k_pages.dtype)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"paged decode: needs {smem} bytes of shared "
+                         f"memory, over {MAX_SMEM_BYTES}")
+    scratch = torch.empty(p.partial_floats + p.ml_floats + p.counters,
+                          dtype=torch.float32, device=q.device)
+    partial = scratch.data_ptr()
+    m = partial + 4 * p.partial_floats
+    l = m + 2 * p.ml_floats
+    arrived = m + 4 * p.ml_floats
+    ptrs = (m, l, partial if p.partial_floats else None,
+            arrived if p.counters else None)
+    return ptrs, (p.split_keys, p.splits), scratch
+
+
 def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
             window):
     B, H, D = q.shape
     _, bs, Hkv, _ = k_pages.shape
     NB = block_tables.shape[1]
+    if NB < 1:
+        raise ValueError("paged decode: the block table has no entry")
     lib = _lib()
-    G = H // Hkv
-    scores = score_scratch("paged decode",
-                           lambda words: smem_bytes(G, D, bs, words),
-                           B * Hkv, G * NB * bs, q.device)
     out = torch.empty_like(q)
+    pages = (PAGE_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
+             v_pages.data_ptr(),
+             None if k_scales is None else k_scales.data_ptr(),
+             None if v_scales is None else v_scales.data_ptr(),
+             block_tables.data_ptr(), pos.data_ptr())
+    shape = (B, H, Hkv, D, bs, NB, int(window))
+    if q.dtype == torch.bfloat16:
+        ptrs, cut, scratch = _split_args(q, k_pages, block_tables)
+        fn = lib.paged_decode_launch
+        args = pages + ptrs + (out.data_ptr(),) + shape + cut
+    else:
+        G = H // Hkv
+        scratch = score_scratch(
+            "paged decode", lambda words: fp32_smem_bytes(G, D, bs, words),
+            B * Hkv, G * NB * bs, q.device)
+        fn = lib.paged_decode_fp32_launch
+        args = pages + (None if scratch is None else scratch.data_ptr(),
+                        out.data_ptr()) + shape
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.paged_decode_launch(
-            Q_DTYPES[q.dtype], PAGE_DTYPES[k_pages.dtype], q.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(),
-            None if k_scales is None else k_scales.data_ptr(),
-            None if v_scales is None else v_scales.data_ptr(),
-            block_tables.data_ptr(), pos.data_ptr(),
-            None if scores is None else scores.data_ptr(), out.data_ptr(), B,
-            H, Hkv, D, bs, NB, int(window), D ** -0.5, stream)
+        # the raw stream pointer: ``current_stream()`` builds a Stream
+        # object on every call, and at a decode tick the host's time to
+        # issue the call is longer than its kernels
+        stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+        err = fn(*args, D ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"paged decode kernel launch failed: error {err}")
     return out

@@ -34,22 +34,13 @@ import torch
 
 from repro_torch.device import on_cpu
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_decode import (MAX_SMEM_BYTES, PAGE_DTYPES,
-                                              Q_DTYPES, check_paged_args,
-                                              score_scratch)
+from repro_torch.kernels.paged_decode import (  # noqa: F401
+    MAX_SMEM_BYTES, MAX_SPLITS, PAGE_DTYPES, Q_DTYPES, SMS, check_paged_args,
+    device_sms, key_tile, score_scratch, split_rule)
 from repro_torch.models.attention import (paged_verify_attention,
                                           paged_verify_attention_quant)
 
 MAX_TOKENS = 1024  # query tokens per slot (T) the wrapper takes
-SMS = 132  # streaming multiprocessors of an H100 SXM (the plan's default)
-# splits a pass-2 CTA merges at most: beyond it the splits grow instead
-MAX_SPLITS = 32
-
-
-def key_tile(D: int) -> int:
-    """Keys per tile the kernel stages at head dim D
-    (``paged_verify_key_tile`` in the source)."""
-    return 32 if D > 128 else 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,21 +68,17 @@ def plan(B: int, T: int, G: int, Hkv: int, NB: int, bs: int, D: int,
          sms: int = SMS) -> Plan:
     """The launch plan from the shapes alone.  Rows: 16, 32 or 64 a tile
     (32 takes the speculative T*G = 28 without padding half of a 64-row
-    tile); keys: split so that passes 1 and 2 run about two CTAs per SM
-    (a split a whole number of ``key_tile(D)``-key tiles, at most
-    ``MAX_SPLITS`` splits)."""
+    tile); keys: ``split_rule`` over the (row tile, slot, kv head) units,
+    so that passes 1 and 2 run about two CTAs per SM (a split a whole
+    number of ``key_tile(D)``-key tiles, at most ``MAX_SPLITS``
+    splits)."""
     rows_total = T * G
     rows = 16 if rows_total <= 16 else 32 if rows_total <= 32 else 64
     tiles = -(-rows_total // rows)
-    kt = key_tile(D)
-    S = NB * bs
-    pairs = B * Hkv * tiles
-    want = max(1, -(-2 * sms // pairs))
-    split_keys = max(-(-S // want), -(-S // MAX_SPLITS))
-    split_keys = -(-split_keys // kt) * kt
-    splits = -(-S // split_keys)
-    ctas = pairs * splits
-    return Plan(rows, tiles, kt, split_keys, splits, ctas,
+    units = B * Hkv * tiles
+    split_keys, splits = split_rule(NB * bs, units, D, sms)
+    ctas = units * splits
+    return Plan(rows, tiles, key_tile(D), split_keys, splits, ctas,
                 2 * ctas * rows, ctas * rows * D if splits > 1 else 0)
 
 
@@ -167,18 +154,13 @@ def variant(dtype=torch.bfloat16) -> str:
     return _lib().paged_verify_variant(Q_DTYPES[dtype]).decode()
 
 
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _split_args(q, k_pages, block_tables):
     """The bf16-q kernel's scratch pointers and plan arguments, and the
     scratch itself (kept alive by the caller until the launch)."""
     B, T, H, D = q.shape
     _, bs, Hkv, _ = k_pages.shape
     NB = block_tables.shape[1]
-    p = plan(B, T, H // Hkv, Hkv, NB, bs, D, _sms(q.device.index))
+    p = plan(B, T, H // Hkv, Hkv, NB, bs, D, device_sms(q.device.index))
     smem = smem_bytes(D, bs, p.rows, p.split_keys, p.splits, k_pages.dtype)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"paged verify: needs {smem} bytes of shared "
