@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --decode-only   # the decode kernels' phase-4
+                                          # rows and phase 9's windows
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
@@ -16,8 +18,11 @@ exits non-zero without printing a result:
      instantiation of flash attention, the grouped matmul, paged decode
      and paged verify runs for which dtype and D or C; paged decode's
      launch plan at B 8 and B 1 and paged verify's at the speculative and
-     chunk shapes, keys a split, CTAs and shared memory a CTA; no
-     register spill in ``paged_decode.cu`` at D <= 128);
+     chunk shapes, keys a split, CTAs and shared memory a CTA; flash
+     decode's instantiation for each q and cache type and its split plan
+     at the dense tick, one slot, zamba2-2.7b's and gemma3-1b's shapes; no
+     register spill in ``paged_decode.cu`` at D <= 128, nor in
+     ``flash_decode.cu``'s split passes (``split_decode.cuh``));
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (decode also
@@ -35,7 +40,9 @@ exits non-zero without printing a result:
      serving shape (B 8, max_seq 1024, contexts 60-1000, a parked slot),
      gemma3-1b's windowed layers, llama3.2-3b's heads, zamba2-2.7b's
      shared attention (B 8, max_seq 1024, D 80) and the reduced configs'
-     D 16; free slots (no visible key) of paged decode, verify
+     D 16, and at the edges of its split kernel (a ragged last split, a
+     split whose only visible key is its last, one slot at 1024 keys, G 16
+     at D 64 and D 80, free slots among live ones with holes); free slots (no visible key) of paged decode, verify
      and flash decode, bf16 and int8, held to the plain version's uniform
      softmax; the grouped matmul in bf16 and fp32 at the CPU tests' cases
      and at granite-moe-1b-a400m's and qwen2-moe-a2.7b's expert shapes
@@ -54,7 +61,9 @@ exits non-zero without printing a result:
      the encoder's batch at
      S 256, the draft's prefill buckets and zamba2-2.7b's shared attention
      at S 768; RMSNorm: [8, 896] and [64, 896]; flash decode: the dense
-     cache at B 8, max_seq 1024; grouped matmul: granite-moe's decode,
+     cache at B 8, max_seq 1024, one slot at a 1000-token context, B 8
+     with two free slots and zamba2-2.7b's shared attention (B 8, 32/32
+     heads of 80), also by device time per launch; grouped matmul: granite-moe's decode,
      verify, chunk and monolithic capacities and qwen2-moe's decode and
      C 88, against ``torch.bmm``; each flash-attention and grouped-matmul
      row names the instantiation that ran; the SSD
@@ -88,11 +97,12 @@ exits non-zero without printing a result:
      flash-attention launches n_layers x monolithic prefills; the streams
      of the dense and paged runs are compared and printed (bf16 near-ties
      may differ);
-  9. a window of PROFILE_STEPS engine steps of the bf16 text path, run
-     once plainly and once under ``torch.profiler`` with the engine's trace
-     spans: device busy share, engine-span totals, top kernels by device
-     time, and the device time of paged decode's and paged verify's
-     kernels;
+  9. a window of PROFILE_STEPS engine steps of the bf16 text path, and
+     one of phase 8's dense chunked engine, each run once plainly and once
+     under ``torch.profiler`` with the engine's trace spans: device busy
+     share, engine-span totals, top kernels by device time, and the device
+     time and launches of paged decode's, paged verify's and flash
+     decode's kernels;
   9b. the MoE path: granite-moe-1b-a400m at full width and depth (random
      seeded bf16 weights) serves the 12 text requests through paged
      chunked engines (bf16 and int8 pools), a paged monolithic engine, a
@@ -342,17 +352,33 @@ FLASH_CASES += [(1, S, S, 32, 32, 80, True, 0) for S in (16, 200, 512, 768)]
 RMS_SHAPES = [(8, 896), (64, 896), (3, 50, 96), (7, 128), (260, 64)]
 RMS_SHAPES += [(8, 2560), (8, 5120), (1, 5120), (768, 2560), (768, 5120)]
 # flash decode held to its plain version: (B, S, H, Hkv, D, window,
-# engine), test_kernels.py::test_flash_decode's cases (full caches), then
-# caches as the engines leave them (``engine``: -1 past each context, the
-# query up to 3 positions before the last entry, a parked slot at pos = S):
-# qwen2-0.5b's serving shape, gemma3-1b's windowed local layers,
-# llama3.2-3b's heads, the reduced configs' D 16 and zamba2-2.7b's shared
-# attention (B 8, max_seq 1024, 32 heads of 80)
+# engine[, dense_case keywords]), test_kernels.py::test_flash_decode's
+# cases (full caches), then caches as the engines leave them (``engine``:
+# -1 past each context, the query up to 3 positions before the last entry,
+# a parked slot at pos = S): qwen2-0.5b's serving shape, gemma3-1b's
+# windowed local layers, llama3.2-3b's heads, the reduced configs' D 16 and
+# zamba2-2.7b's shared attention (B 8, max_seq 1024, 32 heads of 80); then
+# the edges of the split kernel: a ragged last split (1000 keys, 16 splits
+# of 64), a split whose only visible key is its last, one slot at 1024
+# keys, G 16 at D 64 and at D 80, free slots among live ones with holes
+# inside the contexts
 DECODE_CASES = [
     (2, 96, 8, 2, 64, 0, False), (2, 128, 4, 4, 32, 24, False),
     (1, 70, 8, 1, 64, 0, False), (8, 1024, 14, 2, 64, 0, True),
     (2, 1024, 4, 1, 256, 512, True), (4, 512, 24, 8, 128, 0, True),
-    (3, 64, 4, 2, 16, 0, True), (8, 1024, 32, 32, 80, 0, True)]
+    (3, 64, 4, 2, 16, 0, True), (8, 1024, 32, 32, 80, 0, True),
+    (3, 1000, 14, 2, 64, 0, True),
+    (2, 1024, 14, 2, 64, 0, True, dict(ctx=[1024, 700],
+                                       last_only=(0, 128, 192))),
+    (1, 1024, 14, 2, 64, 0, True, dict(ctx=[1000])),
+    (2, 1024, 16, 1, 64, 0, True), (2, 1024, 16, 1, 80, 0, True),
+    (8, 1024, 14, 2, 64, 0, True, dict(free=(2, 5, 6), holes=8))]
+# flash decode's split plan at the shapes the serving paths give it (phase
+# 2): (label, B, H, Hkv, D), max_seq 1024
+FLASH_DECODE_PLANS = [("qwen2-0.5b dense tick and draft", 8, 14, 2, 64),
+                      ("qwen2-0.5b, one slot", 1, 14, 2, 64),
+                      ("zamba2-2.7b shared attention", 8, 32, 32, 80),
+                      ("gemma3-1b local layers", 8, 4, 1, 256)]
 # phase 10's engine variants: (label, engine keywords, speculative)
 VARIANTS = {"bf16": ({}, False), "bf16 spec": ({}, True),
             "int8": (dict(kv_dtype="int8"), False),
@@ -581,17 +607,21 @@ def quantized(k, v):
     return k8, v8, ks, vs
 
 
-def dense_case(rng, B, S, H, Hkv, D, engine, *, layers=0, ctx=None):
+def dense_case(rng, B, S, H, Hkv, D, engine, *, layers=0, ctx=None,
+               free=None, holes=0, last_only=None):
     """Random dense caches [B, S, Hkv, D] (fp32, on the card; with
     ``layers``, [layers, B, S, Hkv, D]), cache_positions [B, S] int32 and
     q [B, H, D] at pos [B].  Without ``engine``: every entry holds its
     index and pos lies in [S/2, S) (test_kernels.py).  With it: slot b
-    holds ``ctx[b]`` entries (random if None), -1 past them, the query
-    sits up to 3 positions before the last entry (stale entries past it,
-    as a rejected draft chain leaves them), for B > 2 the last slot is
-    parked at pos = S and, for B > 3 with random contexts, the one before
-    it is free (all -1, pos 0: it sees no key).  Returns (q, k, v, cpos,
-    pos, rows): ``rows`` the slots that see a key."""
+    holds ``ctx[b]`` entries (random if None), -1 past them and ``holes``
+    empty entries inside, the query sits up to 3 positions before the last
+    entry (stale entries past it, as a rejected draft chain leaves them),
+    for B > 2 the last slot is parked at pos = S and the slots ``free``
+    (by default, for B > 3 with random contexts, the one before the last)
+    are free (all -1, pos 0: they see no key).  ``last_only`` = (b, k0,
+    k1): keys k0 .. k1 - 2 of slot b are emptied (the split's only visible
+    key is its last).  Returns (q, k, v, cpos, pos, rows): ``rows`` the
+    slots that see a key."""
     dev = torch.device("cuda")
     lead = (layers,) if layers else ()
     q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
@@ -601,17 +631,24 @@ def dense_case(rng, B, S, H, Hkv, D, engine, *, layers=0, ctx=None):
     if not engine:
         pos = rng.integers(S // 2, S, B).astype(np.int32)
     else:
-        free_slot = ctx is None
-        if free_slot:
+        if free is None:
+            free = (B - 2,) if B > 3 and ctx is None else ()
+        if ctx is None:
             ctx = rng.integers(S // 8, S + 1, B)
         pos = np.zeros(B, np.int32)
         for b, n in enumerate(ctx):
             cpos[b, n:] = -1
+            if holes:
+                cpos[b, rng.choice(n, size=holes, replace=False)] = -1
             pos[b] = max(n - 1 - int(rng.integers(0, 4)), 0)
+        if last_only is not None:
+            b, k0, k1 = last_only
+            cpos[b, k0:k1 - 1] = -1
+            cpos[b, k1 - 1] = k1 - 1
         if B > 2:
             pos[-1] = S
-        if B > 3 and free_slot:
-            cpos[-2], pos[-2] = -1, 0
+        for b in free:
+            cpos[b], pos[b] = -1, 0
     rows = [b for b in range(B) if ((cpos[b] >= 0) & (cpos[b] <= pos[b]))
             .any()]
     return (q.to(dev), k, v, torch.from_numpy(cpos).to(dev),
@@ -727,12 +764,36 @@ def phase_build():
     print("[build]   grouped matmul: " + "; ".join(
         f"{str(dt)[6:]} C {C}: {moe_gmm.variant(dt, C)}"
         for dt in (torch.bfloat16, torch.float32) for C in (8, 16, 24, 320)))
-    print(f"[build]   flash decode: {flash_decode.tile_keys()} keys per "
-          "staged tile; dynamic shared memory per CTA with the scores of "
-          "1024 keys " + ", ".join(
+    print("[build]   flash decode: " + "; ".join(
+        f"{str(q)[6:]} q, {str(c)[6:]} cache: {flash_decode.variant(q, c)}"
+        for q, c in itertools.product((torch.bfloat16, torch.float32),
+                                      flash_decode.CACHE_DTYPES)))
+    for label, B, H, Hkv, D in FLASH_DECODE_PLANS:
+        p = flash_decode.plan(B, H // Hkv, Hkv, 1024, D)
+        smem = [flash_decode.smem_bytes(H // Hkv, D, p.split_keys, p.splits,
+                                        dt)
+                for dt in (torch.bfloat16, torch.int8)]
+        print(f"[build]   flash decode, {label} (B {B}, heads {H}/{Hkv}, D "
+              f"{D}, S 1024), bf16 q: {p.split_keys} keys a split "
+              f"({p.splits} splits), {p.ctas} CTAs a launch, {smem[0]} (bf16 "
+              f"cache) and {smem[1]} (int8) bytes of dynamic shared memory a "
+              "CTA")
+    print(f"[build]   flash decode, fp32 q or cache (two walks): "
+          f"{flash_decode.walk_tile_keys()} keys per staged tile; dynamic "
+          "shared memory per CTA with the scores of 1024 keys " + ", ".join(
               f"{arch} (G={H // Hkv}, D={D}): "
-              f"{flash_decode.smem_bytes(H // Hkv, D, H // Hkv * 1024)} "
-              "bytes" for arch, H, Hkv, D, _ in WIDTHS))
+              f"{flash_decode.walk_smem_bytes(H // Hkv, D, H // Hkv * 1024)}"
+              " bytes" for arch, H, Hkv, D, _ in WIDTHS))
+    spills = [(name, D, n) for name, D, n
+              in ptxas_spills(infos["flash_decode"]["ptxas"])
+              if "decode_split" in name]
+    spilled = [f"{name} ({n} bytes)" for name, D, n in spills
+               if n and D <= 128]
+    check(not spilled, "flash_decode.cu: register spills of the split "
+          "passes at D <= 128: " + ", ".join(spilled))
+    print(f"[build]   flash decode: " + (
+        f"{len(spills)} split-pass kernels, none spills at D <= 128"
+        if spills else "already built, ptxas not rerun"))
     print("[build]   ssd scan: dynamic shared memory per CTA " + ", ".join(
         f"chunk {Q}, p {p}, n {n}: {scan_kernel.smem_bytes(Q, p, n)} bytes"
         for Q, p, n in ((256, 64, 64), (64, 16, 8), (16, 16, 16))))
@@ -918,8 +979,9 @@ def phase_compare(rng) -> dict:
         print(f"[compare] rmsnorm {list(shape)}: bf16 and fp32 x and scale, "
               f"zero-centred or not, agree with the plain version; max "
               f"|err| vs fp32 plain {err_max:.3g}")
-    for B, S, H, Hkv, D, window, engine in DECODE_CASES:
-        q, k, v, cpos, pos, rows = dense_case(rng, B, S, H, Hkv, D, engine)
+    for B, S, H, Hkv, D, window, engine, *extra in DECODE_CASES:
+        q, k, v, cpos, pos, rows = dense_case(rng, B, S, H, Hkv, D, engine,
+                                              **(extra[0] if extra else {}))
         kb, vb = k.bfloat16(), v.bfloat16()
         k8, v8, ks, vs = dense_quantized(kb, vb, cpos[..., None])
         errs = []
@@ -937,8 +999,11 @@ def phase_compare(rng) -> dict:
                 worst[name] = max(worst[name], err)
                 errs.append(f"{cache} cache, {str(qd.dtype)[6:]} q "
                             f"{err32:.3g}")
+        split = flash_decode.plan(B, H // Hkv, Hkv, S, D)
         print(f"[compare] flash decode B={B} S={S} H={H} Hkv={Hkv} D={D} "
-              f"window={window}{', engine-like cache' if engine else ''}: "
+              f"window={window}{', engine-like cache' if engine else ''}"
+              f"{f', {extra[0]}' if extra else ''} ({split.splits} splits of "
+              f"{split.split_keys} keys for bf16 q): "
               f"bf16, fp32 and int8 caches, bf16 and fp32 q agree with the "
               f"plain version"
               f"{f', {len(dead)} slots with no key too' if dead else ''}; "
@@ -1229,16 +1294,18 @@ def phase_timing(rng, smi: str) -> dict:
 
 
 def _time_call(name, label, args, kw, nbytes, nops, peak, library,
-               smi) -> dict:
+               smi, rows=slice(None), dead=None) -> dict:
     """Kernel, plain version and one library call (``library(i)``, a
     yardstick the port never calls, for call i) at one shape, the kernel
-    held to its plain version there; ``args`` is one argument tuple or a
-    list of them, one per layer, taken in turn so that consecutive calls
-    read HBM as the model does.  The bound is the larger of ``nbytes``
-    over the HBM rate and ``nops`` over the peak rate of ``peak``'s
-    type.  Kernel and library are also printed by their device time
-    alone (``device_ms``): where a call's kernels are shorter than the
-    host's time to issue it, back-to-back calls measure the host."""
+    held to its plain version there (rows ``rows``; the rows ``dead``
+    with no visible key through ``hold_dead``); ``args`` is one argument
+    tuple or a list of them, one per layer, taken in turn so that
+    consecutive calls read HBM as the model does.  The bound is the larger
+    of ``nbytes`` over the HBM rate and ``nops`` over the peak rate of
+    ``peak``'s type.  Kernel and library are also printed by their device
+    time alone (``device_ms``), a kernel of several launches by launch too:
+    where a call's kernels are shorter than the host's time to issue it,
+    back-to-back calls measure the host."""
     wrapper, ref = WRAPPERS[name], PLAINS[name]
     layers = args if isinstance(args, list) else [args]
     L = len(layers)
@@ -1246,13 +1313,14 @@ def _time_call(name, label, args, kw, nbytes, nops, peak, library,
     if name == "grouped_matmul":
         err32, err = hold_gmm(first, *layers[0], f"{label} shapes")
     else:
-        err32, err = hold(name, first, layers[0], kw, slice(None),
-                          f"{label} shapes")
+        err32, err = hold(name, first, layers[0], kw, rows,
+                          f"{label} shapes", dead)
     bytes_s = nbytes / HBM_BYTES_PER_S
     ops_s = nops / PEAK_OPS_PER_S[peak]
+    split: dict = {}
     row = {"ms": cuda_ms(lambda i=0: wrapper(*layers[i % L], **kw), 240),
            "device_ms": device_ms(
-               lambda i=0: wrapper(*layers[i % L], **kw)),
+               lambda i=0: wrapper(*layers[i % L], **kw), by_kernel=split),
            "plain_ms": cuda_ms(lambda i=0: ref(*layers[i % L], **kw), 48),
            "library_ms": cuda_ms(library, 240),
            "library_device_ms": device_ms(library),
@@ -1265,9 +1333,14 @@ def _time_call(name, label, args, kw, nbytes, nops, peak, library,
           f"(device {row['library_device_ms']:.4f} ms), "
           f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}; {nbytes} "
           f"bytes, {nops} operations at the {str(peak)[6:]} peak), "
-          f"{row['bound_ms'] / row['ms']:.2%} of bound; max |err| {err:.3g} "
-          f"vs the plain version, {err32:.3g} vs the fp32 plain version "
-          f"({smi})")
+          f"{row['bound_ms'] / row['ms']:.2%} of bound "
+          f"({row['bound_ms'] / row['device_ms']:.2%} by device time); max "
+          f"|err| {err:.3g} vs the plain version, {err32:.3g} vs the fp32 "
+          f"plain version ({smi})")
+    if len(split) > 1:
+        print(f"[timing]   {name} ({label}) device time by kernel: " +
+              "; ".join(f"{_short(key)} {ms:.4f} ms"
+                        for key, ms in split.items()))
     return row
 
 
@@ -1426,54 +1499,82 @@ def _time_gmm(smi: str) -> dict:
     return out
 
 
+# flash decode's timing shapes (phase 4): (label, B, H, Hkv, D, contexts,
+# free slots, caches): the dense path's decode shape (qwen2-0.5b heads, B
+# 8, the kernels-line entry), one slot at a 1000-token context (an edge
+# server's light load), the decode shape with its last two slots free, and
+# zamba2-2.7b's shared attention (B 8, 32/32 heads of 80; nine caches, its
+# nine calls a tick)
+FLASH_DECODE_TIMING = [
+    ("dense decode", 8, 14, 2, 64, DENSE_CTX, (), 24),
+    ("one slot", 1, 14, 2, 64, np.asarray([1000]), (), 24),
+    ("2 free slots", 8, 14, 2, 64, DENSE_CTX, (6, 7), 24),
+    ("zamba2 shared attention", 8, 32, 32, 80, DENSE_CTX, (), 9)]
+
+
 def _time_flash_decode(smi: str) -> dict:
-    """Flash decode at the dense path's decode shape: qwen2-0.5b heads
-    (14/2, D 64), B 8, a max_seq 1024 cache per layer (24 of them, taken
-    in turn) holding the contexts DENSE_CTX (3820 keys, -1 past each),
-    bf16 and int8 caches, bf16 q.  The bound counts q and the output, every
-    cache_positions entry and pos, and each visible K/V row (int8: and its
-    two fp32 scales) once, against the q.k and p.v multiply-adds at the
-    cache type's peak; the yardstick is SDPA on each layer's cache viewed
-    [B, Hkv, S, D] (``enable_gqa``) with a per-row mask of the visible
-    keys (int8: on the cache dequantized to bf16 beforehand, not
-    timed)."""
-    L, B, S, H, Hkv, D = 24, 8, 1024, 14, 2, 64
+    """Flash decode at the dense path's shapes (FLASH_DECODE_TIMING): a
+    max_seq 1024 cache per layer (taken in turn) holding the given
+    contexts (-1 past each; free slots all -1 at pos 0), bf16 and int8
+    caches, bf16 q; each row by device time per launch too.  The bound
+    counts q and the output, every cache_positions entry and pos, each
+    visible K/V row (int8: and its two fp32 scales) once and, for a free
+    slot, its S value rows (and scales) once, against the q.k and p.v
+    multiply-adds of the visible keys and the p.v of a free slot's S keys
+    at the cache type's peak; the yardstick is SDPA on each layer's cache
+    viewed [B, Hkv, S, D] (``enable_gqa``) with a per-row mask of the
+    visible keys, every key for a free slot (int8: on the cache
+    dequantized to bf16 beforehand, not timed).  Returns the kernels-line
+    numbers (the dense decode shape)."""
     rng = np.random.default_rng(3)
-    q, k, v, cpos, pos, _ = dense_case(rng, B, S, H, Hkv, D, True,
-                                       layers=L, ctx=DENSE_CTX)
-    pos = torch.from_numpy(DENSE_CTX.astype(np.int32) - 1).to(q.device)
-    q = q.bfloat16()
-    kb, vb = k.bfloat16(), v.bfloat16()
-    del k, v
-    k8, v8, ks, vs = dense_quantized(kb, vb, cpos[..., None])
-    keys = int(DENSE_CTX.sum())
-    mask = ((cpos >= 0) & (cpos <= pos[:, None]))[:, None, None, :]
-    qs = q[:, :, None]  # [B, H, 1, D]
-    io = 2 * q.numel() * q.element_size() + cpos.numel() * 4 + B * 4
+    S = 1024
     out = {}
-    for name, caches in (("flash_decode", (kb, vb)),
-                         ("flash_decode_quant", (k8, v8, ks, vs))):
-        nbytes = io + 2 * keys * Hkv * D * caches[0].element_size()
-        if len(caches) == 4:
-            nbytes += 2 * keys * Hkv * 4  # fp32 row scales
-            kg = (k8.float() * ks[..., None]).bfloat16()
-            vg = (v8.float() * vs[..., None]).bfloat16()
-        else:
-            kg, vg = kb, vb
-        layers = [tuple(c[l] for c in caches) + (cpos, pos)
-                  for l in range(L)]
+    for label, B, H, Hkv, D, ctx, free, L in FLASH_DECODE_TIMING:
+        q, k, v, cpos, pos, rows = dense_case(rng, B, S, H, Hkv, D, True,
+                                              layers=L, ctx=ctx, free=free)
+        pos = torch.from_numpy(np.where(np.isin(np.arange(B), free), 0,
+                                        ctx - 1).astype(np.int32)).cuda()
+        q = q.bfloat16()
+        kb, vb = k.bfloat16(), v.bfloat16()
+        del k, v
+        k8, v8, ks, vs = dense_quantized(kb, vb, cpos[..., None])
+        live = [b for b in range(B) if b not in free]
+        keys = int(ctx[live].sum())
+        seen = (cpos >= 0) & (cpos <= pos[:, None])
+        seen[list(free)] = True  # a free slot's uniform softmax: every key
+        mask = seen[:, None, None, :]
+        qs = q[:, :, None]  # [B, H, 1, D]
+        io = 2 * q.numel() * q.element_size() + cpos.numel() * 4 + B * 4
+        nops = 4 * H * D * keys + 2 * H * D * S * len(free)
+        for name, caches in (("flash_decode", (kb, vb)),
+                             ("flash_decode_quant", (k8, v8, ks, vs))):
+            es = caches[0].element_size()
+            nbytes = io + (2 * keys + S * len(free)) * Hkv * D * es
+            if len(caches) == 4:  # fp32 row scales
+                nbytes += (2 * keys + S * len(free)) * Hkv * 4
+                kg = (k8.float() * ks[..., None]).bfloat16()
+                vg = (v8.float() * vs[..., None]).bfloat16()
+            else:
+                kg, vg = kb, vb
+            layers = [tuple(c[l] for c in caches) + (cpos, pos)
+                      for l in range(L)]
 
-        def library(i=0, kg=kg, vg=vg):
-            F.scaled_dot_product_attention(
-                qs, kg[i % L].transpose(1, 2), vg[i % L].transpose(1, 2),
-                attn_mask=mask, enable_gqa=True)
+            def library(i=0, kg=kg, vg=vg, L=L, qs=qs, mask=mask):
+                F.scaled_dot_product_attention(
+                    qs, kg[i % L].transpose(1, 2), vg[i % L].transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)
 
-        out[name] = _time_call(
-            name, f"dense decode: B={B} S={S} H={H}/{Hkv} D={D}, "
-            f"{'int8' if len(caches) == 4 else 'bf16'} cache, contexts "
-            f"{DENSE_CTX.tolist()}", [(q,) + lay for lay in layers], {},
-            nbytes, 4 * H * D * keys, caches[0].dtype, library, smi)
-        del kg, vg
+            row = _time_call(
+                name, f"{label}: B={B} S={S} H={H}/{Hkv} D={D}, "
+                f"{'int8' if len(caches) == 4 else 'bf16'} cache, contexts "
+                f"{ctx.tolist()}{f', slots {list(free)} free' if free else ''}",
+                [(q,) + lay for lay in layers], {}, nbytes, nops,
+                caches[0].dtype, library, smi, rows=live,
+                dead=list(free) or None)
+            if label == "dense decode":
+                out[name] = row
+            del kg, vg
+        del kb, vb, k8, v8, ks, vs
     return out
 
 
@@ -1939,15 +2040,25 @@ def phase_dense(model, params, streams, smi: str) -> dict:
 
 
 def phase_profile(model, params, smi: str):
-    """Where the main path's time goes, over a short window: engine steps
-    PROFILE_SKIP .. PROFILE_SKIP + PROFILE_STEPS of the bf16 workload
-    (prefill chunks and decode ticks), run once plainly for the wall time
-    and once more, the same steps, with the engine's trace spans and
-    torch.profiler on.  The idle share is the profiled kernels' device time
-    against the plain run's wall time."""
+    """Where the time goes, over short windows: engine steps PROFILE_SKIP
+    .. PROFILE_SKIP + PROFILE_STEPS of the bf16 main path (paged, prefill
+    chunks and decode ticks) and of phase 8's dense chunked engine (its
+    decode ticks attend through flash decode), each run once plainly for
+    the wall time and once more, the same steps, with the engine's trace
+    spans and torch.profiler on.  The idle share is the profiled kernels'
+    device time against the plain run's wall time."""
+    for label, kw in (("bf16 main path", {}),
+                      ("dense chunked", dict(paged=False))):
+        _profile_window(model, params, label, kw, smi)
+
+
+def _profile_window(model, params, label, kw, smi: str):
+    """One profiled window of ``phase_profile``: an engine made with the
+    keywords ``kw``; prints its busy share, span totals, top kernels and
+    the decode and verify kernels' device time and launches."""
 
     def window(telemetry, profiler):
-        eng, reqs = _warm_engine(model, params, "bf16", telemetry)
+        eng, reqs = _warm_engine(model, params, "bf16", telemetry, **kw)
         for r in reqs:
             eng.submit(r)
         for _ in range(PROFILE_SKIP):
@@ -1955,20 +2066,22 @@ def phase_profile(model, params, smi: str):
         torch.cuda.synchronize()
         if telemetry is not None:
             telemetry.tracer.clear()
+        for w in WRAPPERS.values():
+            w.launches = 0
         with profiler:
             t0 = time.perf_counter()
             for _ in range(PROFILE_STEPS):
                 eng.step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        return wall
+        return wall, {n: w.launches for n, w in WRAPPERS.items()}
 
-    wall = window(None, contextlib.nullcontext())
+    wall, _ = window(None, contextlib.nullcontext())
     tel = Telemetry(trace=True)
     # device activity only: the kernels' device time is all that is read
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
-    pwall = window(tel, prof)
+    pwall, calls = window(tel, prof)
     spans: dict = {}
     for ev in tel.tracer.events:
         if ev.get("ph") == "X" and ev["cat"] in ("engine", "prefill"):
@@ -1981,27 +2094,32 @@ def phase_profile(model, params, smi: str):
                if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     check(busy > 0, "the profiler saw no device time")
-    print(f"[profile] bf16 main path, engine steps {PROFILE_SKIP}.."
+    print(f"[profile] {label}, engine steps {PROFILE_SKIP}.."
           f"{PROFILE_SKIP + PROFILE_STEPS}: wall {wall:.4f} s (under "
           f"torch.profiler {pwall:.4f} s); device busy {busy:.4f} s = "
           f"{busy / wall:.1%} of the plain wall, idle {1 - busy / wall:.1%}"
           f" ({smi})")
-    print("[profile] engine spans (host wall clock, profiled run): " +
-          "; ".join(f"{name} {n} x, {t:.4f} s"
-                    for name, (n, t) in sorted(spans.items())))
+    print(f"[profile] {label}: engine spans (host wall clock, profiled "
+          "run): " + "; ".join(f"{name} {n} x, {t:.4f} s"
+                               for name, (n, t) in sorted(spans.items())))
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} x "
               f"{e.key[:90]}")
-    decode = [e for e in kernels if "decode_split" in e.key
-              or "paged_decode_kernel" in e.key]
-    print(f"[profile] paged decode (its scores and values kernels): "
-          f"{sum(dev_us(e) for e in decode) / 1e3:.3f} ms of device time, "
-          f"{sum(e.count for e in decode)} kernel launches")
-    verify = [e for e in kernels if "verify_split" in e.key
-              or "verify_combine" in e.key]
-    print(f"[profile] paged verify (its scores, values and combine "
-          f"kernels): {sum(dev_us(e) for e in verify) / 1e3:.3f} ms of "
-          f"device time, {sum(e.count for e in verify)} kernel launches")
+    groups = (
+        ("paged decode (its scores and values kernels)", "paged_decode",
+         lambda k: ("decode_split" in k and "DenseKeys" not in k)
+         or "paged_decode_kernel" in k),
+        ("paged verify (its scores, values and combine kernels)",
+         "paged_verify", lambda k: "verify_split" in k
+         or "verify_combine" in k),
+        ("flash decode (its kernels)", "flash_decode",
+         lambda k: "DenseKeys" in k or "flash_decode_kernel" in k))
+    for what, name, match in groups:
+        sel = [e for e in kernels if match(e.key)]
+        print(f"[profile] {label}: {what}: "
+              f"{sum(dev_us(e) for e in sel) / 1e3:.3f} ms of device time, "
+              f"{sum(e.count for e in sel)} kernel launches, {calls[name]} "
+              "wrapper calls")
 
 
 def moe_model():
@@ -2345,12 +2463,30 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def decode_only(smi: str):
+    """``--decode-only``: the paged kernels' and flash decode's phase-4
+    rows and phase 9's two profiled windows, nothing else and no result
+    line; run from a checkout whose ``src`` is another tree's (an older
+    one's), it measures that tree's kernels with this script's shapes and
+    windows."""
+    phase_timing(np.random.default_rng(0), smi)
+    _time_flash_decode(smi)
+    model, params = main_model()
+    phase_profile(model, params, smi)
+
+
 def main():
     t_start = time.perf_counter()
     # fp32 products in fp32 (no TF32), for the fp32 comparisons and parity
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
+    if sys.argv[1:] == ["--decode-only"]:
+        decode_only(smi)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s (decode only, "
+              "no result)")
+        return
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     with timed("build"):
         phase_build()
     rng = np.random.default_rng(0)

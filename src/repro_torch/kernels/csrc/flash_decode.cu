@@ -28,32 +28,53 @@
 //   each expert's capacity.  pos is only compared, never used as an
 //   index: a parked slot at pos = max_seq reads nothing out of bounds.
 //
-// What bounds it on an H100: bytes.  Each visible K/V row is read once and
-// used for ~4*G flops per element, far below the ~295 flops per byte at
-// which the tensor cores would become the limit.  The design therefore:
-//   * reads the cache [B, S, Hkv, D] in place (the engine hands it a
-//     layer's view of [L, B, S, Hkv, D]): no transposed or padded copy;
-//   * reads each tile's cache_positions (4 bytes a key) first and loads
-//     only the K/V rows that are visible; a tile with no visible key loads
-//     nothing else (the dense cache holds -1 past each prompt);
-//   * stages each visible [kTile, D] K tile, then V tile, in shared memory,
-//     with 16-byte loads, and lets all G query heads of the kv head read
-//     them there, so the cache is read once per (slot, kv head), not once
-//     per query head.
-// One CTA per (slot, kv head) walks the tiles twice.  The first walk
-// reads K and keeps every fp32 score of its G heads in a scratch row
-// (shared memory, G*S*4 bytes: 28 KB at G 7 and S 1024; global memory,
-// written and read by this CTA alone, where that does not fit); the max m
-// and sum l of each head then come from the stored scores as the plain
-// version's softmax computes them.  The second walk reads V only, forms
-// each probability exp(s - m) / l from the stored score, rounds it, and
-// accumulates p * v in fp32.  The ragged tail of S is masked per element.
-// Later work: split-KV across CTAs for small batches
-// (the GPU form flash_decode.py:3 names), cp.async/TMA double buffering and
-// tensor-core products.
+// What bounds it on an H100: the bytes of the visible K/V rows, each used
+// for ~4*G flops per element, far under the ~295 flops per byte at which
+// the bf16 tensor cores would become the limit.  At a decode tick those
+// bytes are few (B 8 slots of 60-1000 keys at qwen2-0.5b's widths: 2 MB,
+// 0.6 us at 3.35 TB/s), so what the design has to beat is latency.  Two
+// hand-written instantiations, chosen by the types (kernels/
+// flash_decode.py:variant names them):
+//   * bf16 queries over bf16 or int8 caches (every serving path: the dense
+//     backend's decode, the speculative draft's, zamba2's shared
+//     attention): split_decode.cuh's split-KV passes, which paged decode
+//     shares.  The grid is (split, kv head, slot), the S keys of a row cut
+//     into splits of whole key tiles so that a call runs about two CTAs an
+//     SM, at most 32 splits, by a plan from the shapes alone
+//     (kernels/flash_decode.py:plan, paged decode's rule; pos and
+//     cache_positions are never read on the host); two launches: each
+//     split's local max and sum, then the merge, p rounded against the
+//     merged max and sum, p v, and the last CTA of each (slot, kv head)
+//     summing the partials in split order.  Which keys a query sees comes
+//     from the data, not the shape (-1 past each prompt, holes, stale
+//     entries past pos after a rejected draft chain), so the key source
+//     (DenseKeys below) stages the split's cache_positions first, with pos
+//     and q, and marks each key visible or not: a split with no visible
+//     key exits at once in pass 1, a tile with none loads nothing, K and V
+//     rows of masked keys are never read (zero-filled), and the splits that
+//     wrote a partial are those whose merged sum l_i > 0.  K and V rows are
+//     read in place through the [B, S, Hkv, D] strides (row (b*S + s)*Hkv
+//     + h), each staged row serving all G query heads of its kv head.  A row
+//     with no visible key reads every value row (and, int8, its scale) of
+//     its slot.
+//   * fp32 queries (the tests, fp32 parity engines) or fp32 caches (the JAX
+//     kernel sweep, which no serving path runs): the two-walk kernel below.
+//     One CTA per (slot, kv head) walks the tiles twice.  The first walk
+//     reads each tile's cache_positions, loads only visible K rows and
+//     keeps every fp32 score of its G heads in a scratch row (shared
+//     memory, G*S*4 bytes: 28 KB at G 7 and S 1024; global memory, written
+//     and read by this CTA alone, where that does not fit); the max m and
+//     sum l of each head then come from the stored scores as the plain
+//     version's softmax computes them.  The second walk reads V only, forms
+//     each probability exp(s - m) / l from the stored score, rounds it, and
+//     accumulates p * v in fp32.  The ragged tail of S is masked per
+//     element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "split_decode.cuh"
 
 namespace {
 
@@ -347,6 +368,8 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
   return static_cast<int>(cudaGetLastError());
 }
 
+// fp32 queries over any cache; bf16 queries over fp32 caches (bf16 queries
+// over bf16 or int8 caches take the split-KV passes).
 template <typename QT>
 int launch_cache(int cache_dtype, const void* q, const void* k_cache,
                  const void* v_cache, const void* k_scales,
@@ -354,15 +377,20 @@ int launch_cache(int cache_dtype, const void* q, const void* k_cache,
                  const void* pos, void* scores, void* out, int B, int H,
                  int Hkv, int D, int S, int window, float scale,
                  cudaStream_t stream) {
+  constexpr bool kBf16Q = std::is_same<QT, __nv_bfloat16>::value;
   switch (cache_dtype) {
     case 0:
-      return launch<QT, __nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr,
-                                       cache_positions, pos, scores, out, B,
-                                       H, Hkv, D, S, window, scale, stream);
+      if constexpr (kBf16Q) return -1;
+      else
+        return launch<QT, __nv_bfloat16>(
+            q, k_cache, v_cache, nullptr, nullptr, cache_positions, pos,
+            scores, out, B, H, Hkv, D, S, window, scale, stream);
     case 1:
-      return launch<QT, int8_t>(q, k_cache, v_cache, k_scales, v_scales,
-                                cache_positions, pos, scores, out, B, H, Hkv,
-                                D, S, window, scale, stream);
+      if constexpr (kBf16Q) return -1;
+      else
+        return launch<QT, int8_t>(q, k_cache, v_cache, k_scales, v_scales,
+                                  cache_positions, pos, scores, out, B, H,
+                                  Hkv, D, S, window, scale, stream);
     case 2:
       return launch<QT, float>(q, k_cache, v_cache, nullptr, nullptr,
                                cache_positions, pos, scores, out, B, H, Hkv,
@@ -372,33 +400,198 @@ int launch_cache(int cache_dtype, const void* q, const void* k_cache,
   }
 }
 
+// ------------------------------ bf16 queries: split-KV passes
+
+// The dense cache as split_decode.cuh's key source: key s of slot b is row
+// (b*S + s)*Hkv + h, visible iff cpos = cache_positions[b, s] >= 0,
+// cpos <= pos[b] and, with a window, pos[b] - cpos < window.  The staged
+// map holds each key's entry (0 visible, -1 not; kNoKey past S), then one
+// word a warp for the least and greatest visible key of the split.  A row
+// that sees a key reads K and V rows of its visible keys only
+// (kMinLiveV 0); a row that sees none reads every value row of its slot.
+struct DenseKeys {
+  static constexpr int kMinLiveV = 0;
+  __host__ __device__ static int map_words(int split_keys, int) {
+    return split_keys + 2 * split_kv::kWarps;
+  }
+  int* vis_s;
+  int k0, b, h, vlo, vhi;
+
+  __device__ void stage(const split_kv::Args& a, int b_, int h_, int k0_,
+                        int k1, int p0, int* map_s, int tid) {
+    vis_s = map_s;
+    b = b_;
+    h = h_;
+    k0 = k0_;
+    vlo = INT_MAX;
+    vhi = -1;
+    const int32_t* cp = a.map + static_cast<size_t>(b) * a.S;
+    for (int i = tid; i < k1 - k0; i += split_kv::kThreads) {
+      const int c = cp[k0 + i];
+      const bool ok =
+          c >= 0 && c <= p0 && (a.window == 0 || p0 - c < a.window);
+      map_s[i] = ok ? 0 : -1;
+      if (ok) {
+        vlo = min(vlo, k0 + i);
+        vhi = max(vhi, k0 + i);
+      }
+    }
+  }
+  // [lo, hi]: the least and greatest visible key of the split (hi < lo:
+  // none), reduced over the CTA; every thread reaches its barrier
+  __device__ void visible(const split_kv::Args& a, int, int, int, int& lo,
+                          int& hi) const {
+    constexpr int W = split_kv::kWarps;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int* red = vis_s + a.split_keys;
+    const int wlo = __reduce_min_sync(0xffffffffu, vlo);
+    const int whi = __reduce_max_sync(0xffffffffu, vhi);
+    if (lane == 0) {
+      red[warp] = wlo;
+      red[W + warp] = whi;
+    }
+    __syncthreads();
+    lo = red[0];
+    hi = red[W];
+#pragma unroll
+    for (int w = 1; w < W; ++w) {
+      lo = min(lo, red[w]);
+      hi = max(hi, red[W + w]);
+    }
+  }
+  __device__ int entry(const split_kv::Args& a, int k) const {
+    return k < a.S ? vis_s[k - k0] : split_kv::kNoKey;
+  }
+  __device__ int row(const split_kv::Args& a, int k, int) const {
+    return (b * a.S + k) * a.Hkv + h;
+  }
+};
+
+template <typename CT>
+int launch_dim(const split_kv::Args& a, int B, int D, cudaStream_t s) {
+  using split_kv::launch_split;
+  switch (D) {
+    case 16:
+      return launch_split<DenseKeys, CT, 16>(a, B, s);
+    case 32:
+      return launch_split<DenseKeys, CT, 32>(a, B, s);
+    case 64:
+      return launch_split<DenseKeys, CT, 64>(a, B, s);
+    case 80:
+      return launch_split<DenseKeys, CT, 80>(a, B, s);
+    case 128:
+      return launch_split<DenseKeys, CT, 128>(a, B, s);
+    case 256:
+      return launch_split<DenseKeys, CT, 256>(a, B, s);
+    default:
+      return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA needs, with score_words words of
-// scores kept there (G*padded_keys(S), or 0 when they go to global
-// memory); the wrapper checks it against the card's 227 KB before
-// launching.
-int flash_decode_smem_bytes(int G, int D, int score_words) {
+// Which hand-written instantiation runs for q's dtype (0 fp32, 1 bf16) and
+// the cache's (0 bf16, 1 int8, 2 fp32).
+const char* flash_decode_variant(int q_dtype, int cache_dtype) {
+  return q_dtype == 1 && cache_dtype != 2
+             ? "bf16 CUDA-core split-KV, two launches (scores; values with "
+               "p rounded against the merged max and sum, the last CTA "
+               "summing the partials in split order)"
+             : "fp32 CUDA-core FMAs, two walks (one CTA a slot and kv head)";
+}
+
+// Keys per staged tile of the split-KV passes at head dim D (their split
+// keys are a multiple).
+int flash_decode_key_tile(int D) { return split_kv::key_tile(D); }
+
+// Bytes of dynamic shared memory one CTA of the split-KV passes needs
+// (cache_dtype: 0 bf16, 1 int8); the wrapper checks it against the card's
+// 227 KB before launching.
+int flash_decode_smem_bytes(int cache_dtype, int D, int G, int split_keys,
+                            int splits) {
+  return split_kv::smem_bytes<DenseKeys>(cache_dtype == 1, D, G, split_keys,
+                                         splits, 0);
+}
+
+// bf16 queries over bf16 or int8 caches.  q [B, H, D] bf16 (the output
+// too); cache_dtype: 0 bf16, 1 int8 (k_scales/v_scales then point at fp32
+// [B, S, Hkv]).  All tensors contiguous; cache_positions [B, S] and pos
+// [B] int32.  The plan (kernels/flash_decode.py:plan): split_keys a
+// multiple of flash_decode_key_tile(D), splits = ceil(S / split_keys) <=
+// 32.  m and l: fp32 scratch of B * Hkv * splits * G floats each;
+// partial: of that times D, 16-byte aligned; arrived: B * Hkv ints (both
+// unused with one split).  Returns cudaGetLastError() after the launches,
+// or -1 for a bad code or plan.
+int flash_decode_launch(int cache_dtype, const void* q, const void* k_cache,
+                        const void* v_cache, const void* k_scales,
+                        const void* v_scales, const void* cache_positions,
+                        const void* pos, void* m, void* l, void* partial,
+                        void* arrived, void* out, int B, int H, int Hkv,
+                        int D, int S, int window, int split_keys, int splits,
+                        float scale, void* stream) {
+  if (!split_kv::plan_ok(S, H, Hkv, D, split_keys, splits, partial, arrived))
+    return -1;
+  const split_kv::Args a{static_cast<const split_kv::bf16*>(q),
+                         k_cache,
+                         v_cache,
+                         static_cast<const float*>(k_scales),
+                         static_cast<const float*>(v_scales),
+                         static_cast<const int32_t*>(cache_positions),
+                         static_cast<const int32_t*>(pos),
+                         static_cast<float*>(m),
+                         static_cast<float*>(l),
+                         static_cast<float*>(partial),
+                         static_cast<int*>(arrived),
+                         static_cast<split_kv::bf16*>(out),
+                         H,
+                         Hkv,
+                         S,
+                         window,
+                         0,
+                         0,
+                         split_keys,
+                         splits,
+                         scale * 1.4426950408889634f,
+                         1.f / static_cast<float>(S)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cache_dtype) {
+    case 0:
+      return launch_dim<split_kv::bf16>(a, B, D, s);
+    case 1:
+      return launch_dim<int8_t>(a, B, D, s);
+    default:
+      return -1;
+  }
+}
+
+// The two-walk kernel: bytes of dynamic shared memory one CTA needs, with
+// score_words words of scores kept there (G*padded_keys(S), or 0 when they
+// go to global memory); the wrapper checks it against the card's 227 KB
+// before launching.
+int flash_decode_walk_smem_bytes(int G, int D, int score_words) {
   return static_cast<int>(sizeof(float)) * smem_words(G, D, score_words);
 }
 
-// Keys one CTA stages per tile.
-int flash_decode_tile_keys() { return kTile; }
+// Keys one CTA of the two-walk kernel stages per tile.
+int flash_decode_walk_tile_keys() { return kTile; }
 
-// q_dtype: 0 fp32, 1 bf16 (the output has q's type).  cache_dtype: 0 bf16,
-// 1 int8 (k_scales/v_scales then point at fp32 [B, S, Hkv]), 2 fp32.
-// All tensors contiguous; cache_positions [B, S] and pos [B] int32.
-// scores: null keeps the scores in shared memory; else fp32 scratch of
-// B*H*padded_keys(S) floats in global memory, S rounded up to whole tiles.
-// Returns cudaGetLastError() after the launch, or -1 for a bad dtype code.
-int flash_decode_launch(int q_dtype, int cache_dtype, const void* q,
-                        const void* k_cache, const void* v_cache,
-                        const void* k_scales, const void* v_scales,
-                        const void* cache_positions, const void* pos,
-                        void* scores, void* out, int B, int H, int Hkv, int D,
-                        int S, int window, float scale, void* stream) {
+// The two-walk kernel: fp32 q over bf16, int8 or fp32 caches, or bf16 q
+// over fp32 caches (q_dtype: 0 fp32, 1 bf16, the output in q's type;
+// cache_dtype: 0 bf16, 1 int8 with k_scales/v_scales fp32 [B, S, Hkv], 2
+// fp32).  All tensors contiguous; cache_positions [B, S] and pos [B]
+// int32.  scores: null keeps the scores in shared memory; else fp32
+// scratch of B*H*padded_keys(S) floats in global memory, S rounded up to
+// whole tiles.  Returns cudaGetLastError() after the launch, or -1 for a
+// bad dtype code (bf16 q over a bf16 or int8 cache among them).
+int flash_decode_walk_launch(int q_dtype, int cache_dtype, const void* q,
+                             const void* k_cache, const void* v_cache,
+                             const void* k_scales, const void* v_scales,
+                             const void* cache_positions, const void* pos,
+                             void* scores, void* out, int B, int H, int Hkv,
+                             int D, int S, int window, float scale,
+                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
     case 0:

@@ -1,23 +1,30 @@
 """Flash decode: wrappers of the hand-written CUDA kernel
-``csrc/flash_decode.cu`` and their plain PyTorch versions.
+``csrc/flash_decode.cu``, their plain PyTorch versions and the kernel's
+launch plan.
 
 The kernel replaces the Pallas TPU kernels ``flash_decode_tpu`` and
 ``flash_decode_quant_tpu`` (``repro/kernels/flash_decode.py:71,125``).
 The port calls ``flash_decode`` for the attention of the dense decode step
 (``models/api.py:Model.serve_step``), which the engine's dense cache
-backend and the speculative draft model run; no serving path of either
-package reaches the int8 instance (the engines keep dense caches bf16).
-On an H100 it is bound by the bytes of the visible K/V rows; the source
-note in the ``.cu`` file says what its design does about that (reads the
-cache in place, loads only visible rows, stages each tile once per kv
-head for all G query heads).
+backend, the speculative draft model and zamba2's shared attention run;
+no serving path of either package reaches the int8 instance (the engines
+keep dense caches bf16).  The source note in the ``.cu`` file says what
+bounds it on an H100 and what its design does about that.  Two
+hand-written instantiations, chosen by the types (``variant`` names
+them): bf16 queries over bf16 or int8 caches (every serving path) split
+the S keys of each row across CTAs by ``plan``, made from the shapes
+alone (the wrapper never reads ``pos`` or ``cache_positions`` on the
+host), in two launches from one C call, the passes paged decode shares
+(``csrc/split_decode.cuh``); fp32 queries (the tests, fp32 parity
+engines) and fp32 caches (the JAX kernel sweep) run the two-walk kernel,
+one CTA per (slot, kv head).
 
 ``flash_decode``/``flash_decode_quant`` take the JAX signatures
 (``block_k`` is accepted and checked; the kernel stages its own tile of
 keys).  For tensors on the CPU they run the plain version; for CUDA
 tensors they launch the kernel or raise, never falling back.  Each
-wrapper counts its kernel launches in its ``launches`` attribute (a plain
-integer).
+wrapper counts its calls that launch the kernel in its ``launches``
+attribute (a plain integer).
 """
 from __future__ import annotations
 
@@ -28,18 +35,34 @@ import torch
 
 from repro_torch.device import on_cpu
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_decode import score_scratch
+from repro_torch.kernels.paged_decode import (MAX_SMEM_BYTES, SMS, Plan,
+                                              device_sms, key_tile,
+                                              score_scratch, split_plan,
+                                              split_scratch)
 from repro_torch.models.attention import (decode_attention,
                                           decode_attention_quant)
 
 # the reduced configs' 16, the kernel tests' 32, qwen2-0.5b 64,
-# zamba2-2.7b's shared attention 80, llama3.2-3b 128, gemma3-1b 256 (the
-# kernel takes D at run time in whole 16-byte vectors of the cache type)
+# zamba2-2.7b's shared attention 80, llama3.2-3b 128, gemma3-1b 256
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 MAX_GROUP = 16  # query heads per kv head
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the dense serving caches are bf16; fp32 caches for the JAX kernel sweep
 CACHE_DTYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
+
+
+def plan(B: int, G: int, Hkv: int, S: int, D: int, sms: int = SMS) -> Plan:
+    """The split-KV launch plan of a bf16-q call over caches of S keys a
+    slot: paged decode's (``paged_decode.split_rule`` over the B*Hkv
+    (slot, kv head) pairs), so a dense row is cut as a paged table of S
+    keys is."""
+    return split_plan(B, G, Hkv, S, D, sms)
+
+
+def uses_splits(q_dtype, cache_dtype) -> bool:
+    """Whether a call of these types takes the split-KV passes (bf16 q over
+    a bf16 or int8 cache) rather than the two-walk kernel."""
+    return q_dtype == torch.bfloat16 and cache_dtype != torch.float32
 
 
 def flash_decode_ref(q, k_cache, v_cache, cache_positions, pos, *,
@@ -64,26 +87,55 @@ def _lib():
     lib = build.load("flash_decode")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_decode_launch.argtypes = (
-        [i32, i32] + [ptr] * 9 + [i32] * 6 + [ctypes.c_float, ptr])
+        [i32] + [ptr] * 12 + [i32] * 8 + [ctypes.c_float, ptr])
     lib.flash_decode_launch.restype = i32
-    lib.flash_decode_smem_bytes.argtypes = [i32, i32, i32]
+    lib.flash_decode_smem_bytes.argtypes = [i32] * 5
     lib.flash_decode_smem_bytes.restype = i32
-    lib.flash_decode_tile_keys.argtypes = []
-    lib.flash_decode_tile_keys.restype = i32
+    lib.flash_decode_key_tile.argtypes = [i32]
+    lib.flash_decode_key_tile.restype = i32
+    lib.flash_decode_variant.argtypes = [i32, i32]
+    lib.flash_decode_variant.restype = ctypes.c_char_p
+    lib.flash_decode_walk_launch.argtypes = (
+        [i32, i32] + [ptr] * 9 + [i32] * 6 + [ctypes.c_float, ptr])
+    lib.flash_decode_walk_launch.restype = i32
+    lib.flash_decode_walk_smem_bytes.argtypes = [i32, i32, i32]
+    lib.flash_decode_walk_smem_bytes.restype = i32
+    lib.flash_decode_walk_tile_keys.argtypes = []
+    lib.flash_decode_walk_tile_keys.restype = i32
     return lib
 
 
-def smem_bytes(G: int, D: int, score_words: int = 0) -> int:
-    """Dynamic shared memory one CTA of the kernel takes for G query heads
-    per kv head and head dim D, with ``score_words`` fp32 scores kept
-    there (G times S rounded up to whole tiles, or 0 when they go to
-    global memory), from the built library."""
-    return _lib().flash_decode_smem_bytes(G, D, score_words)
+@functools.cache
+def smem_bytes(G: int, D: int, split_keys: int, splits: int,
+               cache_dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory one CTA of the split-KV passes takes (from the
+    built library)."""
+    lib = _lib()
+    if lib.flash_decode_key_tile(D) != key_tile(D):
+        raise RuntimeError("flash decode: the library's key tile differs "
+                           "from the plan's")
+    return lib.flash_decode_smem_bytes(CACHE_DTYPES[cache_dtype], D, G,
+                                       split_keys, splits)
 
 
-def tile_keys() -> int:
-    """Keys one CTA of the kernel stages per tile."""
-    return _lib().flash_decode_tile_keys()
+def walk_smem_bytes(G: int, D: int, score_words: int = 0) -> int:
+    """Dynamic shared memory one CTA of the two-walk kernel takes for G
+    query heads per kv head and head dim D, with ``score_words`` fp32
+    scores kept there (G times S rounded up to whole tiles, or 0 when
+    they go to global memory), from the built library."""
+    return _lib().flash_decode_walk_smem_bytes(G, D, score_words)
+
+
+def walk_tile_keys() -> int:
+    """Keys one CTA of the two-walk kernel stages per tile."""
+    return _lib().flash_decode_walk_tile_keys()
+
+
+def variant(q_dtype=torch.bfloat16, cache_dtype=torch.bfloat16) -> str:
+    """The hand-written instantiation that runs for queries of ``q_dtype``
+    over caches of ``cache_dtype``."""
+    return _lib().flash_decode_variant(Q_DTYPES[q_dtype],
+                                       CACHE_DTYPES[cache_dtype]).decode()
 
 
 def _check(q, k_cache, v_cache, cache_positions, pos, window, block_k,
@@ -142,22 +194,39 @@ def _launch(q, k_cache, v_cache, k_scales, v_scales, cache_positions, pos,
             window):
     B, H, D = q.shape
     _, S, Hkv, _ = k_cache.shape
+    G = H // Hkv
     lib = _lib()
-    G, tile = H // Hkv, tile_keys()
-    scores = score_scratch("flash decode",
-                           lambda words: smem_bytes(G, D, words), B * Hkv,
-                           G * -(-S // tile) * tile, q.device)
     out = torch.empty_like(q)
+    caches = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+              None if k_scales is None else k_scales.data_ptr(),
+              None if v_scales is None else v_scales.data_ptr(),
+              cache_positions.data_ptr(), pos.data_ptr())
+    if uses_splits(q.dtype, k_cache.dtype):
+        p = plan(B, G, Hkv, S, D, device_sms(q.device.index))
+        smem = smem_bytes(G, D, p.split_keys, p.splits, k_cache.dtype)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"flash decode: needs {smem} bytes of shared "
+                             f"memory, over {MAX_SMEM_BYTES}")
+        ptrs, scratch = split_scratch(p, q.device)
+        fn = lib.flash_decode_launch
+        args = ((CACHE_DTYPES[k_cache.dtype],) + caches + ptrs
+                + (out.data_ptr(), B, H, Hkv, D, S, int(window),
+                   p.split_keys, p.splits))
+    else:
+        tile = walk_tile_keys()
+        scratch = score_scratch(
+            "flash decode", lambda words: walk_smem_bytes(G, D, words),
+            B * Hkv, G * -(-S // tile) * tile, q.device)
+        fn = lib.flash_decode_walk_launch
+        args = ((Q_DTYPES[q.dtype], CACHE_DTYPES[k_cache.dtype]) + caches
+                + (None if scratch is None else scratch.data_ptr(),
+                   out.data_ptr(), B, H, Hkv, D, S, int(window)))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_decode_launch(
-            Q_DTYPES[q.dtype], CACHE_DTYPES[k_cache.dtype], q.data_ptr(),
-            k_cache.data_ptr(), v_cache.data_ptr(),
-            None if k_scales is None else k_scales.data_ptr(),
-            None if v_scales is None else v_scales.data_ptr(),
-            cache_positions.data_ptr(), pos.data_ptr(),
-            None if scores is None else scores.data_ptr(), out.data_ptr(), B,
-            H, Hkv, D, S, int(window), D ** -0.5, stream)
+        # the raw stream pointer: ``current_stream()`` builds a Stream
+        # object on every call, and at a decode tick the host's time to
+        # issue the call is longer than its kernels
+        stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+        err = fn(*args, D ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash decode kernel launch failed: error {err}")
     return out

@@ -1,6 +1,7 @@
 """Paged decode attention: wrappers of the hand-written CUDA kernel
 ``csrc/paged_decode.cu``, their plain PyTorch versions, the kernel's launch
-plan and the split rule the paged kernels share.
+plan, and the split rule, plan and scratch that the split-KV kernels share
+(paged decode and verify, flash decode).
 
 The kernel replaces the Pallas TPU kernels ``paged_decode_tpu`` and
 ``paged_decode_quant_tpu`` (``repro/kernels/paged_decode.py:92,137``).
@@ -10,7 +11,8 @@ design does about that.  Two hand-written instantiations, chosen by q's
 dtype (``variant`` names them): bf16 queries (every bf16 serving path)
 split the table's keys across CTAs by ``plan``, made from the shapes
 alone (the wrapper never reads ``pos`` or the tables on the host), in two
-launches from one C call; fp32 queries (the tests, fp32 parity runs) run
+launches from one C call (the passes of ``csrc/split_decode.cuh``, which
+flash decode shares); fp32 queries (the tests, fp32 parity runs) run
 the two-walk kernel, one CTA per (slot, kv head), whose arithmetic paged
 verify's fp32 kernel shares.
 
@@ -65,13 +67,14 @@ def split_rule(S: int, units: int, D: int, sms: int = SMS) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How the bf16-q kernel cuts one call: the S = NB*bs keys of the table
-    in ``splits`` splits of ``split_keys`` (split s holds keys
-    s * split_keys up to min((s + 1) * split_keys, S)); ``ctas`` of each
-    of its two launches; the scratch: ``partial_floats`` for every split's
-    fp32 [G, D] partial (none with one split), ``ml_floats`` for every
-    split's max and sum of each query head, ``counters`` int32 arrival
-    counters, one per (slot, kv head) (none with one split)."""
+    """How a split-KV decode call (paged decode's and flash decode's bf16-q
+    passes) cuts one call: the S keys of a row in ``splits`` splits of
+    ``split_keys`` (split s holds keys s * split_keys up to
+    min((s + 1) * split_keys, S)); ``ctas`` of each of its two launches;
+    the scratch: ``partial_floats`` for every split's fp32 [G, D] partial
+    (none with one split), ``ml_floats`` for every split's max and sum of
+    each query head, ``counters`` int32 arrival counters, one per (slot,
+    kv head) (none with one split)."""
     key_tile: int
     split_keys: int
     splits: int
@@ -82,17 +85,41 @@ class Plan:
 
 
 @functools.cache
-def plan(B: int, G: int, Hkv: int, NB: int, bs: int, D: int,
-         sms: int = SMS) -> Plan:
-    """The launch plan from the shapes alone: ``split_rule`` over the B*Hkv
-    (slot, kv head) pairs, as paged verify's plan cuts its keys at
-    T = 1."""
-    split_keys, splits = split_rule(NB * bs, B * Hkv, D, sms)
+def split_plan(B: int, G: int, Hkv: int, S: int, D: int,
+               sms: int = SMS) -> Plan:
+    """The split-KV decode plan for rows of S keys, from the shapes alone:
+    ``split_rule`` over the B*Hkv (slot, kv head) pairs, as paged
+    verify's plan cuts its keys at T = 1."""
+    split_keys, splits = split_rule(S, B * Hkv, D, sms)
     ctas = B * Hkv * splits
     many = splits > 1
     return Plan(key_tile(D), split_keys, splits, ctas,
                 ctas * G * D if many else 0, 2 * ctas * G,
                 B * Hkv if many else 0)
+
+
+def plan(B: int, G: int, Hkv: int, NB: int, bs: int, D: int,
+         sms: int = SMS) -> Plan:
+    """The launch plan of the bf16-q kernel: ``split_plan`` over the table's
+    NB*bs keys."""
+    return split_plan(B, G, Hkv, NB * bs, D, sms)
+
+
+def split_scratch(p: Plan, device):
+    """The scratch of a split-KV decode call under plan ``p``: one fp32
+    tensor of the partials (first, so they are 16-byte aligned), every
+    split's maxima and sums, and the arrival counters; returns the
+    kernel's pointers (m, l, partial, arrived; the last two None with one
+    split) and the tensor, which the caller keeps alive until the
+    launch."""
+    scratch = torch.empty(p.partial_floats + p.ml_floats + p.counters,
+                          dtype=torch.float32, device=device)
+    partial = scratch.data_ptr()
+    m = partial + 4 * p.partial_floats
+    l = m + 2 * p.ml_floats
+    arrived = m + 4 * p.ml_floats
+    return (m, l, partial if p.partial_floats else None,
+            arrived if p.counters else None), scratch
 
 
 def paged_decode_ref(q, k_pages, v_pages, block_tables, pos, *, window=0):
@@ -232,9 +259,7 @@ def check_paged_args(what, q_layout, q, k_pages, v_pages, block_tables, pos,
 
 def _split_args(q, k_pages, block_tables):
     """The bf16-q kernel's scratch pointers and plan arguments, and the
-    scratch itself (kept alive by the caller until the launch): one fp32
-    tensor of the partials (first, so they are 16-byte aligned), every
-    split's maxima and sums, and the arrival counters."""
+    scratch itself (kept alive by the caller until the launch)."""
     B, H, D = q.shape
     _, bs, Hkv, _ = k_pages.shape
     NB = block_tables.shape[1]
@@ -244,14 +269,7 @@ def _split_args(q, k_pages, block_tables):
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"paged decode: needs {smem} bytes of shared "
                          f"memory, over {MAX_SMEM_BYTES}")
-    scratch = torch.empty(p.partial_floats + p.ml_floats + p.counters,
-                          dtype=torch.float32, device=q.device)
-    partial = scratch.data_ptr()
-    m = partial + 4 * p.partial_floats
-    l = m + 2 * p.ml_floats
-    arrived = m + 4 * p.ml_floats
-    ptrs = (m, l, partial if p.partial_floats else None,
-            arrived if p.counters else None)
+    ptrs, scratch = split_scratch(p, q.device)
     return ptrs, (p.split_keys, p.splits), scratch
 
 
