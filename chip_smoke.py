@@ -20,9 +20,13 @@ exits non-zero without printing a result:
      launch plan at B 8 and B 1 and paged verify's at the speculative and
      chunk shapes, keys a split, CTAs and shared memory a CTA; flash
      decode's instantiation for each q and cache type and its split plan
-     at the dense tick, one slot, zamba2-2.7b's and gemma3-1b's shapes; no
-     register spill in ``paged_decode.cu`` at D <= 128, nor in
-     ``flash_decode.cu``'s split passes (``split_decode.cuh``));
+     at the dense tick, one slot, zamba2-2.7b's and gemma3-1b's shapes;
+     flash attention's CUDA-core split plan at the encoder's batches and a
+     prefill, RMSNorm's plan (threads a row, vectors a thread) at every
+     width the port normalizes; no register spill in ``paged_decode.cu``
+     at D <= 128, nor in ``flash_decode.cu``'s split passes
+     (``split_decode.cuh``), nor in flash attention's CUDA-core
+     instantiations (every D up to 448), nor in ``rmsnorm.cu``);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (decode also
@@ -33,8 +37,12 @@ exits non-zero without printing a result:
      tests' cases, the draft's causal prefill at qwen2-0.5b's heads (S 16
      to 1024), gemma3-1b's windowed layers, llama3.2-3b's heads, the
      encoder's non-causal D 448 and zamba2-2.7b's shared attention (32
-     heads of 80, S 16 to 768); the fused RMSNorm at a decode tick, a
-     prefill chunk and the CPU tests' shapes, bf16 and fp32 x and scale,
+     heads of 80, S 16 to 768), and the CUDA-core instantiation's edges at
+     every head dim (ragged Sq and Sk, one query row, a window, a suffix
+     whose rows start below Sk - Sq against a cached prefix); the fused
+     RMSNorm at a decode tick, a prefill chunk, the CPU tests' shapes and
+     every width the port normalizes (896, 1024, 1152, 256, 3072, 2560,
+     5120) at rows 1, 8, 64, 768 and 1024, bf16 and fp32 x and scale,
      zero-centred or not; flash decode over bf16, fp32 and int8 caches
      with bf16 and fp32 queries at the CPU tests' cases, qwen2-0.5b's
      serving shape (B 8, max_seq 1024, contexts 60-1000, a parked slot),
@@ -101,8 +109,8 @@ exits non-zero without printing a result:
      one of phase 8's dense chunked engine, each run once plainly and once
      under ``torch.profiler`` with the engine's trace spans: device busy
      share, engine-span totals, top kernels by device time, and the device
-     time and launches of paged decode's, paged verify's and flash
-     decode's kernels;
+     time and launches of paged decode's, paged verify's, flash decode's,
+     flash attention's and RMSNorm's kernels;
   9b. the MoE path: granite-moe-1b-a400m at full width and depth (random
      seeded bf16 weights) serves the 12 text requests through paged
      chunked engines (bf16 and int8 pools), a paged monolithic engine, a
@@ -135,7 +143,9 @@ exits non-zero without printing a result:
      reduced zamba2-2.7b in fp32 with scan_chunk 16 (text prompts of 1-64
      tokens, several chunks) on the dense backend with monolithic
      prefill gives the CPU engine's tokens on the card;
- 11. one JSON line for the kernels, then the result line.
+ 11. one JSON line for the kernels (each with its device time and the
+     library call's at its phase-4 shape beside the contract's keys), then
+     the result line.
 
 Needs a CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
 ``src`` directory beside this file.
@@ -165,6 +175,7 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.data.taskgen import make_taskset  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, moe_gmm  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import paged_decode, paged_verify  # noqa: E402
 from repro_torch.kernels import flash_decode  # noqa: E402
 from repro_torch.kernels import ssd_scan as scan_kernel  # noqa: E402
@@ -344,6 +355,26 @@ FLASH_CASES = [
     (2, 48, 48, 4, 2, 16, True, 0)]
 # zamba2-2.7b's shared attention: 32 heads of 80, causal prompts of 16-768
 FLASH_CASES += [(1, S, S, 32, 32, 80, True, 0) for S in (16, 200, 512, 768)]
+# the CUDA-core (fp32) instantiation's edges at every head dim: ragged Sq =
+# Sk, one query row, a window, a ragged non-causal Sk
+FLASH_CASES += [case for D in flash_attention.HEAD_DIMS
+                for case in ((2, 130, 130, 4, 2, D, True, 0),
+                             (1, 1, 77, 4, 4, D, True, 0),
+                             (1, 100, 100, 4, 1, D, True, 40),
+                             (3, 37, 300, 2, 2, D, False, 0))]
+# ... and a suffix against a cached prefix whose query rows start below
+# Sk - Sq (q_offset 40 of Sk 150, Sq 70), with and without a window:
+# (B, Sq, Sk, H, Hkv, D, window, q_offset), causal
+FLASH_OFFSET_CASES = [(2, 70, 150, 4, 2, D, window, 40)
+                      for D in flash_attention.HEAD_DIMS
+                      for window in (0, 24)]
+# flash attention's CUDA-core split plan printed in phase 2: (label, B, S,
+# H)
+FLASH_PLANS = [("encoder 128x128 batch", 4, 256, 2),
+               ("encoder 32x32 batch", 4, 16, 2),
+               ("one 128x128 image", 1, 256, 2),
+               ("qwen2-0.5b 1024-token prefill (fp32 parity runs)", 1, 1024,
+                14)]
 # RMSNorm held to its plain version: a decode tick and a prefill chunk of
 # qwen2-0.5b, test_kernels.py::test_rmsnorm's shapes, then zamba2-2.7b's
 # norms at d 2560 (pre-norm, shared ln2, final) and d_inner / 2d 5120
@@ -351,6 +382,12 @@ FLASH_CASES += [(1, S, S, 32, 32, 80, True, 0) for S in (16, 200, 512, 768)]
 # a 1-token prompt and a 768-token prompt
 RMS_SHAPES = [(8, 896), (64, 896), (3, 50, 96), (7, 128), (260, 64)]
 RMS_SHAPES += [(8, 2560), (8, 5120), (1, 5120), (768, 2560), (768, 5120)]
+# ... and every other width the port normalizes at rows 1, 8, 64 and 1024:
+# the encoder's 1024 rows of 896 (in fp32 a row's 224 vectors over 64
+# threads, the last 32 holding 3 of their 4), granite-moe 1024, gemma3-1b
+# 1152 and its qk-norm's 256 (tokens x heads), llama3.2-3b 3072
+RMS_SHAPES += [(1, 896), (1024, 896), (8, 1024), (64, 1024), (8, 1152),
+               (7, 4, 256), (64, 256), (8, 3072), (1, 3072)]
 # flash decode held to its plain version: (B, S, H, Hkv, D, window,
 # engine[, dense_case keywords]), test_kernels.py::test_flash_decode's
 # cases (full caches), then caches as the engines leave them (``engine``:
@@ -761,6 +798,34 @@ def phase_build():
             f"{flash_attention.tile_rows(D, dt)} query rows and "
             f"{flash_attention.smem_bytes(D, dt)} bytes of dynamic shared "
             "memory per CTA" for D in flash_attention.HEAD_DIMS))
+    for label, B, S, H in FLASH_PLANS:
+        splits = flash_attention.plan(B, S, S, H)
+        tiles = -(-S // flash_attention.tile_rows(448, torch.float32))
+        print(f"[build]   flash attention, CUDA-core plan, {label} (B {B}, S "
+              f"{S}, {H} heads): {splits} splits of the key tiles a cluster, "
+              f"{splits * tiles * H * B} CTAs")
+    spills = [(name, D, n) for name, D, n
+              in ptxas_spills(infos["flash_attention"]["ptxas"])
+              if "flash_fp32" in name]
+    spilled = [f"{name} ({n} bytes)" for name, D, n in spills if n]
+    check(not spilled, "flash_attention.cu: register spills of the CUDA-core "
+          "instantiations: " + ", ".join(spilled))
+    print("[build]   flash attention: " + (
+        f"{len(spills)} CUDA-core instantiations (D up to 448), none spills"
+        if spills else "already built, ptxas not rerun"))
+    print("[build]   rmsnorm plan (vectors a thread, threads a row): " +
+          "; ".join(f"[{rows}, {d}] {str(dt)[6:]} "
+                    f"{rms_kernel.plan(rows, d, dt)}"
+                    for rows, d in ((8, 896), (64, 896), (1024, 896),
+                                    (8, 1024), (8, 1152), (56, 256),
+                                    (8, 3072), (8, 2560), (768, 5120))
+                    for dt in (torch.bfloat16, torch.float32)))
+    spills = ptxas_spills(infos["rmsnorm"]["ptxas"])
+    spilled = [f"{name} ({n} bytes)" for name, D, n in spills if n]
+    check(not spilled, "rmsnorm.cu: register spills: " + ", ".join(spilled))
+    print("[build]   rmsnorm: " + (
+        f"{len(spills)} instantiations, none spills" if spills
+        else "already built, ptxas not rerun"))
     print("[build]   grouped matmul: " + "; ".join(
         f"{str(dt)[6:]} C {C}: {moe_gmm.variant(dt, C)}"
         for dt in (torch.bfloat16, torch.float32) for C in (8, 16, 24, 320)))
@@ -946,11 +1011,15 @@ def phase_compare(rng) -> dict:
               f"{', the free slot too' if inactive else ''}; max |err| vs "
               f"fp32 plain: " + ", ".join(errs))
     dev = torch.device("cuda")
-    for B, Sq, Sk, H, Hkv, D, causal, window in FLASH_CASES:
+    flash_runs = [(case[:6], dict(causal=case[6], window=case[7]))
+                  for case in FLASH_CASES]
+    flash_runs += [(case[:6], dict(causal=True, window=window,
+                                   q_offset=q_offset))
+                   for *case, window, q_offset in FLASH_OFFSET_CASES]
+    for (B, Sq, Sk, H, Hkv, D), kw in flash_runs:
         q = torch.randn(B, Sq, H, D, device=dev)
         k = torch.randn(B, Sk, Hkv, D, device=dev)
         v = torch.randn(B, Sk, Hkv, D, device=dev)
-        kw = dict(causal=causal, window=window)
         errs = []
         for dt in (torch.bfloat16, torch.float32):
             args = (q.to(dt), k.to(dt), v.to(dt))
@@ -960,9 +1029,11 @@ def phase_compare(rng) -> dict:
             worst["flash_attention"] = max(worst["flash_attention"], err)
             errs.append(f"{str(dt)[6:]} {err32:.3g}")
         print(f"[compare] flash attention B={B} Sq={Sq} Sk={Sk} H={H} "
-              f"Hkv={Hkv} D={D} causal={causal} window={window}: bf16 and "
-              f"fp32 agree with the plain version; max |err| vs fp32 plain: "
-              + ", ".join(errs))
+              f"Hkv={Hkv} D={D} "
+              + " ".join(f"{key}={val}" for key, val in kw.items())
+              + f" (fp32: {flash_attention.plan(B, Sq, Sk, H)} splits): bf16 "
+              f"and fp32 agree with the plain version; max |err| vs fp32 "
+              f"plain: " + ", ".join(errs))
     for shape in RMS_SHAPES:
         x = torch.randn(shape, device=dev)
         scale = torch.randn(shape[-1], device=dev)
@@ -976,9 +1047,13 @@ def phase_compare(rng) -> dict:
                               f"{shape} x {xd} scale {sd} zc {zc}")
             worst["rmsnorm"] = max(worst["rmsnorm"], err)
             err_max = max(err_max, err32)
-        print(f"[compare] rmsnorm {list(shape)}: bf16 and fp32 x and scale, "
-              f"zero-centred or not, agree with the plain version; max "
-              f"|err| vs fp32 plain {err_max:.3g}")
+        rows = int(np.prod(shape[:-1]))
+        plans = [rms_kernel.plan(rows, shape[-1], dt)
+                 for dt in (torch.bfloat16, torch.float32)]
+        print(f"[compare] rmsnorm {list(shape)} (vectors a thread, threads "
+              f"a row: bf16 {plans[0]}, fp32 {plans[1]}): bf16 and fp32 x and "
+              f"scale, zero-centred or not, agree with the plain version; "
+              f"max |err| vs fp32 plain {err_max:.3g}")
     for B, S, H, Hkv, D, window, engine, *extra in DECODE_CASES:
         q, k, v, cpos, pos, rows = dense_case(rng, B, S, H, Hkv, D, engine,
                                               **(extra[0] if extra else {}))
@@ -2055,7 +2130,8 @@ def phase_profile(model, params, smi: str):
 def _profile_window(model, params, label, kw, smi: str):
     """One profiled window of ``phase_profile``: an engine made with the
     keywords ``kw``; prints its busy share, span totals, top kernels and
-    the decode and verify kernels' device time and launches."""
+    the device time and launches of the decode, verify, flash-attention
+    and RMSNorm kernels."""
 
     def window(telemetry, profiler):
         eng, reqs = _warm_engine(model, params, "bf16", telemetry, **kw)
@@ -2113,7 +2189,10 @@ def _profile_window(model, params, label, kw, smi: str):
          "paged_verify", lambda k: "verify_split" in k
          or "verify_combine" in k),
         ("flash decode (its kernels)", "flash_decode",
-         lambda k: "DenseKeys" in k or "flash_decode_kernel" in k))
+         lambda k: "DenseKeys" in k or "flash_decode_kernel" in k),
+        ("flash attention (every instantiation)", "flash_attention",
+         lambda k: "flash_fp32" in k or "flash_attention_" in k),
+        ("RMSNorm", "rmsnorm", lambda k: "rmsnorm_kernel" in k))
     for what, name, match in groups:
         sel = [e for e in kernels if match(e.key)]
         print(f"[profile] {label}: {what}: "
@@ -2550,7 +2629,11 @@ def main():
             "max_abs_err": max(worst[name], t["main_shapes_max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            # the device time alone (torch.profiler) of the kernel and of
+            # the library call, where phase 4 took it (not the SSD scan's)
+            "device_ms": t.get("device_ms"),
+            "library_device_ms": t.get("library_device_ms")})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,7 @@
 // heads) and for the causal attention of the monolithic forward
 // (models/lm.py:_attn_layer), which every whole-prompt prefill runs: the
 // engine's monolithic admission, a suffix against its cached prefix, and
-// the draft model's bucketed prefill on the speculative path.
+// the draft model's bucketed prefill.
 //
 // What it computes, per batch b, head h and query row i at position
 // qpos = q_offset + i: key j is visible iff j < Sk, j <= qpos when causal,
@@ -22,8 +22,9 @@
 // shapes.  A 1024-token causal prefill at qwen2-0.5b's heads does ~0.95 G
 // multiply-adds per layer over 4.6 MB of q, k, v and o, ~400 flops per
 // byte, above the ~295 where the bf16 tensor cores, not HBM, set the
-// bound; the encoder's fp32 S 256, D 448 does ~240 flops per byte against
-// the 67 TFLOP/s fp32 rate (20 flops per byte at 3.35 TB/s).
+// bound; the encoder's fp32 S 256, D 448 does 0.94 GFLOP over 14.7 MB,
+// 64 flops per byte, against the 67 TFLOP/s fp32 rate (20 flops per byte
+// at 3.35 TB/s).
 //
 // Which instantiation runs is chosen by (dtype, D) in flash_attention_launch
 // (flash_attention_variant names it):
@@ -46,20 +47,47 @@
 //     plain version 35-81 times less tightly than EXACT_TOL asks: the CPU
 //     emulation in tests/test_torch_multimodal.py);
 //   * fp32 at every D, and bf16 at D 448 (the encoder's width, which no
-//     bf16 path serves): the CUDA-core kernel, fp32 FMAs from shared
-//     memory (never TF32), 16 query rows a CTA, [32, D] K and V tiles
-//     staged in shared memory and padded to D + 1 floats, the scores and
-//     the running (m, l, acc) in shared memory.
+//     bf16 path serves; widened to fp32 as it is staged): the CUDA-core
+//     kernel below, full fp32 FMAs (never TF32), register-tiled as an
+//     SGEMM is, one instantiation per head dim.  A CTA of 128 threads
+//     takes 32 query rows and walks 64-key tiles.  S = Q K^T: each thread
+//     holds a 4 x 4 block of scores (rows rg + 8i, keys kg + 16j) and sums
+//     q.k over D from 16-byte shared loads; the tile's scores go to a
+//     [64, 36] shared tile, where four threads a row take the online max,
+//     rescale and sum (shuffles).  O = P V: each thread holds RO rows x
+//     D / CW columns of the [32, D] output in registers (16 x 7 at D 448),
+//     reads the rows' p as broadcast vectors and one float of V per column
+//     and key, and rescales in registers.  Shared memory holds only what is
+//     shared: a six-stage cp.async ring (five chunks in flight) whose
+//     chunks are a tile's Q rows and K keys in 32-dim slices [32 + 64, 36],
+//     then V in key slices [KC, D] (8 keys at D 448), so K and V of a whole
+//     tile never sit there at once, and the probability tile: 94 KB at
+//     D 448, 108 KB at most (two CTAs an SM; the kernel it replaced took
+//     174 KB at D 448, one).  Q is streamed with K, once per key tile,
+//     rather than kept: the 58 KB it would hold buy the ring's depth.  A
+//     thread's copies sit at fixed offsets from a few base pointers (no
+//     per-copy division or branch).  The last tile's V chunks stop at its
+//     last visible key.  What holds it on an H100: shared-memory bandwidth,
+//     32 floats a cycle into registers against 128 FMAs a cycle; the 4 x 4
+//     score block does 2 FMAs per float loaded (8 x 8 would do 4 but needs
+//     64 more registers beside the output's 112), the 16 x 7 output block
+//     4.9.  With fewer (row tile, head, batch) CTAs than half the card's
+//     SMs the keys are split over a cluster of 2, 4 or 8 CTAs
+//     (flash_attention.py:plan, from the shapes alone): each walks its
+//     share of the visible tiles, then the cluster merges through
+//     distributed shared memory in split order, each CTA writing a slice
+//     of the rows (the encoder's B 4, S 256, 2 heads: 64 row tiles, 2
+//     splits, 128 CTAs).
 // Both walk only the key tiles a query tile can see: from the first tile
 // inside the window of its earliest row to the tile of its latest row when
 // causal (the Pallas kernel's pl.when(live_block) skip), so a causal
-// prefill does about half the tiles; the tensor-core kernel starts the
-// heaviest causal tiles first (the last query tiles, with every head of
-// the batch before the next tile).  The ragged edges of Sq and Sk are
-// masked per element (and zero-filled by cp.async's source size): no
-// host-side padding or transposed copy; q, k and v are read in place.
-// Later work: wgmma with TMA, and one CTA per kv head for all G query
-// heads.
+// prefill does about half the tiles; both start the heaviest causal tiles
+// first (the last query tiles, with every head of the batch before the
+// next tile).  The ragged edges of Sq and Sk are masked per element (and
+// zero-filled by cp.async's source size): no host-side padding or
+// transposed copy; q, k and v are read in place.  Later work: wgmma with
+// TMA, and one CTA per kv head for all G query heads.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,220 +97,532 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kRows = 16;  // query rows per CTA
-constexpr int kCols = 32;  // keys per staged tile (one per lane in softmax)
-constexpr int kRowGroup = 4;  // rows one thread carries in the p.v loop
 constexpr float kNegInf = -1e30f;
 constexpr float kMasked = -1e29f;  // scores at or below this are masked
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// ------------------------------------ fp32: register-tiled CUDA-core kernel
+
+namespace cc {
+
+constexpr int BM = 32;       // query rows per CTA
+constexpr int BN = 64;       // keys per tile
+constexpr int kStages = 6;   // cp.async ring depth: 5 chunks in flight
+constexpr int kMaxSplits = 8;  // CTAs of a cluster (the portable most)
+
+// O = P V's columns at head dim D: (lanes across them, floats a lane reads
+// at once).  64 lanes of single floats where D is a multiple of 64 (16 rows
+// a thread: one p vector serves more FMAs), else the largest power of two
+// up to 32 that divides D / 2, of float2.
+__host__ __device__ constexpr int col_lanes(int D) {
+  if (D % 64 == 0) return 64;
+  int w = 32;
+  while ((D / 2) % w) w /= 2;
+  return w;
+}
+__host__ __device__ constexpr int col_width(int D) {
+  return D % 64 == 0 ? 1 : 2;
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// Keys per V chunk: the fewest, as a power of two up to a tile, whose
+// [keys, D] is at least a Q and K chunk's floats (`qk`).
+__host__ __device__ constexpr int v_keys(int D, int qk) {
+  int kc = 1;
+  while (kc < BN && kc * D < qk) kc *= 2;
+  return kc;
 }
 
-// One 16-byte load of kVec values, widened to fp32.
-template <typename T>
-struct Load16 {
-  static constexpr int kVec = 16 / sizeof(T);
-  __device__ static void run(const T* src, float* dst) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) dst[i] = to_float(e[i]);
-  }
+template <int D>
+struct Cfg {
+  static constexpr int DC = D % 32 == 0 ? 32 : 16;  // dims per Q/K chunk
+  static constexpr int KLD = DC + 4;  // Q/K chunk row stride (conflict-free)
+  static constexpr int KC = v_keys(D, (BM + BN) * KLD);  // keys per V chunk
+  static constexpr int STAGE =  // floats per ring stage
+      (BM + BN) * KLD > KC * D ? (BM + BN) * KLD : KC * D;
+  static constexpr int NKC = D / DC;  // Q/K chunks per tile
+  static constexpr int CHUNKS = NKC + BN / KC;  // ring chunks per tile
+  static constexpr int PLD = BM + 4;  // probability tile row stride
+  static constexpr int CW = col_lanes(D);  // O = P V: column lanes,
+  static constexpr int CV = col_width(D);  // floats a lane reads at once,
+  static constexpr int NCV = D / (CV * CW);  // such reads a thread,
+  static constexpr int RO = BM * CW / kThreads;  // rows a thread
+  static constexpr int SMEM_FLOATS = kStages * STAGE + BN * PLD + 4 * BM;
+  static_assert(D % DC == 0 && BN % KC == 0 && D % (CV * CW) == 0, "D");
+  static_assert(RO == 2 || RO % 4 == 0, "rows a thread");
+  static_assert(BM * D <= kStages * STAGE, "the partial reuses the ring");
 };
 
-// Shared memory, in floats: q [kRows][D+1], acc [kRows][D], K tile
-// [kCols][D+1], V tile [kCols][D], probabilities [kRows][kCols], then m,
-// l and the rescale factor [kRows] each.
-__host__ __device__ inline int smem_floats(int D) {
-  return kRows * (D + 1) + kRows * D + kCols * (D + 1) + kCols * D +
-         kRows * kCols + 3 * kRows;
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* src) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
+// Four values from global src to four floats at shared dst (16-byte
+// aligned), zeros when !in: fp32 through cp.async (src read only when in),
+// bf16 widened through registers.
+__device__ __forceinline__ void stage4(float* dst, const float* src,
+                                       bool in) {
+  tc::cp_async16(dst, src, in ? 16 : 0);
+}
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
+                                       bool in) {
+  *reinterpret_cast<float4*>(dst) =
+      in ? widen4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ void store1(float* dst, float a) { *dst = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* dst, float a) {
+  *dst = __float2bfloat16(a);
+}
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a,
+                                       float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store4(float* dst, float4 o) {
+  *reinterpret_cast<float4*>(dst) = o;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 o) {
+  store2(dst, o.x, o.y);
+  store2(dst + 2, o.z, o.w);
+}
+
+// Grid (splits, row tiles * H, B), clusters of `splits` CTAs along x.
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads, 1) flash_fp32(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int H,
-    int Hkv, int D, int causal, int window, int q_offset, float scale) {
-  extern __shared__ float smem[];
-  const int i0 = blockIdx.x * kRows;  // first query row of this tile
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+    int Hkv, int causal, int window, int q_offset, float scale_log2) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                      // [kStages][STAGE]
+  float* p_s = ring + kStages * C::STAGE;  // [BN][PLD], key-major
+  float* c_s = p_s + BN * C::PLD;          // [BM] the tile's rescale
+  float* m_s = c_s + BM;                   // [BM] final max (log2 units)
+  float* l_s = m_s + BM;                   // [BM] final sum
+  float* L_s = l_s + BM;                   // [BM] sum merged over splits
+
+  const int splits = gridDim.x, split = blockIdx.x;
+  const int h = blockIdx.y % H, b = blockIdx.z;
+  const int i0 = (gridDim.y / H - 1 - blockIdx.y / H) * BM;  // heaviest first
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int rows = min(kRows, Sq - i0);
-  const int Dp = D + 1;
-  float* q_s = smem;
-  float* acc = q_s + kRows * Dp;
-  float* k_s = acc + kRows * D;
-  float* v_s = k_s + kCols * Dp;
-  float* p_s = v_s + kCols * D;
-  float* m_s = p_s + kRows * kCols;
-  float* l_s = m_s + kRows;
-  float* c_s = l_s + kRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows = min(BM, Sq - i0);
 
-  constexpr int kVec = Load16<T>::kVec;
-  const int vecs = D / kVec;  // 16-byte vectors per row
-  for (int i = tid; i < kRows * vecs; i += kThreads) {
-    const int r = i / vecs, c = (i % vecs) * kVec;
-    float* dst = q_s + r * Dp + c;
-    if (r < rows) {
-      Load16<T>::run(
-          q + ((static_cast<size_t>(b) * Sq + i0 + r) * H + h) * D + c, dst);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) dst[e] = 0.f;
-    }
-  }
-  for (int i = tid; i < kRows * D; i += kThreads) acc[i] = 0.f;
-  for (int r = tid; r < kRows; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
-
-  // the key range this tile's rows can see
+  // the key tiles this tile's rows can see, and this split's share
   const int q_lo = q_offset + i0;
   const int q_hi = q_offset + i0 + rows - 1;
-  const int nk = (Sk + kCols - 1) / kCols;
-  int j_hi = nk - 1;
-  if (causal) j_hi = q_hi < 0 ? -1 : min(j_hi, q_hi / kCols);
+  int j_hi = (Sk + BN - 1) / BN - 1;
+  if (causal) j_hi = q_hi < 0 ? -1 : min(j_hi, q_hi / BN);
   int j_lo = 0;
   if (window > 0) {
     const int first = q_lo - window + 1;  // earliest key of the earliest row
-    if (first > 0) j_lo = first / kCols;
+    if (first > 0) j_lo = first / BN;
+  }
+  const int n = max(j_hi - j_lo + 1, 0);
+  const int per = (n + splits - 1) / splits;
+  const int t_lo = j_lo + split * per;
+  const int ntiles = max(min(per, j_lo + n - t_lo), 0);
+  // the last tile's V chunks stop at its last visible key
+  int total = 0;
+  if (ntiles > 0) {
+    const int k_last = (t_lo + ntiles - 1) * BN;
+    int k_end = min(Sk, k_last + BN);
+    if (causal) k_end = min(k_end, q_hi + 1);
+    total = (ntiles - 1) * C::CHUNKS + C::NKC +
+            (k_end - k_last + C::KC - 1) / C::KC;
   }
 
-  // score work: thread -> row tid / 8, keys (tid % 8) + 8 * u, u < 4
-  const int sr = tid >> 3, st = tid & 7;
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int k0 = j * kCols;
-    for (int i = tid; i < kCols * vecs; i += kThreads) {
-      const int t = i / vecs, c = (i % vecs) * kVec;
-      float* kd = k_s + t * Dp + c;
-      float* vd = v_s + t * D + c;
-      if (k0 + t < Sk) {
-        const size_t row =
-            (static_cast<size_t>(b) * Sk + k0 + t) * Hkv + hk;
-        Load16<T>::run(k + row * D + c, kd);
-        Load16<T>::run(v + row * D + c, vd);
-      } else {  // past Sk: masked below, zeros keep the products finite
+  // chunk c of the walk: dims [DC x part, +DC) of the tile's Q rows and 64
+  // keys, then V rows of KC keys at a time.  A thread's copies of a Q/K
+  // chunk are rows t0 + RS n at column c4 (Q for n < NQ, then K), of a V
+  // chunk the floats 4 (tid + 128 n): fixed offsets, no branches.
+  constexpr int QKN = (BM + BN) * (C::DC / 4) / kThreads;
+  constexpr int RS = kThreads / (C::DC / 4);
+  constexpr int NQ = BM / RS;
+  constexpr int VN = C::KC * (D / 4) / kThreads;
+  static_assert(QKN * kThreads == (BM + BN) * (C::DC / 4) && NQ * RS == BM &&
+                    VN * kThreads == C::KC * (D / 4),
+                "whole copies a thread");
+  const int t0 = tid / (C::DC / 4), c4 = (tid % (C::DC / 4)) * 4;
+  const size_t q_row = static_cast<size_t>(H) * D;
+  const size_t kv_row = static_cast<size_t>(Hkv) * D;
+  const T* q_src = q + (static_cast<size_t>(b) * Sq + i0 + t0) * q_row +
+                   static_cast<size_t>(h) * D + c4;
+  const T* k_src = k + (static_cast<size_t>(b) * Sk + t0) * kv_row +
+                   static_cast<size_t>(hk) * D + c4;
+  const T* v_src =
+      v + static_cast<size_t>(b) * Sk * kv_row + static_cast<size_t>(hk) * D;
+  auto issue = [&](int c) {
+    if (c >= total) return;
+    float* st = ring + (c % kStages) * C::STAGE;
+    const int k0 = (t_lo + c / C::CHUNKS) * BN, part = c % C::CHUNKS;
+    if (part < C::NKC) {
+      const int d0 = part * C::DC;
+      const T* kt = k_src + static_cast<size_t>(k0) * kv_row + d0;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          kd[e] = 0.f;
-          vd[e] = 0.f;
+      for (int n = 0; n < QKN; ++n) {
+        const bool in = n < NQ ? t0 + RS * n < rows
+                               : k0 + t0 + RS * (n - NQ) < Sk;
+        const T* src =
+            n < NQ ? q_src + (RS * n) * q_row + d0
+                   : kt + static_cast<size_t>(RS * (n - NQ)) * kv_row;
+        stage4(st + (t0 + RS * n) * C::KLD + c4, in ? src : q, in);
+      }
+    } else {
+      const int key0 = k0 + (part - C::NKC) * C::KC;
+      const T* vk = v_src + static_cast<size_t>(key0) * kv_row;
+#pragma unroll
+      for (int n = 0; n < VN; ++n) {
+        const int i = tid + kThreads * n;
+        const int t = i / (D / 4);
+        const bool in = key0 + t < Sk;
+        stage4(st + 4 * i, in ? vk + t * kv_row + (i % (D / 4)) * 4 : v, in);
+      }
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    issue(c);
+    tc::cp_async_commit();
+  }
+
+  // scores: rows rg + 8i, keys kg + 16j; a warp takes 4 row groups of 8
+  // key groups (a Q and a K load each fill one shared-memory wavefront)
+  const int rg = 4 * (warp >> 1) + (lane >> 3);
+  const int kg = (lane & 7) + 8 * (warp & 1);
+  // softmax: row sr's keys 4 u + sq, four threads a row
+  const int sr = tid >> 2, sq = tid & 3;
+  // output: rows r0 .. r0 + RO - 1, columns CV (cl + CW j) (+1)
+  const int cl = tid % C::CW, r0 = (tid / C::CW) * C::RO;
+  float s[4][4];
+  float m = kNegInf, l = 0.f;  // row sr's running max and sum
+  float acc[C::RO][C::NCV][C::CV];
+#pragma unroll
+  for (int i = 0; i < C::RO; ++i)
+#pragma unroll
+    for (int j = 0; j < C::NCV; ++j)
+#pragma unroll
+      for (int e = 0; e < C::CV; ++e) acc[i][j][e] = 0.f;
+
+  for (int c = 0; c < total; ++c) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk c landed; chunk c - 1's stage is free
+    issue(c + kStages - 1);
+    tc::cp_async_commit();
+    const float* st = ring + (c % kStages) * C::STAGE;
+    const int part = c % C::CHUNKS;
+    if (part < C::NKC) {
+      if (part == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      }
+      const float* ks = st + BM * C::KLD;
+#pragma unroll
+      for (int d = 0; d < C::DC; d += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(st + (rg + 8 * i) * C::KLD
+                                                   + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(ks + (kg + 16 * j) * C::KLD
+                                                   + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          }
+      }
+      if (part == C::NKC - 1) {
+        // scale to log2 units and mask (tiles on an edge only) into the
+        // probability tile; then the online softmax, four threads a row.
+        // Masked keys get probability 0, so a row that has seen no key yet
+        // keeps l = 0 and acc = 0.
+        const int k0 = (t_lo + c / C::CHUNKS) * BN;
+        const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > q_lo) ||
+                          (window > 0 && q_hi - k0 >= window);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qpos = q_lo + rg + 8 * i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float x = s[i][j] * scale_log2;
+            if (edge) {
+              const int kpos = k0 + kg + 16 * j;
+              const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
+                              (window == 0 || qpos - kpos < window);
+              if (!ok) x = kNegInf;
+            }
+            p_s[(kg + 16 * j) * C::PLD + rg + 8 * i] = x;
+          }
+        }
+        __syncthreads();
+        float x[BN / 4];
+        float mx = kNegInf;
+#pragma unroll
+        for (int u = 0; u < BN / 4; ++u) {
+          x[u] = p_s[(4 * u + sq) * C::PLD + sr];
+          mx = fmaxf(mx, x[u]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m, mx);
+        const float corr = m > kMasked ? exp2f(m - m_new) : 1.f;
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < BN / 4; ++u) {
+          const float p = x[u] > kMasked ? exp2f(x[u] - m_new) : 0.f;
+          p_s[(4 * u + sq) * C::PLD + sr] = p;
+          sum += p;
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l = l * corr + sum;
+        m = m_new;
+        if (sq == 0) c_s[sr] = corr;
+      }
+    } else {
+      const int kc = part - C::NKC;
+      if (kc == 0) {  // the tile's rescale, published with its p
+#pragma unroll
+        for (int i = 0; i < C::RO; ++i) {
+          const float corr = c_s[r0 + i];
+#pragma unroll
+          for (int j = 0; j < C::NCV; ++j)
+#pragma unroll
+            for (int e = 0; e < C::CV; ++e) acc[i][j][e] *= corr;
         }
       }
+      const float* pk = p_s + kc * C::KC * C::PLD + r0;
+#pragma unroll
+      for (int t = 0; t < C::KC; ++t) {
+        float pr[C::RO];
+        if constexpr (C::RO == 2) {
+          const float2 f = *reinterpret_cast<const float2*>(pk + t * C::PLD);
+          pr[0] = f.x;
+          pr[1] = f.y;
+        } else {
+#pragma unroll
+          for (int u = 0; u < C::RO; u += 4) {
+            const float4 f =
+                *reinterpret_cast<const float4*>(pk + t * C::PLD + u);
+            pr[u] = f.x;
+            pr[u + 1] = f.y;
+            pr[u + 2] = f.z;
+            pr[u + 3] = f.w;
+          }
+        }
+        float vv[C::NCV][C::CV];
+#pragma unroll
+        for (int j = 0; j < C::NCV; ++j) {
+          const float* src = st + t * D + C::CV * (cl + C::CW * j);
+          if constexpr (C::CV == 2) {
+            const float2 f = *reinterpret_cast<const float2*>(src);
+            vv[j][0] = f.x;
+            vv[j][1] = f.y;
+          } else {
+            vv[j][0] = *src;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < C::RO; ++i)
+#pragma unroll
+          for (int j = 0; j < C::NCV; ++j)
+#pragma unroll
+            for (int e = 0; e < C::CV; ++e)
+              acc[i][j][e] = fmaf(pr[i], vv[j][e], acc[i][j][e]);
+      }
     }
-    __syncthreads();
+  }
+  tc::cp_async_wait<0>();
+  if (sq == 0) {
+    m_s[sr] = m;
+    l_s[sr] = l;
+  }
+  __syncthreads();
 
-    {
-      float dot[kCols / 8] = {};
-      const float* qr = q_s + sr * Dp;
-      for (int d = 0; d < D; ++d) {
-        const float qv = qr[d];
+  if (splits == 1) {
 #pragma unroll
-        for (int u = 0; u < kCols / 8; ++u)
-          dot[u] = fmaf(qv, k_s[(st + 8 * u) * Dp + d], dot[u]);
-      }
-      const int qpos = q_offset + i0 + sr;
+    for (int i = 0; i < C::RO; ++i) {
+      const int row = r0 + i;
+      if (row >= rows) continue;
+      const float L = fmaxf(l_s[row], 1e-30f);
+      T* dst = out + ((static_cast<size_t>(b) * Sq + i0 + row) * H + h) * D;
 #pragma unroll
-      for (int u = 0; u < kCols / 8; ++u) {
-        const int t = st + 8 * u;
-        const int kpos = k0 + t;
-        const bool valid = sr < rows && kpos < Sk &&
-                           (!causal || kpos <= qpos) &&
-                           (window == 0 || qpos - kpos < window);
-        p_s[sr * kCols + t] = valid ? dot[u] * scale : kNegInf;
+      for (int j = 0; j < C::NCV; ++j) {
+        if constexpr (C::CV == 2)
+          store2(dst + 2 * (cl + C::CW * j), acc[i][j][0] / L,
+                 acc[i][j][1] / L);
+        else
+          store1(dst + cl + C::CW * j, acc[i][j][0] / L);
       }
     }
-    __syncthreads();
-
-    // online softmax: warp w takes rows w, w + 4, ...; lane = key.
-    // Masked keys get probability 0, so a row that has seen no key yet
-    // keeps l = 0 and acc = 0.
-    for (int r = warp; r < kRows; r += kThreads / 32) {
-      const float s = p_s[r * kCols + lane];
-      float mx = s;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float e = s > kMasked ? expf(s - m_new) : 0.f;
-      float sum = e;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      p_s[r * kCols + lane] = e;
-      if (lane == 0) {
-        const float corr = m_old > kMasked ? expf(m_old - m_new) : 1.f;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc[r][d] = acc[r][d] * corr[r] + sum_t p[r][t] v[t][d]; each item is
-    // kRowGroup rows of one column d, so one V load serves them all
-    for (int i = tid; i < (kRows / kRowGroup) * D; i += kThreads) {
-      const int r0 = (i / D) * kRowGroup, d = i % D;
-      float a[kRowGroup];
-#pragma unroll
-      for (int g = 0; g < kRowGroup; ++g)
-        a[g] = acc[(r0 + g) * D + d] * c_s[r0 + g];
-#pragma unroll 8
-      for (int t = 0; t < kCols; ++t) {
-        const float vv = v_s[t * D + d];
-#pragma unroll
-        for (int g = 0; g < kRowGroup; ++g)
-          a[g] = fmaf(p_s[(r0 + g) * kCols + t], vv, a[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < kRowGroup; ++g) acc[(r0 + g) * D + d] = a[g];
-    }
-    __syncthreads();  // the tiles are overwritten by the next key tile
+    return;
   }
 
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    out[((static_cast<size_t>(b) * Sq + i0 + r) * H + h) * D + d] =
-        from_float<T>(acc[i] / fmaxf(l_s[r], 1e-30f));
+  // The split's merge, through distributed shared memory: a warp reads
+  // every split's max and sum of its row (loads issued together), weighs
+  // split r by w_r = exp2(m_r - M) against the merged max M and adds the
+  // merged sum L = sum of w_r l_r in split order; each CTA stores its
+  // partial times its w over the ring; CTA s then writes its slice of the
+  // rows, adding the partials in split order.  No CTA leaves before the
+  // last read.
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's m and l are final
+  if (tid < BM) {
+    float mr[kMaxSplits], lr[kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) {
+      if (r < splits) {
+        mr[r] = cluster.map_shared_rank(m_s, r)[tid];
+        lr[r] = cluster.map_shared_rank(l_s, r)[tid];
+      }
+    }
+    float M = kNegInf;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < splits) M = fmaxf(M, mr[r]);
+    float L = 0.f, w_own = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) {
+      if (r < splits) {
+        const float w = mr[r] > kMasked ? exp2f(mr[r] - M) : 0.f;
+        L += w * lr[r];
+        if (r == split) w_own = w;
+      }
+    }
+    L_s[tid] = L;
+    c_s[tid] = w_own;
   }
+  __syncthreads();
+  float* part_s = ring;  // [BM][D]
+#pragma unroll
+  for (int i = 0; i < C::RO; ++i) {
+    const float w = c_s[r0 + i];
+#pragma unroll
+    for (int j = 0; j < C::NCV; ++j)
+#pragma unroll
+      for (int e = 0; e < C::CV; ++e)
+        part_s[(r0 + i) * D + C::CV * (cl + C::CW * j) + e] =
+            acc[i][j][e] * w;
+  }
+  cluster.sync();  // every partial stored
+  const int slice = BM / splits;
+#pragma unroll 2
+  for (int i = tid; i < slice * (D / 4); i += kThreads) {
+    const int row = split * slice + i / (D / 4), c4 = (i % (D / 4)) * 4;
+    if (row >= rows) continue;
+    float4 p[kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < splits)
+        p[r] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part_s, r) + row * D + c4);
+    float4 o = p[0];
+#pragma unroll
+    for (int r = 1; r < kMaxSplits; ++r) {
+      if (r < splits) {
+        o.x += p[r].x;
+        o.y += p[r].y;
+        o.z += p[r].z;
+        o.w += p[r].w;
+      }
+    }
+    const float L = fmaxf(L_s[row], 1e-30f);
+    store4(out + ((static_cast<size_t>(b) * Sq + i0 + row) * H + h) * D + c4,
+           make_float4(o.x / L, o.y / L, o.z / L, o.w / L));
+  }
+  cluster.sync();  // the other CTAs' partials are read
 }
 
-template <typename T>
+template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int Hkv, int D, int causal, int window,
-           int q_offset, float scale, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * smem_floats(D);
-  auto kernel = flash_attention_kernel<T>;
+           int Sq, int Sk, int H, int Hkv, int causal, int window,
+           int q_offset, float scale, int splits, cudaStream_t stream) {
+  if (splits < 1 || splits > kMaxSplits || (splits & (splits - 1)))
+    return -2;  // a power of two, so that it divides BM
+  constexpr int bytes = Cfg<D>::SMEM_FLOATS * static_cast<int>(sizeof(float));
+  auto kernel = flash_fp32<D, T>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((Sq + kRows - 1) / kRows, H, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, Hkv, D,
-      causal, window, q_offset, scale);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, ((Sq + BM - 1) / BM) * H, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, Hkv, causal,
+      window, q_offset, scale * 1.4426950408889634f);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+int smem_bytes(int D) {
+  switch (D) {
+#define FLASH_CC_CASE(d) \
+  case d:                \
+    return Cfg<d>::SMEM_FLOATS * static_cast<int>(sizeof(float));
+    FLASH_CC_CASE(16)
+    FLASH_CC_CASE(32)
+    FLASH_CC_CASE(64)
+    FLASH_CC_CASE(80)
+    FLASH_CC_CASE(128)
+    FLASH_CC_CASE(256)
+    FLASH_CC_CASE(448)
+#undef FLASH_CC_CASE
+    default:
+      return -1;
+  }
+}
+
+int launch_fp32(const void* q, const void* k, const void* v, void* out,
+                int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
+                int window, int q_offset, float scale, int splits,
+                cudaStream_t s) {
+  switch (D) {
+#define FLASH_CC_CASE(d)                                                   \
+  case d:                                                                  \
+    return launch<d, float>(q, k, v, out, B, Sq, Sk, H, Hkv, causal,       \
+                            window, q_offset, scale, splits, s);
+    FLASH_CC_CASE(16)
+    FLASH_CC_CASE(32)
+    FLASH_CC_CASE(64)
+    FLASH_CC_CASE(80)
+    FLASH_CC_CASE(128)
+    FLASH_CC_CASE(256)
+    FLASH_CC_CASE(448)
+#undef FLASH_CC_CASE
+    default:
+      return -1;
+  }
+}
+
+}  // namespace cc
 
 // ------------------------------------------- bf16: tensor-core kernel
 
@@ -513,9 +853,11 @@ bool tc_head_dim(int D) {
   return D == 16 || D == 32 || D == 64 || D == 80 || D == 128 || D == 256;
 }
 
+
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
-                int window, int q_offset, float scale, cudaStream_t s) {
+                int window, int q_offset, float scale, int splits,
+                cudaStream_t s) {
   switch (D) {
 #define FLASH_TC_CASE(d)                                                   \
   case d:                                                                  \
@@ -528,9 +870,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
     FLASH_TC_CASE(128)
     FLASH_TC_CASE(256)
 #undef FLASH_TC_CASE
+    case 448:
+      return cc::launch<448, __nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv,
+                                            causal, window, q_offset, scale,
+                                            splits, s);
     default:
-      return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv, D,
-                                   causal, window, q_offset, scale, s);
+      return -1;
   }
 }
 
@@ -539,42 +884,49 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // Bytes of dynamic shared memory one CTA needs for dtype (0 fp32, 1 bf16)
-// and head dim D; the wrapper checks it against the card's 227 KB before
-// launching.
+// and head dim D (-1 for a D without an instantiation); the wrapper checks
+// it against the card's 227 KB before launching.
 int flash_attention_smem_bytes(int dtype, int D) {
   if (dtype == 1 && tc_head_dim(D)) return tc_smem_bytes(D);
-  return static_cast<int>(sizeof(float)) * smem_floats(D);
+  return cc::smem_bytes(D);
 }
 
 // Query rows one CTA takes for dtype and D.
 int flash_attention_tile_rows(int dtype, int D) {
-  return dtype == 1 && tc_head_dim(D) ? kTcRows : kRows;
+  return dtype == 1 && tc_head_dim(D) ? kTcRows : cc::BM;
 }
 
 // Which hand-written instantiation runs for dtype and D.
 const char* flash_attention_variant(int dtype, int D) {
   if (dtype == 1 && tc_head_dim(D))
     return "bf16 mma.sync (FlashAttention-2 tiles of 64 rows, p = hi + lo)";
-  return dtype == 1 ? "bf16 CUDA-core fp32 FMAs (16 rows a CTA)"
-                    : "fp32 CUDA-core FMAs (16 rows a CTA)";
+  return dtype == 1
+             ? "bf16 widened to fp32, register-tiled CUDA-core FMAs (32 rows "
+               "a CTA, 64-key tiles, keys split over a cluster)"
+             : "fp32 register-tiled CUDA-core FMAs (32 rows a CTA, 64-key "
+               "tiles, keys split over a cluster)";
 }
 
 // q [B, Sq, H, D], k/v [B, Sk, Hkv, D], out [B, Sq, H, D], all contiguous,
-// 16-byte aligned and of one type, dtype: 0 fp32, 1 bf16.  D a multiple of
-// 8; H a multiple of Hkv.  Query row i sits at q_offset + i.  Returns
-// cudaGetLastError() after the launch, or -1 for a bad dtype code.
+// 16-byte aligned and of one type, dtype: 0 fp32, 1 bf16.  D one of 16,
+// 32, 64, 80, 128, 256, 448; H a multiple of Hkv.  Query row i sits at
+// q_offset + i.  splits (1, 2, 4 or 8: the CTAs of a cluster that share
+// one query tile's keys) is read by the CUDA-core kernel only (fp32, and
+// bf16 at D 448).  Returns cudaGetLastError() after the launch, -1 for a
+// bad dtype code or D, -2 for a bad splits.
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* out, int B, int Sq, int Sk,
                            int H, int Hkv, int D, int causal, int window,
-                           int q_offset, float scale, void* stream) {
+                           int q_offset, float scale, int splits,
+                           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
-                           window, q_offset, scale, s);
+      return cc::launch_fp32(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
+                             window, q_offset, scale, splits, s);
     case 1:
       return launch_bf16(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, window,
-                         q_offset, scale, s);
+                         q_offset, scale, splits, s);
     default:
       return -1;
   }

@@ -12,7 +12,9 @@ bucketed prefill.  The source note in the ``.cu`` file
 says what bounds it on an H100 and what its design does about that.
 Which hand-written instantiation runs is chosen by (dtype, D) in the C
 entry point (``variant`` names it): bf16 on the tensor cores at every head
-dim but 448, fp32 (and bf16 at D 448) on the CUDA cores.
+dim but 448, fp32 (and bf16 at D 448) on the CUDA cores, register-tiled,
+with the keys of a query tile split over a cluster of CTAs by ``plan``
+when the grid would leave the card's SMs idle.
 
 ``flash_attention`` takes the JAX signature plus ``q_offset``.  For
 tensors on the CPU it runs the plain version; for CUDA tensors it
@@ -33,11 +35,14 @@ NEG_INF = -1e30
 # every head dim a ported path needs: the reduced test configs' 16, the
 # kernel tests' 32 and 64, qwen2-0.5b 64, zamba2-2.7b's shared attention
 # 80, llama3.2-3b 128, gemma3-1b 256, and the multimodal encoder at
-# qwen2-0.5b's width with two heads, 448 (the kernel takes D at run time:
-# any multiple of 8 fills whole 16-byte vectors in bf16 and in fp32)
+# qwen2-0.5b's width with two heads, 448 (each has its own instantiation)
 HEAD_DIMS = (16, 32, 64, 80, 128, 256, 448)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 227 * 1024  # per-block dynamic shared memory on Hopper
+# the CUDA-core instantiation's tiles (csrc/flash_attention.cu, cc::BM and
+# cc::BN) and the most CTAs of a cluster that share a query tile's keys
+CC_ROWS, CC_KEYS, MAX_SPLITS = 32, 64, 8
+SMS = 132  # streaming multiprocessors of an H100 SXM (the plan fills them)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -84,7 +89,7 @@ def _lib():
     lib = build.load("flash_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [i32] + [ptr] * 4 + [i32] * 9 + [ctypes.c_float, ptr])
+        [i32] + [ptr] * 4 + [i32] * 9 + [ctypes.c_float, i32, ptr])
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_smem_bytes.argtypes = [i32, i32]
     lib.flash_attention_smem_bytes.restype = i32
@@ -93,6 +98,29 @@ def _lib():
     lib.flash_attention_variant.argtypes = [i32, i32]
     lib.flash_attention_variant.restype = ctypes.c_char_p
     return lib
+
+
+def uses_cuda_cores(D: int, dtype) -> bool:
+    """True where the CUDA-core instantiation runs: fp32 at every D, bf16
+    at D 448 (the tensor-core kernel takes every other bf16 D)."""
+    return dtype == torch.float32 or D == 448
+
+
+@functools.lru_cache(maxsize=1024)  # shapes vary with prompts
+def plan(B: int, Sq: int, Sk: int, H: int) -> int:
+    """Splits of the CUDA-core instantiation, from the shapes alone: the
+    CTAs of a cluster that share one (query tile, head, batch)'s key
+    tiles.  Doubled while the grid stays within the card's ``SMS`` and
+    each split keeps a tile, up to ``MAX_SPLITS`` (the encoder's B 4, S
+    256, two heads: 64 (query tile, head, batch) CTAs, 2 splits, 128
+    CTAs; S 16: one key tile, 1)."""
+    base = -(-Sq // CC_ROWS) * H * B
+    tiles = -(-Sk // CC_KEYS)
+    splits = 1
+    while (2 * splits <= min(tiles, MAX_SPLITS)
+           and 2 * splits * base <= SMS):
+        splits *= 2
+    return splits
 
 
 def smem_bytes(D: int, dtype=torch.bfloat16) -> int:
@@ -161,12 +189,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"flash attention: head dim {D} needs {smem} bytes "
                          f"of shared memory, over {MAX_SMEM_BYTES}")
+    splits = plan(B, Sq, Sk, H) if uses_cuda_cores(D, q.dtype) else 1
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_launch(
             DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B, Sq, Sk, H, Hkv, D, int(bool(causal)),
-            int(window), int(q_offset), D ** -0.5, stream)
+            int(window), int(q_offset), D ** -0.5, splits, stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: error "
                            f"{err}")

@@ -8,6 +8,9 @@ kinds, ``_head_rms`` for qk-norm) and of the multimodal encoder
 (``nn/layers.py:apply_rmsnorm``).  The source note in the ``.cu`` file
 says what bounds it on an H100 and what its design does about that.
 
+``plan`` chooses, from rows, d and x's type alone, how many threads share
+a row and how many of its 16-byte vectors each holds.
+
 ``rmsnorm`` takes the JAX signature.  For tensors on the CPU it runs the
 plain version; for CUDA tensors it launches the kernel or raises, never
 falling back.  It counts its kernel launches in its ``launches``
@@ -24,6 +27,9 @@ from repro_torch.device import on_cpu
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # x and scale types
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MAX_THREADS = 256  # threads a row at most (csrc/rmsnorm.cu kMaxThreads)
+VECTORS = (1, 2, 4, 8)  # the instantiations: 16-byte vectors a thread
 
 
 def rmsnorm_ref(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
@@ -38,6 +44,29 @@ def rmsnorm_ref(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
     return (xf * torch.rsqrt(var + eps) * s).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=1024)  # shapes vary with prompts
+def plan(rows: int, d: int, dtype) -> tuple:
+    """(vectors a thread, threads a row) of the kernel for ``rows`` rows of
+    d values of ``dtype``, from the shapes alone.  Rows that would not
+    give every SM a CTA of 128 threads at 4 vectors a thread (a decode
+    tick, a prefill chunk: the launch's latency sets the time) take one
+    vector a thread, spread over more threads; others take 4, so that
+    each thread keeps 4 loads in flight.  A thread holds more only where
+    a row would need over ``MAX_THREADS`` threads."""
+    nvec = d * (torch.finfo(dtype).bits // 8) // 16
+    if nvec < 1 or nvec > VECTORS[-1] * MAX_THREADS:
+        raise ValueError(f"rmsnorm: rows of {d} {dtype} values: the kernel "
+                         f"takes 1 to {VECTORS[-1] * MAX_THREADS} 16-byte "
+                         "vectors a row")
+
+    def threads(nv):
+        return 1 << max(-(-nvec // nv) - 1, 0).bit_length()
+
+    few = rows * threads(4) < SMS * 128
+    return next((nv, threads(nv)) for nv in VECTORS
+                if nv >= (1 if few else 4) and threads(nv) <= MAX_THREADS)
+
+
 @functools.cache
 def _lib():
     """The built library, with its C signatures declared (pointers and the
@@ -45,7 +74,7 @@ def _lib():
     lib = build.load("rmsnorm")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rmsnorm_launch.argtypes = ([i32, i32] + [ptr] * 3 + [i32] * 2
-                                   + [ctypes.c_float, i32, ptr])
+                                   + [ctypes.c_float] + [i32] * 3 + [ptr])
     lib.rmsnorm_launch.restype = i32
     return lib
 
@@ -79,12 +108,13 @@ def rmsnorm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
     rows = x.numel() // d if d else 0
     if rows == 0:  # nothing to normalize: a launch of 0 CTAs is refused
         return out
+    nv, tpr = plan(rows, d, x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().rmsnorm_launch(
             DTYPES[x.dtype], DTYPES[scale.dtype], x.data_ptr(),
             scale.data_ptr(), out.data_ptr(), rows, d, float(eps),
-            int(bool(zero_centered)), stream)
+            int(bool(zero_centered)), nv, tpr, stream)
     if err != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: error {err}")
     rmsnorm.launches += 1

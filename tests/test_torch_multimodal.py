@@ -556,7 +556,24 @@ GPU_FLASH_CASES = FLASH_CASES + [
     (1, 100, 100, 4, 1, 256, True, 40),    # ragged, windowed, D 256
     (1, 70, 150, 8, 2, 128, True, 0),      # a suffix (q_offset 80), D 128
     (2, 37, 300, 4, 4, 256, True, 0),      # a suffix (q_offset 263), D 256
+    (4, 256, 256, 2, 2, 448, False, 0),    # the encoder's full batch
 ]
+# the CUDA-core (fp32) instantiation at every head dim: ragged Sq = Sk, one
+# query row, a window, a ragged non-causal Sk (q_offset against a cached
+# prefix: tests/test_torch_rmsnorm_flash.py)
+GPU_FLASH_CASES += [case for D in (16, 32, 64, 80, 128, 256, 448)
+                    for case in ((2, 130, 130, 4, 2, D, True, 0),
+                                 (1, 1, 77, 4, 4, D, True, 0),
+                                 (1, 100, 100, 4, 1, D, True, 40),
+                                 (3, 37, 300, 2, 2, D, False, 0))]
+# RMSNorm at every width the port normalizes (qwen2-0.5b and the encoder
+# 896, granite-moe 1024, gemma3-1b 1152 and its qk-norm's 256, llama3.2-3b
+# 3072, zamba2-2.7b 2560 and 5120) and rows 1, 8, 64 and 1024; [1024, 896]
+# in fp32 splits a row's 224 vectors over 64 threads, the last 32 holding
+# 3 of their 4
+GPU_RMS_SHAPES = RMS_SHAPES + [
+    (8, 896), (64, 896), (5, 3, 14, 64), (1, 896), (1024, 896), (8, 1024),
+    (8, 1152), (7, 8, 256), (8, 3072), (8, 2560), (8, 5120), (1, 5120)]
 
 
 @pytest.mark.gpu
@@ -583,8 +600,7 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D,
 @pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("zero_centered", [False, True])
-@pytest.mark.parametrize("shape", RMS_SHAPES + [(8, 896), (64, 896),
-                                                (5, 3, 14, 64)])
+@pytest.mark.parametrize("shape", GPU_RMS_SHAPES)
 def test_rmsnorm_kernel_matches_plain(cuda, shape, zero_centered, dtype,
                                       scale_dtype):
     rng = np.random.default_rng(7)
