@@ -14,7 +14,8 @@ exits non-zero without printing a result:
      ``moe_gmm.cu`` and ``ssd_scan.cu`` for sm_90a, all nvcc runs at once
      (seconds; each kernel's registers, shared memory and spills; where
      ``cuobjdump`` is installed, each library's count of HMMA tensor-core
-     instructions, at least one in ``paged_verify.cu``; which
+     instructions, at least one in ``paged_verify.cu`` and in
+     ``ssd_scan.cu``; which
      instantiation of flash attention, the grouped matmul, paged decode
      and paged verify runs for which dtype and D or C; paged decode's
      launch plan at B 8 and B 1 and paged verify's at the speculative and
@@ -23,10 +24,13 @@ exits non-zero without printing a result:
      at the dense tick, one slot, zamba2-2.7b's and gemma3-1b's shapes;
      flash attention's CUDA-core split plan at the encoder's batches and a
      prefill, RMSNorm's plan (threads a row, vectors a thread) at every
-     width the port normalizes; no register spill in ``paged_decode.cu``
+     width the port normalizes; the SSD scan's kernel for each x type,
+     each pass's shared memory and its plan at zamba2 prefills of 256,
+     768 and 1024 tokens; no register spill in ``paged_decode.cu``
      at D <= 128, nor in ``flash_decode.cu``'s split passes
      (``split_decode.cuh``), nor in flash attention's CUDA-core
-     instantiations (every D up to 448), nor in ``rmsnorm.cu``);
+     instantiations (every D up to 448), nor in ``rmsnorm.cu``, nor in
+     the SSD scan's chunked passes);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (decode also
@@ -57,8 +61,10 @@ exits non-zero without printing a result:
      (decode, verify, chunk and 1024-bucket capacities), C 1, C 17 and a
      split K; the SSD scan,
      y and the final state, in bf16 and fp32, from zeros and from a given
-     state, at the CPU tests' sweep and at zamba2-2.7b's width (80 heads
-     of 64, state 64) over 48-1024 tokens;
+     state, at the CPU tests' sweep, at zamba2-2.7b's width (80 heads
+     of 64, state 64) over 1-1024 tokens, and at the edges of the
+     chunked kernel's tiles (b 2, 64 chunks, p and n off multiples of 8
+     and past one 64-column block);
   4. kernel, plain version and one library call's times at the main
      path's shapes (decode: B 8, B 1 at a 1000-token context, B 8 with
      two free slots; verify: the speculative B 8, T 4, the same with two
@@ -75,8 +81,9 @@ exits non-zero without printing a result:
      verify, chunk and monolithic capacities and qwen2-moe's decode and
      C 88, against ``torch.bmm``; each flash-attention and grouped-matmul
      row names the instantiation that ran; the SSD
-     scan at a zamba2 prefill of 256 and 1024 tokens, which no single
-     PyTorch call computes), beside the least time the card could take,
+     scan at a zamba2 prefill of 256, 768 and 1024 tokens, also by device
+     time and by pass, which no single PyTorch call computes), beside the
+     least time the card could take,
      and the kernel held to its plain version there;
   5. the text path: qwen2-0.5b at full width, cut to its first
      MAIN_LAYERS (12) of 24 layers to keep the run's time (random seeded
@@ -110,7 +117,7 @@ exits non-zero without printing a result:
      under ``torch.profiler`` with the engine's trace spans: device busy
      share, engine-span totals, top kernels by device time, and the device
      time and launches of paged decode's, paged verify's, flash decode's,
-     flash attention's and RMSNorm's kernels;
+     flash attention's, RMSNorm's and the SSD scan's kernels;
   9b. the MoE path: granite-moe-1b-a400m at full width and depth (random
      seeded bf16 weights) serves the 12 text requests through paged
      chunked engines (bf16 and int8 pools), a paged monolithic engine, a
@@ -126,7 +133,10 @@ exits non-zero without printing a result:
      backend with exact-shape monolithic prefill; ssd_scan launches must
      equal 54 x prefills, flash attention 9 x prefills, flash decode 9 x
      decode steps, RMSNorm the norms of every prefill and step; a
-     300-token prompt is refused with the prompt-length ValueError;
+     300-token prompt is refused with the prompt-length ValueError; then
+     one monolithic prefill of the 768-token prompt under
+     ``torch.profiler``: device busy time, the SSD scan's device time,
+     launches and share of it;
   10. reduced qwen2-0.5b, gemma3-1b, granite-moe-1b-a400m and
      qwen2-moe-a2.7b in fp32, and granite-moe with capacity_factor 0.3
      and 16 slots (experts overflow beside free slots), text and
@@ -469,12 +479,17 @@ GMM_CASES += [("C 1", 4, 1, 512, 256), ("C 17", 4, 17, 512, 256),
 # the SSD scan held to its plain version: (b, S, h, p, n, chunk), the CPU
 # tests' sweep (test_kernels.py::test_ssd_scan), then zamba2-2.7b's width
 # (80 heads of 64, state 64) over prompts of 1 token (a chunk of 1, as
-# phase 9c serves), 48, 200, 256 (one chunk), 512, 768 and 1024 tokens
-# (2, 3 and 4 chunks of 256)
+# phase 9c serves), 37, 48, 200, 256 (one chunk), 512, 768 and 1024 tokens
+# (2, 3 and 4 chunks of 256); then the edges of the chunked kernel's
+# tiles: b 2, 64 chunks of state passing (chunk 16 over 1024 tokens), p
+# and n that are not multiples of 8, p past one 64-column block and n
+# past two
 SCAN_CASES = [(b, S, h, p, n, c) for b, S, h, p, n in
               ((2, 64, 4, 16, 8), (1, 128, 2, 32, 16)) for c in (16, 32, 64)]
 SCAN_CASES += [(1, S, 80, 64, 64, 256)
-               for S in (1, 48, 200, 256, 512, 768, 1024)]
+               for S in (1, 37, 48, 200, 256, 512, 768, 1024)]
+SCAN_CASES += [(2, 512, 80, 64, 64, 256), (1, 1024, 80, 64, 64, 16),
+               (1, 48, 3, 24, 12, 16), (1, 256, 4, 128, 136, 64)]
 
 
 def check(cond: bool, msg: str):
@@ -859,9 +874,35 @@ def phase_build():
     print(f"[build]   flash decode: " + (
         f"{len(spills)} split-pass kernels, none spills at D <= 128"
         if spills else "already built, ptxas not rerun"))
-    print("[build]   ssd scan: dynamic shared memory per CTA " + ", ".join(
-        f"chunk {Q}, p {p}, n {n}: {scan_kernel.smem_bytes(Q, p, n)} bytes"
+    print("[build]   ssd scan: " + "; ".join(
+        f"{str(dt)[6:]} x: {scan_kernel.variant(dt)}"
+        for dt in (torch.bfloat16, torch.float32)))
+    print("[build]   ssd scan: dynamic shared memory per CTA " + "; ".join(
+        f"chunk {Q}, p {p}, n {n}: " + ", ".join(
+            f"{name} {nbytes}" for dt in (torch.bfloat16, torch.float32)
+            for name, nbytes in scan_kernel.smem_bytes(Q, p, n, dt).items())
+        + " bytes"
         for Q, p, n in ((256, 64, 64), (64, 16, 8), (16, 16, 16))))
+    for S in (256, 768, 1024):
+        pl = scan_kernel.plan(1, S, 80, 64, 64, min(S, 256))
+        print(f"[build]   ssd scan plan, zamba2 prefill of {S} tokens (b 1, "
+              f"80 heads of 64, state 64, chunk 256), bf16: {pl.chunks} "
+              f"chunks of {pl.per_chunk} blocks of {pl.block} tokens; "
+              f"CTAs: block states {pl.ctas}, state passing "
+              f"{pl.passing_ctas}, block outputs {pl.ctas}; scratch "
+              f"{pl.scratch_bytes} bytes")
+    hmma = hmma_count(infos["ssd_scan"]["path"])
+    check(hmma is None or hmma > 0,
+          "ssd_scan.cu: no HMMA (tensor-core) instruction in its SASS")
+    spills = [(name, D, n) for name, D, n
+              in ptxas_spills(infos["ssd_scan"]["ptxas"])
+              if "ssd_block" in name or "ssd_state" in name]
+    spilled = [f"{name} ({n} bytes)" for name, D, n in spills if n]
+    check(not spilled, "ssd_scan.cu: register spills of the tensor-core "
+          "passes: " + ", ".join(spilled))
+    print("[build]   ssd scan: " + (
+        f"{len(spills)} chunked passes, none spills" if spills
+        else "already built, ptxas not rerun"))
     hmma = hmma_count(infos["paged_verify"]["path"])
     check(hmma is None or hmma > 0,
           "paged_verify.cu: no HMMA (tensor-core) instruction in its SASS")
@@ -1487,20 +1528,21 @@ def phase_timing_new(smi: str) -> dict:
 
 def _time_scan(smi: str) -> dict:
     """The SSD scan at a zamba2-2.7b prefill: b 1, 80 heads of 64, state
-    64, chunk 256, bf16 x, B and C, S 256 (one chunk) and 1024 (four; the
-    kernels-line entry).  Eight input sets are taken in turn, so each call
-    reads its inputs from HBM as a layer of the model does.  The bound
-    counts x, dt, a_neg, B, C, y and the final state once against the
-    causal work: per (head, chunk) Q(Q+1)/2 visible (query, key) pairs of
-    C.B (n multiply-adds each) and of scores.xd (p each), then C.state and
-    the state update (Q n p each), at the bf16 peak (the inputs' type; the
-    kernel's fp32 CUDA-core products are printed against 67 TFLOP/s too).
-    No single PyTorch call computes the scan: there is no library
-    yardstick (library ms: none)."""
+    64, chunk 256, bf16 x, B and C, S 256 (one chunk), 768 (three; phase
+    9c's longest prompt) and 1024 (four; the kernels-line entry), by CUDA
+    events and by device time alone (``device_ms``, with each pass's
+    kernel).  Eight input sets are taken in turn, so each call reads its
+    inputs from HBM as a layer of the model does.  The bound counts x, dt,
+    a_neg, B, C, y and the final state once against the causal work: per
+    (head, chunk) Q(Q+1)/2 visible (query, key) pairs of C.B (n
+    multiply-adds each) and of scores.xd (p each), then C.state and the
+    state update (Q n p each), at the bf16 peak (the inputs' type).  No
+    single PyTorch call computes the scan: there is no library yardstick
+    (library ms: none)."""
     rng = np.random.default_rng(11)
     b, h, p, n, chunk = 1, 80, 64, 64, 256
     out = {}
-    for S in (256, 1024):
+    for S in (256, 768, 1024):
         sets = [scan_inputs(rng, b, S, h, p, n, torch.bfloat16)
                 for _ in range(8)]
         Q = min(chunk, S)
@@ -1511,24 +1553,31 @@ def _time_scan(smi: str) -> dict:
         nops = b * h * (S // Q) * (Q * (Q + 1) * (n + p) + 4 * Q * n * p)
         y, state = ops.ssd_scan(x, dt, a_neg, B, C, chunk=chunk)
         err = hold_scan(y, state, sets[0], chunk, f"timing S={S}")
+        split: dict = {}
         row = {"ms": cuda_ms(lambda i=0: ops.ssd_scan(
                    *sets[i % 8][:5], chunk=chunk), 240),
+               "device_ms": device_ms(lambda i=0: ops.ssd_scan(
+                   *sets[i % 8][:5], chunk=chunk), by_kernel=split),
                "plain_ms": cuda_ms(lambda i=0: ssd_scan_ref(
                    *sets[i % 8][:5], chunk=Q), 24),
                "library_ms": None, "main_shapes_max_abs_err": err}
         bytes_s = nbytes / HBM_BYTES_PER_S
         ops_s = nops / PEAK_OPS_PER_S[torch.bfloat16]
-        fp32_s = nops / PEAK_OPS_PER_S[torch.float32]
         row["bound_ms"] = max(bytes_s, ops_s) * 1e3
         row["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
         print(f"[timing] ssd_scan (zamba2 prefill: b={b} S={S} h={h} p={p} "
-              f"n={n} chunk {Q}, bf16 x): kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library: none (no single PyTorch "
-              f"call computes the SSD scan), bound {row['bound_ms']:.5f} ms "
-              f"({row['bound_by']}; {nbytes} bytes, {nops} operations at "
-              f"the bf16 peak; {fp32_s * 1e3:.5f} ms at fp32's 67 TFLOP/s), "
-              f"{row['bound_ms'] / row['ms']:.2%} of bound; max |err| "
-              f"{err:.3g} vs the plain version ({smi})")
+              f"n={n} chunk {Q}, bf16 x): kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+              f"library: none (no single PyTorch call computes the SSD "
+              f"scan), bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
+              f"{nbytes} bytes, {nops} operations at the bf16 peak), "
+              f"{row['bound_ms'] / row['ms']:.2%} of bound "
+              f"({row['bound_ms'] / row['device_ms']:.2%} by device time); "
+              f"max |err| {err:.3g} vs the plain version ({smi})")
+        if len(split) > 1:
+            print(f"[timing]   ssd_scan (S={S}) device time by kernel: " +
+                  "; ".join(f"{_short(key)} {ms:.4f} ms"
+                            for key, ms in split.items()))
         out["ssd_scan"] = row
         del sets
     return out
@@ -2192,7 +2241,8 @@ def _profile_window(model, params, label, kw, smi: str):
          lambda k: "DenseKeys" in k or "flash_decode_kernel" in k),
         ("flash attention (every instantiation)", "flash_attention",
          lambda k: "flash_fp32" in k or "flash_attention_" in k),
-        ("RMSNorm", "rmsnorm", lambda k: "rmsnorm_kernel" in k))
+        ("RMSNorm", "rmsnorm", lambda k: "rmsnorm_kernel" in k),
+        ("SSD scan (its passes)", "ssd_scan", lambda k: "ssd_" in k))
     for what, name, match in groups:
         sel = [e for e in kernels if match(e.key)]
         print(f"[profile] {label}: {what}: "
@@ -2380,6 +2430,54 @@ def phase_hybrid(model, params, smi: str) -> int:
     return counts["ssd_scan"]
 
 
+def phase_hybrid_profile(model, params, smi: str):
+    """One monolithic prefill of phase 9c's 768-token prompt
+    (``hybrid_prompts``; one new token) under ``torch.profiler`` (device
+    activity only), after the same request once plainly to warm its
+    shapes: the device busy time, and the SSD scan's device time, kernel
+    launches, wrapper calls (one per Mamba2 layer) and share of the busy
+    time."""
+    cfg = model.cfg
+    prompt = max(hybrid_prompts(cfg.vocab), key=len)
+    eng = _engine(model, params, "bf16")
+
+    def prefill(uid):
+        eng.reset_prefix_cache()
+        r = Request(uid, prompt, max_new_tokens=1)
+        eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        check(r.done and len(r.output) == 1, f"prefill {uid}: {r.output}")
+
+    prefill(-3)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        prefill(-4)
+        wall = time.perf_counter() - t0
+    calls = scan_kernel.ssd_scan.launches
+    check(calls == cfg.n_layers, f"the profiled prefill made {calls} "
+          f"ssd_scan calls, want {cfg.n_layers}")
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    check(busy > 0, "the profiler saw no device time")
+    scan = [e for e in kernels if "ssd_" in e.key]
+    scan_ms = sum(dev_us(e) for e in scan) / 1e3
+    print(f"[hybrid] profile of one monolithic prefill of {len(prompt)} "
+          f"tokens: wall {wall * 1e3:.2f} ms under torch.profiler, device "
+          f"busy {busy:.3f} ms; SSD scan {scan_ms:.3f} ms of device time "
+          f"({scan_ms / busy:.1%} of busy), {sum(e.count for e in scan)} "
+          f"kernel launches, {calls} wrapper calls ({smi})")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        print(f"[hybrid]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} x "
+              f"{e.key[:90]}")
+
+
 def hybrid_parity():
     """Reduced zamba2-2.7b in fp32 with scan_chunk 16: 10 text prompts of
     1-64 tokens that obey the prompt-length rule (several chunks; two
@@ -2543,13 +2641,14 @@ def _tree_map(fn, tree):
 
 
 def decode_only(smi: str):
-    """``--decode-only``: the paged kernels' and flash decode's phase-4
-    rows and phase 9's two profiled windows, nothing else and no result
-    line; run from a checkout whose ``src`` is another tree's (an older
+    """``--decode-only``: the paged kernels', flash decode's and the SSD
+    scan's phase-4 rows and phase 9's two profiled windows, nothing else
+    and no result line; run from a checkout whose ``src`` is another tree's (an older
     one's), it measures that tree's kernels with this script's shapes and
     windows."""
     phase_timing(np.random.default_rng(0), smi)
     _time_flash_decode(smi)
+    _time_scan(smi)
     model, params = main_model()
     phase_profile(model, params, smi)
 
@@ -2594,6 +2693,7 @@ def main():
     with timed("hybrid path"):
         hybrid, hybrid_params = hybrid_model()
         hybrid_launches = phase_hybrid(hybrid, hybrid_params, smi)
+        phase_hybrid_profile(hybrid, hybrid_params, smi)
         del hybrid, hybrid_params
     with timed("reduced parity"):
         phase_reduced_parity()
@@ -2631,7 +2731,8 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             # the device time alone (torch.profiler) of the kernel and of
-            # the library call, where phase 4 took it (not the SSD scan's)
+            # the library call, where phase 4 took it (the SSD scan has no
+            # library call)
             "device_ms": t.get("device_ms"),
             "library_device_ms": t.get("library_device_ms")})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,24 +1,37 @@
-"""Mamba2 SSD chunked scan: the wrapper of the hand-written CUDA kernel
-``csrc/ssd_scan.cu`` and its plain PyTorch version.
+"""Mamba2 SSD chunked scan: the wrapper of the hand-written CUDA kernels
+``csrc/ssd_scan.cu``, their plain PyTorch version and the launch plan.
 
-The kernel replaces the Pallas TPU kernel ``ssd_scan_tpu``
-(``repro/kernels/mamba2_scan.py:60``).  The port calls it from
+The kernels replace the Pallas TPU kernel ``ssd_scan_tpu``
+(``repro/kernels/mamba2_scan.py:60``).  The port calls them from
 ``models/mamba2.py:mamba2_forward``, once per Mamba2 layer of a prefill.
-Its contract is that of the JAX package's ``ssd_chunked``
+Their contract is that of the JAX package's ``ssd_chunked``
 (``repro/models/mamba2.py:51``), which ``mamba2_forward`` consumes: y in
 fp32, the final state as a second output, and an optional initial state
 (``ssd_scan_tpu`` rounds y to x's type, returns no state and starts from
-zeros).  The source note in the ``.cu`` file says what bounds it on an
-H100 and what its design does about that.
+zeros).  The source note in the ``.cu`` file says what bounds them on an
+H100 and what the design does about that.
+
+Two hand-written kernels, chosen by x's dtype (``variant`` names them):
+bf16 x, B and C run three passes from one C call, each chunk cut into
+blocks of 64 tokens, parallel over the blocks, every product on the
+tensor cores: each block's own state, the state passing in block order,
+and each block's outputs.  ``plan`` gives their grids and the scratch
+the wrapper allocates for them (each block's own state and decay in
+fp32 from pass 1, the state entering each block as bf16 hi and lo from
+pass 2) from the shapes alone: the wrapper reads nothing on the host
+and never synchronises.  fp32 x runs the first version's walk (one CTA
+a head, chunks in order, fp32 FMAs), needing no scratch.
 
 ``ssd_scan`` takes ``ssd_chunked``'s signature.  For tensors on the CPU
-it runs the plain version; for CUDA tensors it launches the kernel or
-raises, never falling back.  It counts its kernel launches in its
-``launches`` attribute (a plain integer).
+it runs the plain version; for CUDA tensors it launches the kernels or
+raises, never falling back.  It counts its calls that launch in its
+``launches`` attribute (a plain integer): one per call, whether the call
+runs one kernel or three.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -28,6 +41,51 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # x, B and C
 MAX_SMEM_BYTES = 227 * 1024  # per-block dynamic shared memory on Hopper
+BLOCK = 64  # tokens of a block: the bf16 kernel cuts each chunk in these
+PASS_THREADS = 256  # threads a CTA of the state passing
+# the passes of each kernel, as ssd_scan_smem_bytes numbers them
+PASSES = {torch.float32: {"walk": 0},
+          torch.bfloat16: {"block states": 1, "state passing": 2,
+                           "block outputs": 3}}
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the bf16 kernel cuts one call of chunk Q: ``chunks`` = S / Q,
+    each in ``per_chunk`` blocks of up to ``block`` tokens, ``blocks`` in
+    all; passes 1 and 3 run one CTA per (head, block, batch), ``ctas``;
+    pass 2 ``passing_ctas`` of PASS_THREADS threads, one thread per
+    (batch, head, state element), walking the blocks in order.  The
+    scratch, ``scratch_bytes`` in all: the state entering each block as
+    bf16 hi and lo ``split_shape`` [b, blocks, h, 2, p, n], each block's
+    own state ``states_shape`` [b, blocks, h, p, n] and its decay
+    exponent ``decay_shape`` [b, blocks, h] in fp32."""
+    chunks: int
+    block: int
+    per_chunk: int
+    blocks: int
+    ctas: int
+    passing_ctas: int
+    split_shape: tuple
+    states_shape: tuple
+    decay_shape: tuple
+    scratch_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, S: int, h: int, p: int, n: int, Q: int) -> Plan:
+    """The bf16 kernel's launch plan from the shapes alone (S a multiple
+    of Q, as ``chunk_length`` gives it)."""
+    if Q < 1 or S % Q:
+        raise ValueError(f"ssd_scan plan: S {S} is not a multiple of Q {Q}")
+    nc = S // Q
+    per_chunk = -(-Q // BLOCK)
+    nb = nc * per_chunk
+    units = b * nb * h
+    return Plan(nc, BLOCK, per_chunk, nb, units,
+                b * h * -(-(p * n) // PASS_THREADS),
+                (b, nb, h, 2, p, n), (b, nb, h, p, n), (b, nb, h),
+                units * (2 * 2 * p * n + 4 * p * n + 4))
 
 
 def segsum(a):
@@ -86,19 +144,37 @@ def _lib():
     stream as ``c_void_p``, so ctypes does not cut them to 32 bits)."""
     lib = build.load("ssd_scan")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_launch.argtypes = [i32] + [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.ssd_scan_launch.argtypes = [i32] + [ptr] * 9 + [i32] * 6 + [ptr]
     lib.ssd_scan_launch.restype = i32
-    lib.ssd_scan_smem_bytes.argtypes = [i32, i32, i32]
+    lib.ssd_scan_smem_bytes.argtypes = [i32] * 4
     lib.ssd_scan_smem_bytes.restype = i32
     lib.ssd_scan_max_chunk.argtypes = []
     lib.ssd_scan_max_chunk.restype = i32
+    lib.ssd_scan_block.argtypes = []
+    lib.ssd_scan_block.restype = i32
+    lib.ssd_scan_variant.argtypes = [i32]
+    lib.ssd_scan_variant.restype = ctypes.c_char_p
+    lib.ssd_scan_scratch_bytes.argtypes = [i32] * 6
+    lib.ssd_scan_scratch_bytes.restype = ctypes.c_longlong
+    if lib.ssd_scan_block() != BLOCK:
+        raise RuntimeError("ssd_scan: the library's block differs from the "
+                           "plan's")
     return lib
 
 
-def smem_bytes(Q: int, p: int, n: int) -> int:
-    """Dynamic shared memory one CTA of the kernel takes for chunk Q, head
-    dim p and state n (from the built library)."""
-    return _lib().ssd_scan_smem_bytes(Q, p, n)
+@functools.lru_cache(maxsize=None)
+def smem_bytes(Q: int, p: int, n: int, dtype=torch.bfloat16) -> dict:
+    """Dynamic shared memory one CTA of each pass of x's ``dtype`` takes
+    for chunk Q, head dim p and state n (from the built library): pass
+    name -> bytes."""
+    lib = _lib()
+    return {name: lib.ssd_scan_smem_bytes(code, Q, p, n)
+            for name, code in PASSES[dtype].items()}
+
+
+def variant(dtype=torch.bfloat16) -> str:
+    """Which hand-written kernel runs for x's ``dtype``."""
+    return _lib().ssd_scan_variant(DTYPES[dtype]).decode()
 
 
 def chunk_length(S: int, chunk: int, what: str = "chunk") -> int:
@@ -148,7 +224,7 @@ def _check(x, dt, a_neg, B, C, init_state, Q):
     if Q > lib.ssd_scan_max_chunk():
         raise ValueError(f"ssd_scan: chunk {Q} over the kernel's "
                          f"{lib.ssd_scan_max_chunk()}")
-    smem = smem_bytes(Q, p, n)
+    smem = max(smem_bytes(Q, p, n, x.dtype).values())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"ssd_scan: chunk {Q}, p {p}, n {n} need {smem} "
                          f"bytes of shared memory, over {MAX_SMEM_BYTES}")
@@ -172,13 +248,19 @@ def ssd_scan(x, dt, a_neg, B, C, *, chunk: int = 256, init_state=None):
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if b == 0 or h == 0:  # a launch of 0 CTAs is refused
         return y, final
+    scratch = None
+    if x.dtype == torch.bfloat16:
+        scratch = torch.empty(plan(b, S, h, p, n, Q).scratch_bytes,
+                              dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().ssd_scan_launch(
             DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(),
             B.data_ptr(), C.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), final.data_ptr(), b, S, h, p, n, Q, stream)
+            y.data_ptr(), final.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, S, h, p, n,
+            Q, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: error {err}")
     ssd_scan.launches += 1
