@@ -137,6 +137,24 @@ exits non-zero without printing a result:
      one monolithic prefill of the 768-token prompt under
      ``torch.profiler``: device busy time, the SSD scan's device time,
      launches and share of it;
+  9d. the continuum: fig10's fleet (benchmarks/fig10_continuum_replay.py)
+     at full width and depth on the card, one cloud llama3.2-3b (28
+     layers, bf16 pool) and two edge qwen2-0.5b (24 layers, int8 pools),
+     seeded weights drawn on the card, the handles' own settings
+     (max_batch 2, max_seq 96, page 16, prefill_chunk 64), through
+     ``serving/cluster.py``; fig10's smoke budget (32 users of
+     ``generate(0, 200)``, an arrival every 0.01 virtual s) replayed under
+     all-cloud, greedy and fig10's QLMIO rule (a numpy copy) at quality
+     weight 1.0: every request gets its full budget, QLMIO's mean e2e is
+     below all-cloud's at a completion rate >= 0.95 x its, each policy's
+     decisions equal its decisions under the cost-model backend, and each
+     kernel's launches equal what the fleet's steps imply; then two
+     full-width qwen2-0.5b handles sharing weights migrate a decoding
+     request (``Cluster.migrate`` after 3 tokens) bf16 -> bf16 and
+     int8 -> int8 with chunked and monolithic prefill (the single-engine
+     run's tokens, no prefill on the destination, page counters and bytes
+     = pages x page_bytes()), and bf16 -> int8 and int8 -> bf16 (full
+     budget, agreement with the unmigrated stream printed);
   10. reduced qwen2-0.5b, gemma3-1b, granite-moe-1b-a400m and
      qwen2-moe-a2.7b in fp32, and granite-moe with capacity_factor 0.3
      and 16 slots (experts overflow beside free slots), text and
@@ -182,7 +200,9 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.data.taskgen import make_taskset  # noqa: E402
+from repro_torch.core.baselines import (all_cloud_policy,  # noqa: E402
+                                        greedy_policy)
+from repro_torch.data.taskgen import CATEGORIES, make_taskset  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, moe_gmm  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
@@ -204,10 +224,19 @@ from repro_torch.kernels.ssd_scan import ssd_scan_ref  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import mm_encoder as enc  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.serving.cluster import (CLASS_ARCHS,  # noqa: E402
+                                        Cluster, EngineBackend,
+                                        EngineHandle,
+                                        build_continuum)
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.serving.request import ContinuumRequest  # noqa: E402
 from repro_torch.serving.segments import (EmbedSegment,  # noqa: E402
                                           TextSegment)
 from repro_torch.serving.telemetry import Telemetry  # noqa: E402
+from repro_torch.sim import cost_model as cm  # noqa: E402
+from repro_torch.sim.cemllm import (make_servers_from_spec,  # noqa: E402
+                                    run_policy)
+from repro_torch.sim.miobench import SERVER_CLASSES, generate  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet (dense): HBM rate and peak operation rates
 # (bf16: the tensor cores, on which flash attention and the grouped matmul
@@ -321,6 +350,15 @@ MOE_ARCH = "granite-moe-1b-a400m"
 MOE_DRAFT_LAYERS = 4
 # the hybrid path (phase 9c): zamba2-2.7b at full width and depth
 HYBRID_ARCH = "zamba2-2.7b"
+# the continuum (phase 9d): fig10's spec (one cloud llama3.2-3b, two edge
+# qwen2-0.5b) and smoke budget (benchmarks/fig10_continuum_replay.py:43-52):
+# 32 users of generate(seed=0, n_tasks=200), an arrival every 0.01 virtual s
+CONTINUUM_SPEC = [(2, 1), (1, 1), (0, 1)]
+CONTINUUM_TASKS = 200
+CONTINUUM_USERS = 32
+CONTINUUM_ARRIVAL_DT = 0.01
+# decode tokens a request has before Cluster.migrate moves it (phase 9d)
+MIGRATE_AFTER = 3
 # the edge encoder of the multimodal path: fig11's settings at qwen2-0.5b's
 # width (benchmarks/fig11_multimodal_split.py:78), fp32, seeded params
 ENC_CFG = enc.MMEncoderConfig(d_model=896, img_size=32, patch=8,
@@ -2618,6 +2656,297 @@ def phase_reduced_parity():
                       f"on the card")
 
 
+def analytic_predictors(bench):
+    """fig10's idealized MILP/MGQP (benchmarks/fig10_continuum_replay.py:62,
+    a numpy copy: this script imports nothing of the JAX package): the
+    cost model evaluated without noise, [n_tasks, n_classes] latency
+    estimates and success probabilities."""
+    C = len(SERVER_CLASSES)
+    aff = cm.category_affinity(len(CATEGORIES), C)
+    t_hat = np.zeros((bench.tasks.n, C))
+    b_hat = np.zeros((bench.tasks.n, C))
+    for c, (dev, mdl) in enumerate(SERVER_CLASSES):
+        t_hat[:, c] = cm.latency_s(cm.DEVICES[dev], cm.MODELS[mdl],
+                                   bench.tasks.text_len,
+                                   bench.tasks.difficulty)
+        b_hat[:, c] = cm.success_prob(cm.MODELS[mdl], bench.tasks.difficulty,
+                                      aff[bench.tasks.category, c])
+    return t_hat, b_hat
+
+
+def qlmio_policy(t_hat, b_hat, servers, w):
+    """fig10's QLMIO scoring rule (router Eq. 21 shape) over episode state
+    (benchmarks/fig10_continuum_replay.py:79, a numpy copy)."""
+    cls = servers.cls
+
+    def policy(ep):
+        total = t_hat[ep.current_task, cls] + ep.queue_s
+        u = -total / max(total.min(), 1e-6) + w * (
+            3.0 * b_hat[ep.current_task, cls] - 2.0)
+        return int(np.argmax(u))
+
+    return policy
+
+
+def recorded(policy, picks: list):
+    """``policy``, appending each decision to ``picks``."""
+    def wrapped(ep):
+        picks.append(policy(ep))
+        return picks[-1]
+
+    return wrapped
+
+
+def fleet_launches(handles) -> dict:
+    """The kernel launches the handles' engine steps imply, summed over
+    the fleet, as phases 5 and 8 count them: paged decode n_layers a decode
+    step and paged verify n_layers a prefill chunk, each in its pool's
+    instance, flash attention n_layers a monolithic prefill, RMSNorm the
+    norms of every step, chunk and prefill."""
+    want = {n: 0 for n in WRAPPERS}
+    for h in handles:
+        cfg, st = h.cfg, h.engine.stats()
+        steps, chunks = st["decode_steps"], st["prefill_chunks"]
+        prefills = st["prefills"]
+        check(st["verify_steps"] == 0,
+              f"{h.name}: {st['verify_steps']} verify passes")
+        q = "_quant" if h.kv_dtype == "int8" else ""
+        want[f"paged_decode{q}"] += cfg.n_layers * steps
+        want[f"paged_verify{q}"] += cfg.n_layers * chunks
+        want["flash_attention"] += cfg.n_layers * prefills
+        want["rmsnorm"] += norms_per_step(cfg) * (steps + chunks + prefills)
+    return want
+
+
+def replay(cluster, bench, servers, tasks, policy) -> dict:
+    """One fig10 replay (benchmarks/fig10_continuum_replay.py:128-141)
+    with every launch count set to 0 just before and read just after:
+    run_policy's aggregates, the per-server requests, tokens, charged
+    engine steps, the wall seconds, the launches and what the fleet's
+    steps imply.  Every request must finish with its full budget of
+    in-vocabulary tokens."""
+    cluster.reset()
+    gc.collect()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    backend = EngineBackend(cluster, bench, servers,
+                            arrival_dt=CONTINUUM_ARRIVAL_DT)
+    out = run_policy(policy, bench, servers, tasks,
+                     np.random.default_rng(1), backend=backend)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = {n: w.launches for n, w in WRAPPERS.items()}
+    handles = cluster.handles
+    out["want"] = fleet_launches(handles)
+    out["per_server_requests"] = [
+        h.engine.latency_stats()["n_requests"] for h in handles]
+    out["tokens_generated"] = sum(len(r.output) for h in handles
+                                  for r in h.engine.finished)
+    out["handle_steps"] = cluster.handle_steps
+    out["decode_steps"] = sum(h.engine.stats()["decode_steps"]
+                              for h in handles)
+    out["prefill_chunks"] = sum(h.engine.stats()["prefill_chunks"]
+                                for h in handles)
+    recs = cluster.collect()
+    check(len(recs) == len(tasks), f"{len(recs)} records of {len(tasks)}")
+    for rec in recs:
+        req = cluster.records[rec["uid"]]["req"]
+        vocab = handles[rec["server"]].cfg.vocab
+        check(req.done and len(req.output) == req.max_new_tokens
+              and not rec["timeout"],
+              f"request {rec['uid']} on server {rec['server']}: "
+              f"{len(req.output)} of {req.max_new_tokens} tokens, "
+              f"timeout {rec['timeout']}")
+        check(all(0 <= t < vocab for t in req.output),
+              f"request {rec['uid']}: token id out of range")
+    return out
+
+
+def continuum_fleet():
+    """fig10's continuum (CONTINUUM_SPEC) at full width and depth on the
+    card: one cloud llama3.2-3b (bf16 pool) and two edge qwen2-0.5b (int8
+    pools), weights drawn on the card from seeds 0, 1 and 2, the handles'
+    own settings (max_batch 2, max_seq 96, page 16, prefill_chunk 64)."""
+    configs = {a: get_config(a) for a in CLASS_ARCHS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = build_continuum(CONTINUUM_SPEC, seed=0, configs=configs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for h in handles:
+        e, cfg = h.engine, h.cfg
+        n = sum(t.numel() for t in _leaves(e.params))
+        print(f"[continuum] {h.name}: {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.hd}, vocab {cfg.vocab}, {n / 1e9:.3f} B parameters in "
+              f"bf16; {h.kv_dtype} pool of {e.pool.num_pages} pages of "
+              f"{e.page_size}, max_batch {e.max_batch}, max_seq "
+              f"{e.max_seq}, prefill_chunk {e.prefill_chunk}; profiled "
+              f"decode tick {h.decode_tick_s * 1e3:.3f} ms, prefill "
+              f"{h.prefill_tok_s * 1e6:.3f} us a token (virtual)")
+    print(f"[continuum] fleet built with seeded weights drawn on the card "
+          f"in {secs:.2f} s")
+    return handles
+
+
+def phase_continuum(smi: str):
+    """fig10's smoke budget replayed over live full-width engines on the
+    card under all-cloud, greedy and fig10's QLMIO rule at quality weight
+    1.0.  Checks: every request gets its full budget; QLMIO's mean e2e is
+    below all-cloud's at a completion rate of at least 0.95 x its; the
+    greedy policy's decisions equal its decisions under the cost-model
+    backend; each kernel's launches equal what the fleet's steps
+    imply."""
+    handles = continuum_fleet()
+    cluster = Cluster(handles)
+    # one short request per handle first, so no replay pays the first
+    # cuBLAS calls (cluster.reset() then clears the metrics and tries)
+    for s, h in enumerate(handles):
+        cluster.submit(ContinuumRequest(tokens=np.arange(1, 30),
+                                        max_new_tokens=3, task=s, server=s))
+    cluster.drain()
+    bench = generate(seed=0, n_tasks=CONTINUUM_TASKS)
+    servers = make_servers_from_spec(CONTINUUM_SPEC, bench)
+    t_hat, b_hat = analytic_predictors(bench)
+    tasks = np.random.default_rng(0).choice(bench.tasks.n, CONTINUUM_USERS,
+                                            replace=False)
+    results = {}
+    for name, policy in [
+            ("all_cloud", all_cloud_policy(servers)),
+            ("greedy", greedy_policy()),
+            ("qlmio", qlmio_policy(t_hat, b_hat, servers, 1.0))]:
+        picks, cost_picks = [], []
+        r = replay(cluster, bench, servers, tasks, recorded(policy, picks))
+        run_policy(recorded(policy, cost_picks), bench, servers, tasks,
+                   np.random.default_rng(1))
+        check(picks == cost_picks, f"{name}: decisions under the engine "
+              f"backend {picks} differ from the cost-model backend's "
+              f"{cost_picks}")
+        check(r["launches"] == r["want"], f"{name} replay launched "
+              f"{r['launches']}, the fleet's steps imply {r['want']}")
+        results[name] = r
+        print(f"[continuum] {name}: avg e2e {r['avg_latency_s']:.4f} s, p95 "
+              f"e2e {r['p95_latency_s']:.4f} s, avg TTFT "
+              f"{r['avg_ttft_s']:.4f} s (virtual), completion "
+              f"{r['completion_rate']:.4f}; per-server requests "
+              f"{r['per_server_requests']}, {r['tokens_generated']} tokens, "
+              f"{r['handle_steps']} engine steps ({r['decode_steps']} decode "
+              f"steps, {r['prefill_chunks']} prefill chunks); decisions = "
+              f"the cost-model backend's; replay {r['wall_s']:.3f} s wall on "
+              f"the card; launches " + ", ".join(
+                  f"{n} {c}" for n, c in r["launches"].items() if c)
+              + f" = the fleet's steps ({smi})")
+    q, ac = results["qlmio"], results["all_cloud"]
+    red = 1.0 - q["avg_latency_s"] / ac["avg_latency_s"]
+    comp = q["completion_rate"] / max(ac["completion_rate"], 1e-9)
+    check(q["avg_latency_s"] < ac["avg_latency_s"],
+          f"QLMIO {q['avg_latency_s']:.4f} s is not below all-cloud "
+          f"{ac['avg_latency_s']:.4f} s")
+    check(comp >= 0.95, f"QLMIO's completion is {comp:.4f} x all-cloud's")
+    print(f"[continuum] QLMIO vs all-cloud: mean e2e {red:.1%} lower, "
+          f"completion {comp:.4f} x ({CONTINUUM_USERS} users of "
+          f"generate(0, {CONTINUUM_TASKS}), arrival_dt "
+          f"{CONTINUUM_ARRIVAL_DT}) ({smi})")
+    del cluster, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def twin_cluster(params, cfg, kv_dtypes, chunk) -> Cluster:
+    """Two cloud-class handles of ``cfg`` sharing ``params`` (the KV- and
+    weight-compatible pair fig12 migrates between), with the given pools
+    and prefill chunk."""
+    dev, prof = SERVER_CLASSES[-1]
+    return Cluster([EngineHandle(
+        f"twin-{i} ({kv})", cfg.name, cm.DEVICES[dev], cm.MODELS[prof],
+        is_cloud=True, config=cfg, params=params, kv_dtype=kv,
+        prefill_chunk=chunk) for i, kv in enumerate(kv_dtypes)])
+
+
+def phase_migration(smi: str):
+    """Decode-phase migration between two full-width qwen2-0.5b handles
+    on the card (``Cluster.migrate`` after MIGRATE_AFTER tokens) for
+    bf16 -> bf16 and int8 -> int8 pools with chunked and monolithic
+    prefill: the tokens must equal the single-engine run's, the
+    destination runs no prefill pass, and the export/import page counters
+    and bytes equal pages x page_bytes().  bf16 -> int8 and int8 -> bf16
+    must serve the full budget; their agreement with the unmigrated
+    stream is printed."""
+    cfg = get_config("qwen2-0.5b")
+    params = build_model(cfg).init(0, device="cuda")
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, cfg.vocab, n) for n in (40, 48, 21)]
+    cases = [(("bf16", "bf16"), 64), (("bf16", "bf16"), 0),
+             (("int8", "int8"), 64), (("int8", "int8"), 0),
+             (("bf16", "int8"), 64), (("int8", "bf16"), 64)]
+    for kv_dtypes, chunk in cases:
+        cl = twin_cluster(params, cfg, kv_dtypes, chunk)
+        src, dst = cl.handles
+        for prompt in prompts:
+            cl.reset()
+            uid = cl.submit(ContinuumRequest(tokens=prompt, max_new_tokens=10,
+                                             task=0, server=0))
+            cl.drain()
+            base = cl.records[uid]["req"].output
+            cl.reset()
+            for w in WRAPPERS.values():
+                w.launches = 0
+            uid = cl.submit(ContinuumRequest(tokens=prompt, max_new_tokens=10,
+                                             task=0, server=0))
+            req = cl.records[uid]["req"]
+            while len(req.output) < MIGRATE_AFTER:
+                cl.advance_to(cl.t + src.decode_tick_s)
+            j = len(req.output)
+            move = cl.migrate(uid, 1)
+            cl.drain()
+            rec = cl.collect()[0]
+            counts = {n: w.launches for n, w in WRAPPERS.items()}
+            want = fleet_launches(cl.handles)
+            check(counts == want, f"migration {kv_dtypes} launched "
+                  f"{counts}, the steps imply {want}")
+            s_st, d_st = src.engine.stats(), dst.engine.stats()
+            n_ctx = len(prompt) + j - 1
+            pages = -(-n_ctx // dst.engine.page_size)
+            check(req.done and len(req.output) == 10 and not rec["timeout"]
+                  and rec["server"] == 1,
+                  f"migrated request: {len(req.output)} tokens, server "
+                  f"{rec['server']}")
+            check(d_st["prefill_chunks"] == d_st["prefills"] == 0
+                  and d_st["prefill_tokens_computed"] == 0,
+                  f"the destination ran a prefill pass: {d_st}")
+            check(s_st["kv_exported_pages"] == d_st["kv_imported_pages"]
+                  == move["pages"] == pages
+                  and s_st["kv_export_bytes"]
+                  == pages * src.engine.page_bytes()
+                  and d_st["kv_import_bytes"] == move["bytes"]
+                  == pages * dst.engine.page_bytes(),
+                  f"page counters: exported {s_st['kv_exported_pages']} "
+                  f"({s_st['kv_export_bytes']} B), imported "
+                  f"{d_st['kv_imported_pages']} ({d_st['kv_import_bytes']} "
+                  f"B), move {move}, want {pages} pages")
+            same = sum(a == b for a, b in zip(req.output, base))
+            exact = kv_dtypes[0] == kv_dtypes[1]
+            if exact:
+                check(req.output == base,
+                      f"{kv_dtypes} chunk {chunk}: migrated {req.output} != "
+                      f"single-engine {base}")
+            print(f"[migrate] {kv_dtypes[0]} -> {kv_dtypes[1]}, prefill "
+                  f"chunk {chunk or 'monolithic'}, prompt {len(prompt)}: "
+                  f"moved after {j} tokens, {pages} pages, "
+                  f"{s_st['kv_export_bytes']} B exported, "
+                  f"{d_st['kv_import_bytes']} B imported, link "
+                  f"{move['migrate_s'] * 1e3:.3f} ms (virtual); destination "
+                  f"ran no prefill; {same}/10 tokens equal the unmigrated "
+                  f"stream{' (checked)' if exact else ''}; "
+                  f"e2e {rec['e2e_s']:.4f} s (virtual) ({smi})")
+        del cl, src, dst
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2695,6 +3024,11 @@ def main():
         hybrid_launches = phase_hybrid(hybrid, hybrid_params, smi)
         phase_hybrid_profile(hybrid, hybrid_params, smi)
         del hybrid, hybrid_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timed("continuum"):
+        phase_continuum(smi)
+        phase_migration(smi)
     with timed("reduced parity"):
         phase_reduced_parity()
         hybrid_parity()

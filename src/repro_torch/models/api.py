@@ -2,10 +2,10 @@
 zamba2 hybrid: spec/init, the paged and dense KV cache layouts, monolithic
 prefill (with embedding spans and, on a prefix-cache hit, against cached
 prefix K/V), chunked prefill into either cache, the batched paged and
-dense decode steps and the speculative verify step (ports of
-``repro/models/api.py``).  The dense decode step serves the engine's
-dense backend and the speculative draft model; its attention runs the
-flash-decode kernel on the card.
+dense decode steps, the speculative verify step and the export and import
+of a request's pages (ports of ``repro/models/api.py``).  The dense
+decode step serves the engine's dense backend and the speculative draft
+model; its attention runs the flash-decode kernel on the card.
 
 zamba2 (``block_kind="mamba_hybrid"``) has the dense cache only, with
 exact-shape monolithic prefill, as in the JAX package: conv windows
@@ -45,7 +45,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.quant import quantize_kv
+from repro_torch.kernels.quant import dequantize_kv, quantize_kv
 from repro_torch.kernels.ssd_scan import chunk_length
 from repro_torch.models import lm
 from repro_torch.models import mamba2 as m2
@@ -170,6 +170,59 @@ class Model:
         axes."""
         cfg = self.cfg
         return (cfg.n_layers, cfg.n_kv_heads, cfg.hd)
+
+    def export_paged_kv(self, cache, pages) -> dict:
+        """Gather ``pages`` (a request's block table, in logical block
+        order) out of the paged pool to the host: one CPU tensor per cache
+        leaf, page axis in logical block order — ``k_pages``/``v_pages``
+        [L, NB, bs, Hkv, Dh] plus ``k_scales``/``v_scales`` [L, NB, bs,
+        Hkv] for an int8 pool.  The storage form is copied verbatim (bf16
+        rows, or int8 rows and fp32 scales; numpy has no bfloat16, so the
+        host form is torch's), so a same-precision import reads the
+        source's bits.  The copy is complete when this returns
+        (``Tensor.cpu`` waits for the card), so the caller may release the
+        pages after it."""
+        dev = cache["k_pages"].device
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=dev)
+        return {name: leaf[:, idx].cpu() for name, leaf in cache.items()}
+
+    def import_paged_kv(self, cache, pages, leaves, src_dtype: str, *,
+                        from_block: int = 0):
+        """Scatter exported logical blocks ``[from_block, from_block +
+        len(pages))`` of ``leaves`` (``export_paged_kv``'s layout) into
+        this pool at page ids ``pages``, converting precision where the
+        source form differs from the pool's:
+
+          * int8 -> int8 and bf16 -> bf16: the rows (and scales) verbatim;
+          * bf16 -> int8: ``quantize_kv``, the engine's own write recipe;
+          * int8 -> bf16: ``dequantize_kv`` to bf16.
+
+        The pool is updated in place; returns the cache dict."""
+        quant = "k_scales" in cache
+        lo, hi = from_block, from_block + len(pages)
+        dev = cache["k_pages"].device
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=dev)
+
+        def blocks(name):
+            return leaves[name][:, lo:hi].to(dev)
+
+        if src_dtype == "int8" and quant:
+            upd = {name: blocks(name) for name in _QUANT_NAMES}
+        elif src_dtype == "int8":
+            upd = {name: dequantize_kv(blocks(name), blocks(sname),
+                                       dtype=torch.bfloat16)
+                   for name, sname in (("k_pages", "k_scales"),
+                                       ("v_pages", "v_scales"))}
+        elif quant:
+            k8, ks = quantize_kv(blocks("k_pages"))
+            v8, vs = quantize_kv(blocks("v_pages"))
+            upd = {"k_pages": k8, "v_pages": v8,
+                   "k_scales": ks, "v_scales": vs}
+        else:
+            upd = {name: blocks(name) for name in _NAMES}
+        for name, val in upd.items():
+            cache[name][:, idx] = val.to(cache[name].dtype)
+        return cache
 
     # ------------------------------------------------------------ prefill
     def prefill(self, params, batch):

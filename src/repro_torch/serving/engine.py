@@ -53,10 +53,21 @@ qwen2-moe), as target or as draft: the engine itself has no MoE branch,
 only the model's layers differ.  Speculation and embedding spans need the
 attention family, so zamba2 refuses both, as in the JAX package.
 
+Disaggregated prefill/decode (paged backend): a decoding request can be
+checkpointed as a ``KVSnapshot`` (``export_kv``; its pages copied to host
+tensors) or evacuated between ticks (``evacuate``), and a request carrying
+a snapshot, submitted to another engine, is admitted straight into decode
+phase: its pages are adopted into the local pool (converted to the local
+``kv_dtype``), its prompt blocks re-registered in the prefix trie, no
+prefill pass, and decode resumes at exactly ``output[-1]``.
+
+Admission batching (``sorted_batch_sizes``, ``max_live_batches``,
+``batching_wait_secs``) admits queued requests in groups on the engine
+clock, as the JAX engine does.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the xlstm and encoder-decoder (whisper) families, tensor-parallel
-meshes (``mesh``), admission batching (``sorted_batch_sizes``), and KV
-snapshot export/import (``export_kv``, ``evacuate``, imported requests).
+item): the xlstm and encoder-decoder (whisper) families and
+tensor-parallel meshes (``mesh``).
 """
 from __future__ import annotations
 
@@ -123,9 +134,14 @@ class Request:
                                                       repr=False)
     imported: "KVSnapshot | None" = dataclasses.field(default=None,
                                                       repr=False)
-    # per-token delivery callback (one StreamEvent per decoded token)
+    # per-token delivery callback (one StreamEvent per decoded token);
+    # survives evacuate/resubmit, so a migrated request keeps streaming to
+    # the same consumer with contiguous indices
     stream: "Callable[[StreamEvent], None] | None" = \
         dataclasses.field(default=None, repr=False)
+    # admission-group id under the batching knobs (None = admitted on the
+    # unrestricted path); engine-internal
+    group: "int | None" = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         if self.segments is None:
@@ -211,9 +227,6 @@ class ServingEngine:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if mesh is not None:
             raise _unported("tensor-parallel serving (mesh)", "item 12")
-        if sorted_batch_sizes is not None:
-            raise _unported("admission batching (sorted_batch_sizes)",
-                            "item 5")
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(
                 f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
@@ -245,6 +258,25 @@ class ServingEngine:
                                else 2 * max(prefill_chunk, 1))
         self.min_bucket = min_bucket
         self.prefill_tasks: list[_PrefillTask | None] = [None] * max_batch
+        # ---- saxml-style admission batching (None = per-request)
+        if sorted_batch_sizes is not None:
+            sizes = sorted(set(int(b) for b in sorted_batch_sizes))
+            if not sizes or sizes[0] < 1:
+                raise ValueError("sorted_batch_sizes needs sizes >= 1, got "
+                                 f"{sorted_batch_sizes!r}")
+            if sizes[-1] > max_batch:
+                raise ValueError(
+                    f"sorted_batch_sizes max {sizes[-1]} exceeds "
+                    f"max_batch={max_batch}")
+            sorted_batch_sizes = sizes
+        self.sorted_batch_sizes = sorted_batch_sizes
+        self.max_live_batches = max_live_batches
+        self.batching_wait_secs = float(batching_wait_secs)
+        self._group_left: dict[int, int] = {}  # group id -> unfinished
+        self._next_group = 0
+        self._admit_quota: "int | None" = None  # per-tick, set in step()
+        self._cur_group: "int | None" = None
+        self._admission_held = False  # tick ended with queue held back
         # distinct shapes handed to each step: the JAX engine's trace
         # counters, kept with their keys; eager torch compiles nothing, so
         # they count shape buckets
@@ -258,14 +290,15 @@ class ServingEngine:
         self._c_submitted = m.counter("requests_submitted")
         self._c_finished = m.counter("requests_finished")
         self._c_decode_tokens = m.counter("decode_tokens")
-        # KV snapshot traffic (disaggregated prefill/decode) and the
-        # admission-group sizes under the saxml batching knobs: the JAX
-        # engine registers them in every engine; they stay 0 / empty here
-        # until KV export/import and admission batching are ported
-        for name in ("kv_exported_pages", "kv_imported_pages",
-                     "kv_export_bytes", "kv_import_bytes"):
-            m.counter(name)
-        m.histogram("batch_admit_size")
+        # KV snapshot traffic (disaggregated prefill/decode): pages and
+        # bytes exported to / imported from other engines, at this
+        # engine's own page precision
+        self._c_kv_exported_pages = m.counter("kv_exported_pages")
+        self._c_kv_imported_pages = m.counter("kv_imported_pages")
+        self._c_kv_export_bytes = m.counter("kv_export_bytes")
+        self._c_kv_import_bytes = m.counter("kv_import_bytes")
+        # admission-group sizes under the batching knobs
+        self._h_admit_size = m.histogram("batch_admit_size")
         # batched decode steps run: the kernel launch count of a tick is
         # n_layers per step, which is how a run proves it used the kernel
         self._c_decode_steps = m.counter("decode_steps")
@@ -626,13 +659,22 @@ class ServingEngine:
         for slot in range(self.max_batch):
             if self.slots[slot] is not None or not self.queue:
                 continue
+            if self._admit_quota is not None and self._admit_quota <= 0:
+                break  # this tick's admission group is full
             req = self.queue.popleft()
+            if req.imported is not None:
+                if self._admit_imported(slot, req):
+                    self._tag_group(req)
+                    continue
+                self.queue.appendleft(req)
+                break  # out of pages: wait for running requests to finish
             admit = self._admit_paged if self.paged else self._admit_dense
             first = admit(slot, req)
             if first is None:
                 self.queue.appendleft(req)
                 break  # out of pages: wait for running requests to finish
             self._progress = True
+            self._tag_group(req)
             self._activate(slot, req, first)
 
     def _free_slot(self, slot: int):
@@ -644,16 +686,133 @@ class ServingEngine:
             self.pos[slot] = 0
 
     # ------------------- KV snapshot export / import (disaggregation)
-    def export_kv(self, uid: int) -> KVSnapshot:
-        raise _unported("KV snapshot export (export_kv)", "item 5")
+    def slot_of_request(self, uid: int) -> "int | None":
+        """Decode slot currently holding request ``uid``, or None.  A
+        request mid-chunked-prefill is not found (``slots[slot]`` stays
+        None until promotion), so a hit means the request is exportable."""
+        for i, r in enumerate(self.slots):
+            if r is not None and r.uid == uid:
+                return i
+        return None
 
-    def evacuate(self, uid: int):
-        raise _unported("KV snapshot export (evacuate)", "item 5")
+    def export_kv(self, uid: int) -> KVSnapshot:
+        """Checkpoint a decoding request's KV state as a ``KVSnapshot``
+        (a host copy; the request keeps running here).
+
+        The snapshot covers every cache position written so far, the
+        prompt plus the generated tokens already fed back through the
+        model (positions ``[0, pos)``), and carries the prompt's
+        prefix-trie chain hashes so the importer can re-register (or
+        dedupe against) its own trie.  The pages are retained until the
+        device->host copy is complete, so an eviction on this engine
+        cannot recycle one mid-export."""
+        if not self.paged:
+            raise ValueError("export_kv needs the paged cache backend")
+        slot = self.slot_of_request(uid)
+        if slot is None:
+            raise ValueError(
+                f"request {uid} is not in decode phase on this engine "
+                "(queued, mid-prefill, or finished)")
+        req = self.slots[slot]
+        bs = self.page_size
+        n_ctx = int(self.pos[slot])
+        pages = list(self.block_tables[slot].pages[:ceil_blocks(n_ctx, bs)])
+        for p in pages:
+            self.pool.retain(p)
+        try:
+            leaves = self.model.export_paged_kv(self.cache, pages)
+        finally:
+            for p in pages:
+                self.pool.release(p)
+        toks = np.asarray(req.tokens, np.int64)
+        n_out = n_ctx - len(toks)
+        tokens = np.concatenate(
+            [toks, np.asarray(req.output[:n_out], np.int64)])
+        snap = KVSnapshot(tokens=tokens, n_prompt=len(toks), block_size=bs,
+                          kv_dtype=self.kv_dtype,
+                          geometry=self.model.kv_geometry, leaves=leaves,
+                          prefix_hashes=BlockPool.chain_hashes(toks, bs),
+                          src_pages=pages)
+        self._c_kv_exported_pages.inc(len(pages))
+        self._c_kv_export_bytes.inc(len(pages) * self.page_bytes())
+        return snap
+
+    def evacuate(self, uid: int) -> "tuple[Request, KVSnapshot]":
+        """Checkpoint a decoding request and remove it from this engine,
+        freeing its slot and pages.  The returned ``Request`` carries the
+        snapshot in ``req.imported`` and can be submitted to another
+        KV-compatible engine, which resumes decode at exactly
+        ``output[-1]``.  The request is not added to ``finished``; the
+        caller owns it."""
+        snap = self.export_kv(uid)
+        slot = self.slot_of_request(uid)
+        req = self.slots[slot]
+        req.imported = snap
+        self._release_group(req)  # it will not finish on this engine
+        self._free_slot(slot)
+        return req, snap
+
+    def _admit_imported(self, slot: int, req: Request) -> bool:
+        """Admit a snapshot-carrying request straight into decode phase:
+        adopt its pages into this pool (prefix-trie hits served from the
+        local cache, the rest imported and converted to this engine's
+        ``kv_dtype``) and install the slot at the snapshot's position, no
+        prefill pass.  False => the pool cannot cover it yet (the caller
+        requeues it).
+
+        Decode writes land at logical block ``pos // page_size`` with
+        ``pos >= num_tokens >= n_prompt``, past every block registered in
+        the trie here, so the adopted pages need no copy-on-write."""
+        snap = req.imported
+        n_ctx = snap.num_tokens
+        nb = snap.num_pages
+        hits = (self.pool.peek_hashes(snap.prefix_hashes)
+                if self.prefix_caching else [])
+        need = self._total_blocks(req) - len(hits)
+        need += sum(1 for p in hits if self.pool.ref[p] == 0)
+        if self.pool.num_free() - self._growth_outstanding() < need:
+            return False
+        table = BlockTable(self.pool)
+        if self.prefix_caching:
+            table.pages = self.pool.lookup_hashes(snap.prefix_hashes)
+        n_hit = len(table.pages)
+        try:
+            table.ensure_capacity(n_ctx)
+        except OutOfPagesError:  # admission control should prevent this
+            table.free()
+            return False
+        if n_hit < nb:
+            self.cache = self.model.import_paged_kv(
+                self.cache, table.pages[n_hit:nb], snap.leaves,
+                snap.kv_dtype, from_block=n_hit)
+        if self.prefix_caching:
+            self.pool.register_blocks(
+                snap.prefix_hashes, table.pages[:len(snap.prefix_hashes)])
+        self.block_tables[slot] = table
+        self.tables[slot] = table.as_row(self.max_blocks)
+        self.slots[slot] = req
+        self.pos[slot] = n_ctx
+        self.budget[slot] = req.max_new_tokens - len(req.output)
+        req.t_admit = self._now()
+        self._c_kv_imported_pages.inc(nb - n_hit)
+        self._c_kv_import_bytes.inc((nb - n_hit) * self.page_bytes())
+        self._c_prefix_reused.inc(n_hit * self.page_size)
+        if self.speculative:
+            # the snapshot carries no draft-model state: rebuild it by
+            # draft-prefilling the context (prompt + emitted tokens)
+            self._draft_install(slot, snap.tokens)
+        self._progress = True
+        return True
 
     # -------------------------------------------------- chunked prefill
     def _start_prefill(self, slot: int, req: Request) -> bool:
         """Begin a chunked prefill in ``slot``; False => requeued (the pool
         cannot cover the request yet)."""
+        if req.imported is not None:
+            if not self._admit_imported(slot, req):
+                self.queue.appendleft(req)
+                return False
+            return True
         if self.paged:
             reserved = self._reserve_table(req)
             if reserved is None:
@@ -728,7 +887,8 @@ class ServingEngine:
             # admit at most one request per round, then advance every
             # in-flight prefill, so a prompt admitted behind a finished one
             # sees its freshly registered prefix blocks
-            if not blocked and self.queue:
+            if (not blocked and self.queue
+                    and (self._admit_quota is None or self._admit_quota > 0)):
                 free = next((i for i in range(self.max_batch)
                              if self.slots[i] is None
                              and self.prefill_tasks[i] is None), None)
@@ -736,6 +896,7 @@ class ServingEngine:
                     req = self.queue.popleft()
                     if self._start_prefill(free, req):
                         progressed = True
+                        self._tag_group(req)
                     else:
                         blocked = True
             for slot in range(self.max_batch):
@@ -765,6 +926,66 @@ class ServingEngine:
         self._c_stream_tokens.inc()
         req.stream(StreamEvent(uid=req.uid, index=idx, token=tok, t_emit=t,
                                first=idx == 0, final=final))
+
+    # ------------------------------------------------ batched admission
+    def _compute_admit_quota(self) -> "int | None":
+        """Queued requests that may start prefill this tick under the
+        batching knobs (None = unlimited).  Sets ``_admission_held`` when
+        the knobs, not resource pressure, hold the queue back."""
+        self._admission_held = False
+        if self.sorted_batch_sizes is None:
+            return None
+        if not self.queue:
+            return 0
+        if (self.max_live_batches is not None
+                and len(self._group_left) >= self.max_live_batches):
+            self._admission_held = True
+            return 0
+        n = len(self.queue)
+        full = max((b for b in self.sorted_batch_sizes if b <= n), default=0)
+        if full:
+            return full  # fill the largest bucket the queue can cover
+        # a partial group is released only once the oldest queued request
+        # has waited out batching_wait_secs on the engine clock; its bucket
+        # is the smallest allowed size >= n, so no group exceeds its bucket
+        if (self._now() - self.queue[0].t_submit
+                >= self.batching_wait_secs - 1e-12):
+            return n
+        self._admission_held = True
+        return 0
+
+    def _tag_group(self, req: Request):
+        """Book a just-admitted request into this tick's admission group
+        (live-group accounting for ``max_live_batches``) and spend one of
+        the tick's quota."""
+        if self.sorted_batch_sizes is None:
+            return
+        if self._cur_group is None:
+            self._cur_group = self._next_group
+            self._next_group += 1
+            self._group_left[self._cur_group] = 0
+            self._cur_size = 0
+        req.group = self._cur_group
+        self._group_left[self._cur_group] += 1
+        self._cur_size += 1
+        self._admit_quota -= 1
+
+    def _close_admit_group(self):
+        if self._cur_group is not None:
+            self._h_admit_size.observe(self._cur_size)
+            self._cur_group = None
+
+    def _release_group(self, req: Request):
+        """Retire a request from its admission group; a group with no
+        request left frees a ``max_live_batches`` place."""
+        if req.group is None:
+            return
+        left = self._group_left.get(req.group, 1) - 1
+        if left <= 0:
+            self._group_left.pop(req.group, None)
+        else:
+            self._group_left[req.group] = left
+        req.group = None
 
     # ------------------------------------------------------------- public
     def busy(self) -> bool:
@@ -802,9 +1023,6 @@ class ServingEngine:
                     f"request {req.uid}: segment features of dim "
                     f"{req.features.shape[1]} do not match the model's "
                     f"d_model={self.model.cfg.d_model}")
-        if req.imported is not None:
-            raise _unported("admission from an imported KV snapshot",
-                            "item 5")
         if len(req.tokens) > self.max_seq - 1:
             raise ValueError(
                 f"request {req.uid}: prompt of {len(req.tokens)} tokens "
@@ -817,6 +1035,10 @@ class ServingEngine:
         # zamba2: a prompt past scan_chunk must be whole chunks (the JAX
         # engine fails the same prompt at admission, with an assertion)
         self.model.check_prompt_length(len(req.tokens))
+        if req.imported is not None:
+            self._check_import(req)
+        # a migrated request keeps its original submit stamp, so queue time
+        # and e2e span the source engine too (a shared clock base)
         if not req.token_times:
             req.t_submit = self._now()
         self._c_submitted.inc()
@@ -826,15 +1048,46 @@ class ServingEngine:
         self.queue.append(req)
         return req
 
+    def _check_import(self, req: Request):
+        """Refuse a snapshot this engine cannot adopt: another backend,
+        KV geometry, page size or capacity, or a request not mid-decode."""
+        snap = req.imported
+        if not self.paged:
+            raise ValueError(
+                f"request {req.uid}: KV snapshot import needs the paged "
+                "cache backend")
+        if snap.geometry != self.model.kv_geometry:
+            raise ValueError(
+                f"request {req.uid}: snapshot KV geometry {snap.geometry} "
+                f"does not match this engine's {self.model.kv_geometry}")
+        if snap.block_size != self.page_size:
+            raise ValueError(
+                f"request {req.uid}: snapshot block_size {snap.block_size} "
+                f"!= engine page_size {self.page_size}")
+        if snap.num_tokens > self.max_seq - 1:
+            raise ValueError(
+                f"request {req.uid}: snapshot of {snap.num_tokens} tokens "
+                f"exceeds max_seq={self.max_seq} - 1")
+        if not req.output or req.done:
+            raise ValueError(
+                f"request {req.uid}: a snapshot-carrying request must be "
+                "mid-decode (non-empty output, not done)")
+
     def _finish(self, req: Request):
         """Request complete: move to ``finished``, fold its latencies into
-        the registry histograms and emit its lifecycle spans."""
+        the registry histograms and emit its lifecycle spans.  A migrated
+        request's queue and prefill ran on the source engine (its t_admit
+        here postdates its first token), so only its decode span and its
+        end-to-end latencies are recorded here."""
         req.done = True
         self.finished.append(req)
         self._c_finished.inc()
+        self._release_group(req)
         tt = req.token_times
+        imported = req.imported is not None
         ta = req.t_admit if req.t_admit >= req.t_submit else req.t_submit
-        self._h_queue.observe(ta - req.t_submit)
+        if not imported:
+            self._h_queue.observe(ta - req.t_submit)
         self._h_ttft.observe(tt[0] - req.t_submit)
         self._h_e2e.observe(tt[-1] - req.t_submit)
         if len(tt) > 1:
@@ -842,9 +1095,11 @@ class ServingEngine:
         tr = self._tr
         if tr is not None:
             pid, tid = self._pid, req.uid
-            tr.span("queue", "lifecycle", req.t_submit, ta, pid=pid, tid=tid)
-            tr.span("prefill", "lifecycle", ta, tt[0], pid=pid, tid=tid,
-                    args={"prompt_tokens": len(req.tokens)})
+            if not imported:
+                tr.span("queue", "lifecycle", req.t_submit, ta, pid=pid,
+                        tid=tid)
+                tr.span("prefill", "lifecycle", ta, tt[0], pid=pid, tid=tid,
+                        args={"prompt_tokens": len(req.tokens)})
             tr.span("decode", "lifecycle", tt[0], tt[-1], pid=pid, tid=tid,
                     args={"new_tokens": len(req.output)})
 
@@ -933,10 +1188,12 @@ class ServingEngine:
         decode step for every fully-prefilled slot.  Returns the number of
         occupied slots; a no-op returning 0 when there is no work."""
         self._progress = False
+        self._admit_quota = self._compute_admit_quota()
         if self.chunked:
             self._schedule_prefill()
         else:
             self._admit()
+        self._close_admit_group()
         self._g_queue_depth.set(len(self.queue))
         active = [i for i, r in enumerate(self.slots) if r is not None]
         n_prefilling = sum(t is not None for t in self.prefill_tasks)
@@ -1116,8 +1373,9 @@ class ServingEngine:
         tr.counter("batch_occupancy", now,
                    {"decoding": n_active, "prefilling": n_prefilling},
                    pid=self._pid)
-        tr.counter("queue_depth", now, {"queued": len(self.queue)},
-                   pid=self._pid)
+        tr.counter("queue_depth", now,
+                   {"queued": len(self.queue),
+                    "live_batches": len(self._group_left)}, pid=self._pid)
         if self.paged:
             tr.counter("kv_pages", now,
                        {"in_use": self.pool.pages_in_use(),
@@ -1129,8 +1387,22 @@ class ServingEngine:
         the finished requests (``keep_finished=True`` also leaves them on
         ``self.finished``).  ``max_ticks`` bounds the ticks of this call."""
         drain_deadline = self.ticks + max_ticks
+        spins = 0  # ticks spent holding admission (batching knobs)
         while self.busy():
             if self.step() == 0 and self.queue and not self._progress:
+                if self._admission_held:
+                    # the batching knobs, not resource pressure, hold the
+                    # queue: a wall clock lets the wait elapse; a virtual
+                    # clock needs an external driver, so the spinning is
+                    # bounded instead of diagnosed as out of pages
+                    spins += 1
+                    if spins > max(max_ticks, 100_000):
+                        raise RuntimeError(
+                            "engine did not drain: admission held by the "
+                            "batching knobs but the clock never advanced "
+                            "(virtual-clock engines must be driven "
+                            "externally when batching_wait_secs > 0)")
+                    continue
                 # nothing active yet admission failed: the head request can
                 # never fit (its worst case exceeds the whole pool)
                 head = self.queue[0]

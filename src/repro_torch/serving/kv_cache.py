@@ -50,6 +50,7 @@ import dataclasses
 from collections import OrderedDict, deque
 
 import numpy as np
+import torch
 
 NULL_PAGE = 0
 
@@ -57,6 +58,12 @@ NULL_PAGE = 0
 # position, per kv head) fp32 scale the int8 layout adds
 KV_DTYPE_BYTES = {"bf16": 2, "int8": 1}
 SCALE_ITEMSIZE = 4
+# a KVSnapshot's host form: its leaves and their dtypes per precision
+SNAPSHOT_FORMS = {"bf16": {"k_pages": torch.bfloat16,
+                           "v_pages": torch.bfloat16},
+                  "int8": {"k_pages": torch.int8, "v_pages": torch.int8,
+                           "k_scales": torch.float32,
+                           "v_scales": torch.float32}}
 
 
 def ceil_blocks(n_tokens: int, block_size: int) -> int:
@@ -336,7 +343,7 @@ class KVSnapshot:
     request — the unit of cross-engine migration.
 
     The engine exports a snapshot by gathering the request's contiguous
-    logical block range to host numpy (refcounts held during the gather;
+    logical block range to host tensors (refcounts held during the gather;
     the snapshot is a *copy*, so source-side eviction or page recycling
     can never corrupt it), and a foreign engine adopts it straight into
     decode phase: resident prompt blocks are reused from the receiving
@@ -345,12 +352,14 @@ class KVSnapshot:
     re-registered under the carried chain hashes.
 
     ``leaves`` holds the page contents in the source pool's storage form,
-    keyed like the device cache (``k_pages``/``v_pages`` ``[L, NB, bs,
-    Hkv, Dh]``, plus ``k_scales``/``v_scales`` ``[L, NB, bs, Hkv]`` for
-    int8) with the page axis in *logical block order* — block ``j`` of
-    ``tokens`` lives at index ``j``, so the implied block-table row is
-    ``arange(NB)`` and the importer never needs the source's page ids
-    (``src_pages`` rides along for provenance only).
+    as CPU torch tensors (numpy has no bfloat16; bf16 rows, or int8 rows
+    and fp32 scales, bit for bit), keyed like the device cache
+    (``k_pages``/``v_pages`` ``[L, NB, bs, Hkv, Dh]``, plus
+    ``k_scales``/``v_scales`` ``[L, NB, bs, Hkv]`` for int8) with the
+    page axis in *logical block order* — block ``j`` of ``tokens`` lives
+    at index ``j``, so the implied block-table row is ``arange(NB)`` and
+    the importer never needs the source's page ids (``src_pages`` rides
+    along for provenance only).
     """
 
     tokens: np.ndarray  # [n_ctx] int64 key ids of every written position
@@ -358,7 +367,7 @@ class KVSnapshot:
     block_size: int
     kv_dtype: str  # storage form of ``leaves`` ("bf16" | "int8")
     geometry: "tuple[int, int, int]"  # (n_layers, n_kv_heads, head_dim)
-    leaves: "dict[str, np.ndarray]"
+    leaves: "dict[str, torch.Tensor]"
     prefix_hashes: "list[int]"  # chain hash per full *prompt* block
     src_pages: "list[int]" = dataclasses.field(default_factory=list)
 
@@ -370,6 +379,14 @@ class KVSnapshot:
         if got != want:
             raise ValueError(f"KVSnapshot: k_pages shape {got} does not "
                              f"match geometry/context {want}")
+        forms = SNAPSHOT_FORMS.get(self.kv_dtype)
+        if forms is None:
+            raise ValueError(f"KVSnapshot: kv_dtype {self.kv_dtype!r}")
+        got = {n: (t.dtype, t.device.type) if isinstance(t, torch.Tensor)
+               else type(t).__name__ for n, t in self.leaves.items()}
+        if got != {n: (dt, "cpu") for n, dt in forms.items()}:
+            raise ValueError(f"KVSnapshot: {self.kv_dtype} leaves must be "
+                             f"CPU tensors {forms}, got {got}")
         if len(self.prefix_hashes) != full_blocks(self.n_prompt,
                                                   self.block_size):
             raise ValueError(

@@ -2,9 +2,10 @@
 the same request streams give identical ``Request.output`` and identical
 page-bookkeeping stats, with bf16 and int8 pools.  int8 runs are held to
 the JAX int8 engine, never to a bf16 one.  Also: unported knobs raise
-``NotImplementedError`` (media requests, the dense backend and monolithic
-prefill no longer do), the port imports neither JAX nor the JAX package,
-and an engine with no device named needs a CUDA card."""
+``NotImplementedError`` (media requests, the dense backend, monolithic
+prefill, admission batching and KV snapshot export no longer do), the
+port imports neither JAX nor the JAX package, and an engine with no
+device named needs a CUDA card."""
 import ast
 import pathlib
 
@@ -103,17 +104,18 @@ def test_engine_matches_jax(need_jax, arch, kv_dtype, workload):
         assert ts["prefix_hits"] > 0 and ts["prefix_tokens_reused"] >= 3 * 24
 
 
-# registered by the JAX engine for KV export/import and admission
-# batching (repro/serving/engine.py); the port registers them too and
-# leaves them at 0 / empty until those are ported
-UNPORTED_STATS = ("kv_exported_pages", "kv_imported_pages",
+# moved only by KV export/import and admission batching
+# (repro/serving/engine.py), which the workload below uses neither of:
+# both engines leave them at 0 / empty (tests/test_torch_disagg.py moves
+# them)
+SNAPSHOT_STATS = ("kv_exported_pages", "kv_imported_pages",
                   "kv_export_bytes", "kv_import_bytes", "batch_admit_size")
 
 
 def test_stats_have_the_jax_engines_keys(need_jax):
     """The same reduced qwen2-0.5b workload drained through both engines:
     every key of the JAX engine's ``stats()`` is in the port's, and the
-    five metrics of the unported paths agree."""
+    five metrics of KV export/import and admission batching agree."""
     cfg = jreduced(jget_config("qwen2-0.5b"), act_dtype="float32")
     jmodel = jbuild(cfg)
     jparams = jmodel.init(jax.random.PRNGKey(0), param_dtype=jnp.float32)
@@ -128,8 +130,8 @@ def test_stats_have_the_jax_engines_keys(need_jax):
     assert got == want
     js, ts = jeng.stats(), eng.stats()
     assert sorted(set(js) - set(ts)) == []
-    assert {k: ts[k] for k in UNPORTED_STATS} == \
-        {k: js[k] for k in UNPORTED_STATS}
+    assert {k: ts[k] for k in SNAPSHOT_STATS} == \
+        {k: js[k] for k in SNAPSHOT_STATS}
     assert ts["kv_exported_pages"] == 0 and ts["kv_import_bytes"] == 0
 
 
@@ -183,15 +185,31 @@ def _reduced_engine(arch="qwen2-0.5b", **kw):
     dict(paged=False, kv_dtype="int8"),  # refused as by the JAX engine
     # a recurrent draft: refused as by the JAX engine
     dict(draft_config=reduced(get_config("zamba2-2.7b"))),
-    dict(mesh=object()), dict(sorted_batch_sizes=[1, 2])])
+    dict(mesh=object()),
+    # admission batching is ported: served (tests/test_torch_disagg.py
+    # holds its groups to the JAX engine's)
+    dict(sorted_batch_sizes=[1, 2], max_live_batches=1)])
 def test_unported_knobs_raise(knob):
     """Knobs the port does not serve raise: unported ones
     ``NotImplementedError`` naming their ROADMAP item; an int8 dense cache
     and a draft outside the attention family ``ValueError``, as in the JAX
     engine (test_kv_quant.py:183-186, engine.py's draft check).  The dense
-    backend and monolithic prefill of the attention family, MoE drafts and
-    zamba2 are ported (tests/test_torch_dense_engine.py,
-    test_moe_draft_is_served, tests/test_torch_mamba2.py)."""
+    backend and monolithic prefill of the attention family, MoE drafts,
+    zamba2 and admission batching are ported
+    (tests/test_torch_dense_engine.py, test_moe_draft_is_served,
+    tests/test_torch_mamba2.py, tests/test_torch_disagg.py); the batching
+    knobs are served here."""
+    if "sorted_batch_sizes" in knob:
+        eng = _reduced_engine(**knob)
+        reqs = [Request(i, np.arange(5 + 7 * i) % 97, max_new_tokens=3)
+                for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        assert all(r.done and len(r.output) == 3 for r in reqs)
+        # one live group at a time, each the largest bucket the queue fills
+        assert eng.metrics.histogram("batch_admit_size").values == [2, 1]
+        return
     refused = {"kv_dtype": "paged", "draft_config": "attention-family"}
     for key, match in refused.items():
         if key in knob:
@@ -229,8 +247,10 @@ def test_moe_draft_is_served():
 
 
 def test_unported_requests_raise():
-    """KV snapshot export still raises; a media request, once unported,
-    is now accepted and served to its budget."""
+    """A media request, once unported, is accepted and served to its
+    budget; KV snapshot export, once unported, refuses a request that is
+    not decoding with the JAX engine's ValueError (tests/test_torch_disagg.py
+    exports decoding ones)."""
     from repro_torch.serving.segments import EmbedSegment, TextSegment
     eng = _reduced_engine()
     media = Request(0, segments=[EmbedSegment(np.zeros((3, 64),
@@ -240,9 +260,9 @@ def test_unported_requests_raise():
     assert eng.submit(media) is media
     eng.run_until_drained()
     assert media.done and len(media.output) == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.export_kv(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not in decode phase"):
+        eng.export_kv(0)  # finished
+    with pytest.raises(ValueError, match="not in decode phase"):
         eng.evacuate(0)
 
 
