@@ -155,6 +155,22 @@ exits non-zero without printing a result:
      run's tokens, no prefill on the destination, page counters and bytes
      = pages x page_bytes()), and bf16 -> int8 and int8 -> bf16 (full
      budget, agreement with the unmigrated stream printed);
+  9e. the paper's learning pipeline (``core/``) on the card: the frozen
+     ViT-B/16 and DistilBERT encoders at the "paper" profile (seeded
+     weights drawn on the card) turn all 3,377 tasks of ``generate(0)``
+     into features (finite, [3377, 768]; seconds, tasks a second, peak
+     memory, the encoders' device time at one batch against the fp32
+     bound); the same weights drawn on the CPU give the CPU's features on
+     the card (8 tasks, 1e-4 of the RMS); MILP and MGQP train at
+     benchmarks/common.py's "paper" budget (50 epochs, batch 256, the
+     8:1:1 split; each loss falls, MGQP's train accuracy > 0.55, MILP's
+     train MAE below the mean predictor's); the D3QN QLMIO agent trains
+     on their predictions at examples/quickstart.py's budget (5 servers,
+     120 episodes of 15 users) and is evaluated beside All-Cloud, Greedy
+     and Random (printed only); tests/test_core.py's oracle run (40
+     episodes of 10 users) beats Random and learns; one Predictor step
+     and one D3QNAgent step on the card equal the CPU's from the same
+     weights and batch; none of the port's kernels is launched;
   10. reduced qwen2-0.5b, gemma3-1b, granite-moe-1b-a400m and
      qwen2-moe-a2.7b in fp32, and granite-moe with capacity_factor 0.3
      and 16 slots (experts overflow beside free slots), text and
@@ -200,9 +216,16 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core import encoders  # noqa: E402
 from repro_torch.core.baselines import (all_cloud_policy,  # noqa: E402
-                                        greedy_policy)
-from repro_torch.data.taskgen import CATEGORIES, make_taskset  # noqa: E402
+                                        evaluate_heuristics, greedy_policy)
+from repro_torch.core.d3qn import D3QNAgent, D3QNConfig  # noqa: E402
+from repro_torch.core.feature_store import compute_features  # noqa: E402
+from repro_torch.core.predictors import (Predictor,  # noqa: E402
+                                         PredictorConfig)
+from repro_torch.core.qlmio import QLMIO, QLMIOConfig  # noqa: E402
+from repro_torch.data.taskgen import (CATEGORIES, make_taskset,  # noqa: E402
+                                      splits)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, moe_gmm  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
@@ -234,8 +257,9 @@ from repro_torch.serving.segments import (EmbedSegment,  # noqa: E402
                                           TextSegment)
 from repro_torch.serving.telemetry import Telemetry  # noqa: E402
 from repro_torch.sim import cost_model as cm  # noqa: E402
-from repro_torch.sim.cemllm import (make_servers_from_spec,  # noqa: E402
-                                    run_policy)
+from repro_torch.nn.spec import init_params, tree_leaves  # noqa: E402
+from repro_torch.sim.cemllm import (make_servers,  # noqa: E402
+                                    make_servers_from_spec, run_policy)
 from repro_torch.sim.miobench import SERVER_CLASSES, generate  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet (dense): HBM rate and peak operation rates
@@ -359,6 +383,31 @@ CONTINUUM_USERS = 32
 CONTINUUM_ARRIVAL_DT = 0.01
 # decode tokens a request has before Cluster.migrate moves it (phase 9d)
 MIGRATE_AFTER = 3
+# the paper's learning pipeline (phase 9e): features of every MIOBench
+# task (LEARN_TASKS None: all 3,377) at the "paper" encoder profile;
+# MILP/MGQP at benchmarks/common.py's "paper" budget (50 epochs, batch
+# 256, seed 0); QLMIO at examples/quickstart.py's (5 servers, 120
+# episodes of 15 users, eps_decay_steps 900, 10 evaluation trials);
+# tests/test_core.py's learning run (300 tasks, "tiny" features, oracle
+# predictions, 40 episodes of 10 users, eps_decay_steps 250, batch 64)
+LEARN_PROFILE = "paper"
+LEARN_TASKS = None
+LEARN_BATCH = 128
+LEARN_EPOCHS = 50
+QS_SERVERS, QS_EPISODES, QS_USERS, QS_TRIALS = 5, 120, 15, 10
+ORACLE_TASKS, ORACLE_PROFILE = 300, "tiny"
+# encoder features, card against CPU on the same weights, of their RMS
+# (12 fp32 layers whose products cuBLAS and the CPU's BLAS sum in other
+# orders; TF32 off)
+ENC_PARITY_TASKS = 8
+ENC_PARITY_RTOL = 1e-4
+# one Adam step, card against CPU from the same weights and batch: the
+# loss, and each gradient, of the network's largest gradient; each
+# parameter within 1e-6 + 2 lr min(1, STEP_GRAD_RTOL s / |g|) (Adam
+# divides a gradient by its own magnitude: a gradient at rounding level
+# moves its value by up to lr either way; tests/test_torch_core_qlmio.py)
+STEP_RTOL = 1e-5
+STEP_GRAD_RTOL = 1e-5
 # the edge encoder of the multimodal path: fig11's settings at qwen2-0.5b's
 # width (benchmarks/fig11_multimodal_split.py:78), fp32, seeded params
 ENC_CFG = enc.MMEncoderConfig(d_model=896, img_size=32, patch=8,
@@ -2947,6 +2996,349 @@ def phase_migration(smi: str):
     torch.cuda.empty_cache()
 
 
+def encoder_flops(p) -> "tuple[float, float]":
+    """Operations (2 per multiply-add) of one task through the frozen ViT
+    and BERT of profile ``p``: the patch projection, each layer's q, k, v,
+    o and MLP products, QK^T and PV over every key (BERT's padded keys
+    included, as ``encoders.bert_encode`` computes them)."""
+    def stack(S, d, mlp, n_layers):
+        return n_layers * (2 * S * (4 * d * d + 2 * d * mlp)
+                           + 2 * 2 * S * S * d)
+
+    n_patch = (p.img_size // p.patch) ** 2
+    vit = (2 * n_patch * p.patch * p.patch * 3 * p.vit_dim
+           + stack(n_patch + 1, p.vit_dim, p.vit_mlp, p.vit_layers))
+    return vit, stack(p.text_len, p.bert_dim, p.bert_mlp, p.bert_layers)
+
+
+def flat_records(bench, f_text, f_img, ids) -> dict:
+    """The (task, server class) records of ``ids``
+    (benchmarks/common.py:41, a numpy copy)."""
+    C = len(SERVER_CLASSES)
+    t = np.repeat(ids, C)
+    c = np.tile(np.arange(C), len(ids))
+    return {"f_text": f_text[t], "f_img": f_img[t],
+            "model_id": bench.model_id[c], "device_id": bench.device_id[c],
+            "label": (bench.score[t, c] == 1).astype(np.int64),
+            "latency_s": bench.latency_s[t, c].astype(np.float32)}
+
+
+@torch.no_grad()
+def copy_tree_(dst, src):
+    """Copy the tensor tree ``src`` into ``dst`` in place, key by key."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            copy_tree_(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def learn_features(bench, smi: str):
+    """Step 1 of phase 9e: the frozen encoders drawn on the card and the
+    features of every task; the encoders' device time at one batch."""
+    p = encoders.PROFILES[LEARN_PROFILE]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vit, bert, _ = encoders.frozen_encoders(LEARN_PROFILE, seed=0)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in tree_leaves(vit) + tree_leaves(bert))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f_img, f_text = compute_features(bench.tasks, LEARN_PROFILE,
+                                     batch=LEARN_BATCH, cache_dir=None)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    N = bench.tasks.n
+    for name, f in (("f_img", f_img), ("f_text", f_text)):
+        check(f.shape == (N, p.vit_dim) and f.dtype == np.float32,
+              f"{name} is {f.shape} {f.dtype}, not [{N}, {p.vit_dim}]")
+        check(bool(np.isfinite(f).all()), f"{name} is not finite")
+    # the encoders' device time at one batch, the host's media excluded
+    idx = np.arange(min(LEARN_BATCH, N))
+    imgs = torch.from_numpy(bench.tasks.images(idx, p.img_size)).cuda()
+    toks, masks = (torch.from_numpy(a).cuda() for a in
+                   bench.tasks.texts(idx, p.text_len, p.bert_vocab))
+    vit_ms = cuda_ms(lambda i=0: encoders.vit_encode(vit, imgs, p), 3, 1)
+    bert_ms = cuda_ms(lambda i=0: encoders.bert_encode(bert, toks, masks, p),
+                      3, 1)
+    ops_v, ops_b = encoder_flops(p)
+    B = len(idx)
+    bound_ms = B * (ops_v + ops_b) / PEAK_OPS_PER_S[torch.float32] * 1e3
+    print(f"[learning] frozen encoders (profile {LEARN_PROFILE}: ViT at "
+          f"{p.img_size} px, patch {p.patch}, {p.vit_layers} layers of "
+          f"{p.vit_dim}; DistilBERT at L {p.text_len}, {p.bert_layers} "
+          f"layers of {p.bert_dim}, vocab "
+          f"{p.bert_vocab}; {n / 1e6:.1f} M fp32 parameters) drawn on the "
+          f"card in {draw_s:.2f} s; features of {N} tasks "
+          f"(batch {LEARN_BATCH}) in {secs:.2f} s, {N / secs:.1f} tasks/s, "
+          f"peak device memory {peak / 2 ** 30:.2f} GiB ({smi})")
+    print(f"[learning] encoders' device time a batch of {B}: ViT "
+          f"{vit_ms:.2f} ms ({B * ops_v / vit_ms / 1e9:.1f} TFLOP/s), BERT "
+          f"{bert_ms:.2f} ms ({B * ops_b / bert_ms / 1e9:.1f} TFLOP/s); "
+          f"{(vit_ms + bert_ms) / bound_ms:.2f} x the fp32 bound "
+          f"{bound_ms:.2f} ms; {N * (ops_v + ops_b) / 1e12:.1f} TFLOP for "
+          f"all tasks, {N / B * (vit_ms + bert_ms) / 1e3:.2f} s of device "
+          f"time ({smi})")
+    return f_img, f_text
+
+
+def learn_encoder_parity(bench, smi: str):
+    """Step 2: the same paper-profile weights drawn on the CPU and copied
+    to the card give the CPU's features of ENC_PARITY_TASKS tasks."""
+    p = encoders.PROFILES[LEARN_PROFILE]
+    cpu = init_params({"vit": encoders.vit_spec(p),
+                       "bert": encoders.bert_spec(p)}, 0, device="cpu")
+    gpu = _tree_map(lambda t: t.cuda(), cpu)
+    idx = np.arange(ENC_PARITY_TASKS)
+    imgs = torch.from_numpy(bench.tasks.images(idx, p.img_size))
+    toks, masks = (torch.from_numpy(a) for a in
+                   bench.tasks.texts(idx, p.text_len, p.bert_vocab))
+    pairs = [
+        ("ViT", encoders.vit_encode(cpu["vit"], imgs, p),
+         encoders.vit_encode(gpu["vit"], imgs.cuda(), p)),
+        ("BERT", encoders.bert_encode(cpu["bert"], toks, masks, p),
+         encoders.bert_encode(gpu["bert"], toks.cuda(), masks.cuda(), p))]
+    for name, want, got in pairs:
+        rms = float(want.pow(2).mean().sqrt())
+        err = float((got.cpu() - want).abs().max()) / rms
+        check(err <= ENC_PARITY_RTOL, f"{name} features on the card are "
+              f"{err:.2e} of their RMS from the CPU's (> {ENC_PARITY_RTOL})")
+        print(f"[learning] {name} features of {ENC_PARITY_TASKS} tasks, "
+              f"card vs CPU from the same weights: max |diff| {err:.2e} of "
+              f"the RMS {rms:.4f} (tolerance {ENC_PARITY_RTOL}) ({smi})")
+
+
+def learn_predictors(bench, f_img, f_text, smi: str):
+    """Step 3: MILP and MGQP trained on the card at the "paper" budget
+    (benchmarks/common.py:trained_predictors), with tests/test_core.py's
+    checks; returns their predictions of every (task, class) pair."""
+    tr, va, _ = splits(bench.tasks.n)
+    train = flat_records(bench, f_text, f_img, tr)
+    val = flat_records(bench, f_text, f_img, va)
+    cfg = PredictorConfig(epochs=LEARN_EPOCHS, batch=256, seed=0)
+    C = len(SERVER_CLASSES)
+    allb = {"f_text": np.repeat(f_text, C, 0),
+            "f_img": np.repeat(f_img, C, 0),
+            "model_id": np.tile(bench.model_id, bench.tasks.n),
+            "device_id": np.tile(bench.device_id, bench.tasks.n)}
+    preds = {}
+    for kind in ("latency", "quality"):
+        model = Predictor(kind, 8, 8, cfg, feat_dim=f_text.shape[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = model.fit(train, val)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        steps = cfg.epochs * (len(train["model_id"]) // cfg.batch)
+        first, last = hist[0], hist[-1]
+        check(last["train_loss"] < first["train_loss"],
+              f"{kind}: train loss {first['train_loss']:.4f} -> "
+              f"{last['train_loss']:.4f} did not fall")
+        if kind == "quality":
+            check(last["train_acc"] > 0.55,
+                  f"MGQP train accuracy {last['train_acc']:.4f} <= 0.55")
+            what = (f"train acc {last['train_acc']:.4f}, val acc "
+                    f"{last['val_acc']:.4f}")
+        else:
+            lat = bench.latency_s[tr].reshape(-1)
+            base = float(np.abs(lat - lat.mean()).mean())
+            check(last["train_mae_s"] < base,
+                  f"MILP train MAE {last['train_mae_s']:.4f} s is not below "
+                  f"the mean predictor's {base:.4f} s")
+            what = (f"train MAE {last['train_mae_s']:.4f} s (mean "
+                    f"predictor {base:.4f} s), val MAE "
+                    f"{last['val_mae_s']:.4f} s")
+        name = "MGQP" if kind == "quality" else "MILP"
+        print(f"[learning] {name}: {cfg.epochs} epochs of {len(tr)} x {C} "
+              f"records, {steps} Adam steps in {secs:.2f} s "
+              f"({steps / secs:.1f} steps/s, a train and a val evaluation "
+              f"each epoch); train loss {first['train_loss']:.4f} -> "
+              f"{last['train_loss']:.4f}; {what} ({smi})")
+        preds[kind] = model.predict(allb).reshape(-1, C).astype(np.float32)
+    return preds["latency"], preds["quality"]
+
+
+def counted(agent) -> dict:
+    """Count ``agent``'s acts, greedy ones (all through the network) apart,
+    and its train steps, with the host seconds in each (each reads its
+    result on the host, so the host clock holds the card's work)."""
+    stats = dict.fromkeys(("act", "act_s", "greedy", "greedy_s", "trains",
+                           "train_s"), 0)
+    act, train_step = agent.act, agent.train_step
+
+    def timed_act(state, greedy=False):
+        t0 = time.perf_counter()
+        a = act(state, greedy=greedy)
+        key = "greedy" if greedy else "act"
+        stats[key + "_s"] += time.perf_counter() - t0
+        stats[key] += 1
+        return a
+
+    def timed_train(batch):
+        t0 = time.perf_counter()
+        loss = train_step(batch)
+        stats["train_s"] += time.perf_counter() - t0
+        stats["trains"] += 1
+        return loss
+
+    agent.act, agent.train_step = timed_act, timed_train
+    return stats
+
+
+def learn_qlmio(bench, f_img, f_text, milp, mgqp, smi: str):
+    """Step 4: QLMIO from the learned predictions at
+    examples/quickstart.py's budget, on the card, beside the heuristics
+    (printed only: random frozen encoders are not the paper's)."""
+    tr, _, te = splits(bench.tasks.n)
+    servers = make_servers(QS_SERVERS, bench)
+    q = QLMIO(bench, servers, (f_img, f_text), milp, mgqp,
+              QLMIOConfig(episodes=QS_EPISODES, users=QS_USERS, seed=0,
+                          agent=D3QNConfig(eps_decay_steps=QS_EPISODES
+                                           * QS_USERS // 2)))
+    stats = counted(q.agent)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = q.train(tr)
+    secs = time.perf_counter() - t0
+    res = q.evaluate(te, trials=QS_TRIALS)
+    heur = evaluate_heuristics(bench, servers, te, QS_USERS, QS_TRIALS)
+    check(all(np.isfinite(h["avg_reward"]) for h in hist),
+          "QLMIO's episode rewards are not finite")
+    print(f"[learning] QLMIO train: {QS_EPISODES} episodes of {QS_USERS} "
+          f"users on {QS_SERVERS} servers in {secs:.2f} s; "
+          f"{stats['act']} epsilon-greedy acts ({stats['act_s']:.2f} s, "
+          f"{stats['act'] / stats['act_s']:.0f} acts/s); evaluate's "
+          f"{stats['greedy']} greedy acts, each through the network "
+          f"({stats['greedy'] / stats['greedy_s']:.0f} acts/s); "
+          f"{stats['trains']} train steps of batch "
+          f"{q.agent.cfg.batch} ({stats['train_s']:.2f} s, "
+          f"{stats['trains'] / max(stats['train_s'], 1e-9):.1f} steps/s); "
+          f"last episode reward {hist[-1]['avg_reward']:.4f}, epsilon "
+          f"{hist[-1]['epsilon']:.3f} ({smi})")
+    rows = [("QLMIO", res)] + list(heur.items())
+    for name, r in rows:
+        print(f"[learning] evaluate({QS_TRIALS} trials of {QS_USERS} users, "
+              f"test split) {name:>9}: reward {r['avg_reward']:.4f}, "
+              f"latency {r['avg_latency_s']:.4f} s, completion "
+              f"{r['completion_rate']:.4f} ({smi})")
+    return q
+
+
+def learn_oracle_run(smi: str):
+    """Step 5: tests/test_core.py:98-116's run on the card (oracle
+    predictions, its "tiny" features drawn on the card) and its three
+    assertions."""
+    bench = generate(seed=0, n_tasks=ORACLE_TASKS)
+    feats = compute_features(bench.tasks, profile=ORACLE_PROFILE,
+                             cache_dir=None)
+    tr, _, te = splits(bench.tasks.n)
+    servers = make_servers(5, bench)
+    q = QLMIO(bench, servers, feats, bench.latency_s.astype(np.float32),
+              (bench.score == 1).astype(np.float32),
+              QLMIOConfig(episodes=40, users=10, seed=0,
+                          agent=D3QNConfig(eps_decay_steps=250, batch=64)))
+    t0 = time.perf_counter()
+    hist = q.train(tr)
+    secs = time.perf_counter() - t0
+    res = q.evaluate(te, trials=3)
+    rnd = evaluate_heuristics(bench, servers, te, 10, 3)["random"]
+    first = float(np.mean([h["avg_reward"] for h in hist[:10]]))
+    last = float(np.mean([h["avg_reward"] for h in hist[-10:]]))
+    check(res["avg_reward"] > rnd["avg_reward"],
+          f"oracle QLMIO reward {res['avg_reward']:.4f} is not above "
+          f"random's {rnd['avg_reward']:.4f}")
+    check(res["completion_rate"] > rnd["completion_rate"],
+          f"oracle QLMIO completion {res['completion_rate']:.4f} is not "
+          f"above random's {rnd['completion_rate']:.4f}")
+    check(last > first, f"oracle QLMIO did not learn: reward of the last "
+          f"10 episodes {last:.4f}, of the first 10 {first:.4f}")
+    print(f"[learning] test_core.py's oracle run on the card (40 episodes "
+          f"of 10 users, {secs:.2f} s): reward {res['avg_reward']:.4f} vs "
+          f"random {rnd['avg_reward']:.4f}, completion "
+          f"{res['completion_rate']:.4f} vs {rnd['completion_rate']:.4f}; "
+          f"mean episode reward {first:.4f} (first 10) -> {last:.4f} (last "
+          f"10) ({smi})")
+
+
+def hold_step(label, cpu_tree, gpu_tree, cpu_loss, gpu_loss, lr, smi: str):
+    """One Adam step on the card against the CPU's from the same weights
+    and batch: the loss, each leaf's gradient (of the network's largest)
+    and each parameter (see STEP_GRAD_RTOL)."""
+    check(abs(gpu_loss - cpu_loss) <= STEP_RTOL * abs(cpu_loss),
+          f"{label}: loss {gpu_loss} on the card, {cpu_loss} on the CPU")
+    cpu, gpu = tree_leaves(cpu_tree), tree_leaves(gpu_tree)
+    s = max(float(t.grad.abs().max()) for t in cpu)
+    grad_err = param_err = 0.0
+    for c, g in zip(cpu, gpu):
+        grad_err = max(grad_err,
+                       float((g.grad.cpu() - c.grad).abs().max()) / s)
+        share = (STEP_GRAD_RTOL * s / c.grad.abs().clamp_min(1e-30)
+                 ).clamp_max(1.0)
+        bound = 1e-6 + 2 * lr * share
+        diff = (g.detach().cpu() - c.detach()).abs()
+        check(bool((diff <= bound).all()), f"{label}: a parameter moved "
+              f"{float((diff - bound).max()):.2e} past its bound on the card")
+        param_err = max(param_err, float(diff.max()))
+    check(grad_err <= STEP_RTOL, f"{label}: gradients on the card are "
+          f"{grad_err:.2e} of the largest from the CPU's")
+    print(f"[learning] one {label} step, card vs CPU from the same weights "
+          f"and batch: loss {gpu_loss:.6f} vs {cpu_loss:.6f}, gradients "
+          f"within {grad_err:.2e} of the largest ({s:.4f}), parameters "
+          f"within {param_err:.2e} ({smi})")
+
+
+def learn_step_parity(bench, f_img, f_text, q, smi: str):
+    """Step 6: one Predictor step (dropout 0: the CPU's and the card's
+    generators differ) and one D3QNAgent.train_step on a sample of step
+    4's replay, each on the CPU and on the card from the same weights."""
+    tr, _, _ = splits(bench.tasks.n)
+    data = flat_records(bench, f_text, f_img, tr[:86])  # 258 records
+    cfg = PredictorConfig(epochs=1, batch=256, dropout=0.0)
+    pair = [Predictor("latency", 8, 8, cfg, f_text.shape[1], device=d)
+            for d in ("cpu", "cuda")]
+    copy_tree_(pair[1].params, pair[0].params)
+    losses = [m.fit(data)[0]["train_loss"] for m in pair]
+    hold_step("Predictor (MILP)", pair[0].params, pair[1].params, *losses,
+              cfg.lr, smi)
+    agents = [D3QNAgent(QS_SERVERS, q.agent.params["emb_model"].shape[0],
+                        q.agent.params["emb_device"].shape[0],
+                        feat_dim=f_text.shape[1], device=d)
+              for d in ("cpu", "cuda")]
+    copy_tree_(agents[1].params, agents[0].params)
+    copy_tree_(agents[1].target, agents[0].target)
+    batch = q.replay.sample(agents[0].cfg.batch, np.random.default_rng(0))
+    losses = [a.train_step(batch) for a in agents]
+    hold_step("D3QNAgent", agents[0].params, agents[1].params, *losses,
+              agents[0].cfg.lr, smi)
+
+
+def phase_learning(smi: str):
+    """The paper's pipeline on the card (phase 9e): frozen encoders ->
+    features of every task -> MILP/MGQP -> QLMIO against the heuristics;
+    test_core.py's learning run; CPU/card parity of the encoders and of
+    one training step.  It launches none of the port's kernels (the
+    encoders' attention and LayerNorms are plain torch, as the JAX package
+    computes them outside its Pallas kernels)."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    bench = generate(seed=0, n_tasks=LEARN_TASKS)
+    with timed("learning: features"):
+        f_img, f_text = learn_features(bench, smi)
+    with timed("learning: encoder parity"):
+        learn_encoder_parity(bench, smi)
+    with timed("learning: predictors"):
+        milp, mgqp = learn_predictors(bench, f_img, f_text, smi)
+    with timed("learning: QLMIO"):
+        q = learn_qlmio(bench, f_img, f_text, milp, mgqp, smi)
+    with timed("learning: oracle run"):
+        learn_oracle_run(smi)
+    with timed("learning: step parity"):
+        learn_step_parity(bench, f_img, f_text, q, smi)
+    launched = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+    check(not launched, f"the learning pipeline launched {launched}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3029,6 +3421,8 @@ def main():
     with timed("continuum"):
         phase_continuum(smi)
         phase_migration(smi)
+    with timed("learning pipeline"):
+        phase_learning(smi)
     with timed("reduced parity"):
         phase_reduced_parity()
         hybrid_parity()

@@ -64,6 +64,13 @@ def tree_map_specs(fn: Callable[[str, TensorSpec], Any], tree: Tree,
     raise TypeError(f"unexpected node in spec tree at {path!r}: {type(tree)}")
 
 
+def tree_leaves(tree: Tree) -> list:
+    """The leaves of a nested dict, in its insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
 # values one draw on a CUDA card makes (64 MB of fp32 scratch)
 DEVICE_RUN = 1 << 24
 
