@@ -43,16 +43,23 @@ exits non-zero without printing a result:
      encoder's non-causal D 448 and zamba2-2.7b's shared attention (32
      heads of 80, S 16 to 768), and the CUDA-core instantiation's edges at
      every head dim (ragged Sq and Sk, one query row, a window, a suffix
-     whose rows start below Sk - Sq against a cached prefix); the fused
+     whose rows start below Sk - Sq against a cached prefix), and
+     whisper-large-v3's 20 heads of 64 (its encoder's 1500 frames
+     non-causal, the cross-attention of 1, 33 and 64 queries against
+     them, the decoder's causal 64 tokens); the fused
      RMSNorm at a decode tick, a prefill chunk, the CPU tests' shapes and
      every width the port normalizes (896, 1024, 1152, 256, 3072, 2560,
-     5120) at rows 1, 8, 64, 768 and 1024, bf16 and fp32 x and scale,
+     5120, xlstm-1.3b's 2048 and 4096) at rows 1, 8, 64, 768 and 1024,
+     bf16 and fp32 x and scale,
      zero-centred or not; flash decode over bf16, fp32 and int8 caches
      with bf16 and fp32 queries at the CPU tests' cases, qwen2-0.5b's
      serving shape (B 8, max_seq 1024, contexts 60-1000, a parked slot),
      gemma3-1b's windowed layers, llama3.2-3b's heads, zamba2-2.7b's
-     shared attention (B 8, max_seq 1024, D 80) and the reduced configs'
-     D 16, and at the edges of its split kernel (a ragged last split, a
+     shared attention (B 8, max_seq 1024, D 80), the reduced configs'
+     D 16 and whisper-large-v3's tick (B 8, 20 heads of 64: the 1500
+     frames of the cross-attention, every one visible, and the 448-entry
+     self-attention cache, ragged), and at the edges of its split kernel
+     (a ragged last split, a
      split whose only visible key is its last, one slot at 1024 keys, G 16
      at D 64 and D 80, free slots among live ones with holes); free slots (no visible key) of paged decode, verify
      and flash decode, bf16 and int8, held to the plain version's uniform
@@ -73,11 +80,16 @@ exits non-zero without printing a result:
      paged verify's tensor-core kernel at T = 1 on the decode shape, the
      alternative to paged decode's CUDA-core passes; flash attention:
      the encoder's batch at
-     S 256, the draft's prefill buckets and zamba2-2.7b's shared attention
-     at S 768; RMSNorm: [8, 896] and [64, 896]; flash decode: the dense
+     S 256, the draft's prefill buckets, zamba2-2.7b's shared attention
+     at S 768 and whisper-large-v3's encoder (S 1500), cross-attention
+     (Sq 64, Sk 1500) and decoder (S 64); RMSNorm: [8, 896], [64, 896],
+     the encoder's [1024, 896] and xlstm-1.3b's [8, 2048], [8, 4096] and
+     [768, 4096]; flash decode: the dense
      cache at B 8, max_seq 1024, one slot at a 1000-token context, B 8
-     with two free slots and zamba2-2.7b's shared attention (B 8, 32/32
-     heads of 80), also by device time per launch; grouped matmul: granite-moe's decode,
+     with two free slots, zamba2-2.7b's shared attention (B 8, 32/32
+     heads of 80) and whisper-large-v3's tick (B 8, 20/20 heads of 64,
+     the 1500-frame cross cache and the 448-entry self cache), also by
+     device time per launch; grouped matmul: granite-moe's decode,
      verify, chunk and monolithic capacities and qwen2-moe's decode and
      C 88, against ``torch.bmm``; each flash-attention and grouped-matmul
      row names the instantiation that ran; the SSD
@@ -171,6 +183,26 @@ exits non-zero without printing a result:
      episodes of 10 users) beats Random and learns; one Predictor step
      and one D3QNAgent step on the card equal the CPU's from the same
      weights and batch; none of the port's kernels is launched;
+  9f. the dense families at full width: xlstm-1.3b (48 blocks, 6 groups
+     of 7 mLSTM and 1 sLSTM, d 2048, 3.61 B parameters drawn on the card
+     from seed 0 in bf16) serves 8 requests of 1-768 tokens and
+     whisper-large-v3 (32 encoder and 32 decoder layers, d 1280, 1.60 B
+     parameters) 8 requests, each with its own 1500 encoder frames and a
+     decoder prompt of 1-64 tokens, 32 new tokens each, through
+     ``ServingEngine(max_batch=8)`` on the dense backend (xlstm: exact-
+     shape monolithic prefill, max_seq 1024; whisper: bucketed monolithic
+     prefill, max_seq 448); RMSNorm launches must equal xlstm's norms x
+     (prefills + decode steps), flash attention (32 + 2 x 32) x whisper's
+     prefills and flash decode 2 x 32 x its decode steps; xlstm refuses a
+     300-token prompt at submission and a 2-token prompt at admission
+     (ValueError); scripts/smoke_decode.py's consistency check
+     (prefill(34) against prefill(33) + serve_step, 2e-2 of the largest
+     |logit|) with bf16 and fp32 activations on the bf16 weights, held
+     for both but xlstm's bf16 run, which is printed (the JAX package's
+     own xlstm exceeds the bound in bf16); TTFT, ITL, decode tokens a
+     second and peak memory; one
+     prefill and one decode tick of each under ``torch.profiler`` (busy,
+     idle share, top kernels), beside xlstm's mC state bytes;
   10. reduced qwen2-0.5b, gemma3-1b, granite-moe-1b-a400m and
      qwen2-moe-a2.7b in fp32, and granite-moe with capacity_factor 0.3
      and 16 slots (experts overflow beside free slots), text and
@@ -186,10 +218,12 @@ exits non-zero without printing a result:
      printed); the reduced encoder on the card gives the CPU's features;
      reduced zamba2-2.7b in fp32 with scan_chunk 16 (text prompts of 1-64
      tokens, several chunks) on the dense backend with monolithic
-     prefill gives the CPU engine's tokens on the card;
+     prefill gives the CPU engine's tokens on the card; so do reduced
+     xlstm-1.3b (text prompts) and whisper-large-v3 (each request with its
+     own frames) in fp32 on the dense backend with monolithic prefill;
  11. one JSON line for the kernels (each with its device time and the
-     library call's at its phase-4 shape beside the contract's keys), then
-     the result line.
+     library call's at its phase-4 shape beside the contract's keys, and
+     the launches of phase 9f's runs by path), then the result line.
 
 Needs a CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
 ``src`` directory beside this file.
@@ -374,6 +408,22 @@ MOE_ARCH = "granite-moe-1b-a400m"
 MOE_DRAFT_LAYERS = 4
 # the hybrid path (phase 9c): zamba2-2.7b at full width and depth
 HYBRID_ARCH = "zamba2-2.7b"
+# the dense families (phase 9f): xlstm-1.3b at full width and depth and
+# whisper-large-v3 at full width, each through ServingEngine(max_batch 8)
+# on the dense backend with monolithic prefill.  xlstm's prompts obey the
+# prompt-length rule (any length up to scan_chunk 256, past it whole
+# chunks); whisper's decoder prompts take 1-64 tokens, and its engine the
+# decoder's production maximum of 448 positions
+# (configs/whisper_large_v3.py)
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_PROMPTS = (1, 3, 37, 100, 200, 256, 512, 768)
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_PROMPTS = (1, 4, 9, 16, 23, 33, 50, 64)
+WHISPER_MAX_SEQ = 448
+# scripts/smoke_decode.py's consistency check, here in bf16 on the card:
+# the last logits of prefill(S + 1) against prefill(S) then serve_step,
+# within 2e-2 of the largest |logit|
+CONSISTENCY_S, CONSISTENCY_RTOL = 33, 2e-2
 # the continuum (phase 9d): fig10's spec (one cloud llama3.2-3b, two edge
 # qwen2-0.5b) and smoke budget (benchmarks/fig10_continuum_replay.py:43-52):
 # 32 users of generate(seed=0, n_tasks=200), an arrival every 0.01 virtual s
@@ -452,6 +502,15 @@ FLASH_CASES = [
     (2, 48, 48, 4, 2, 16, True, 0)]
 # zamba2-2.7b's shared attention: 32 heads of 80, causal prompts of 16-768
 FLASH_CASES += [(1, S, S, 32, 32, 80, True, 0) for S in (16, 200, 512, 768)]
+# whisper-large-v3, 20 heads of 64: the encoder over its 1500 frames
+# (non-causal; 1500 is not a multiple of the key tile), the decoder's
+# cross-attention at prefill (prompts of 1, 33 and 64 tokens against the
+# 1500 frames, non-causal) and its causal self-attention at 64 tokens
+FLASH_CASES += [(1, 1500, 1500, 20, 20, 64, False, 0),
+                (1, 1, 1500, 20, 20, 64, False, 0),
+                (1, 33, 1500, 20, 20, 64, False, 0),
+                (1, 64, 1500, 20, 20, 64, False, 0),
+                (1, 64, 64, 20, 20, 64, True, 0)]
 # the CUDA-core (fp32) instantiation's edges at every head dim: ragged Sq =
 # Sk, one query row, a window, a ragged non-causal Sk
 FLASH_CASES += [case for D in flash_attention.HEAD_DIMS
@@ -467,7 +526,8 @@ FLASH_OFFSET_CASES = [(2, 70, 150, 4, 2, D, window, 40)
                       for window in (0, 24)]
 # flash attention's CUDA-core split plan printed in phase 2: (label, B, S,
 # H)
-FLASH_PLANS = [("encoder 128x128 batch", 4, 256, 2),
+FLASH_PLANS = [("whisper-large-v3 encoder (fp32 parity runs)", 1, 1500, 20),
+               ("encoder 128x128 batch", 4, 256, 2),
                ("encoder 32x32 batch", 4, 16, 2),
                ("one 128x128 image", 1, 256, 2),
                ("qwen2-0.5b 1024-token prefill (fp32 parity runs)", 1, 1024,
@@ -485,6 +545,10 @@ RMS_SHAPES += [(8, 2560), (8, 5120), (1, 5120), (768, 2560), (768, 5120)]
 # 1152 and its qk-norm's 256 (tokens x heads), llama3.2-3b 3072
 RMS_SHAPES += [(1, 896), (1024, 896), (8, 1024), (64, 1024), (8, 1152),
                (7, 4, 256), (64, 256), (8, 3072), (1, 3072)]
+# ... and xlstm-1.3b's: d 2048 (every block's pre-norm, the sLSTM's out
+# and FFN norms, the final norm) and d_in 4096 (the mLSTM's out norm) at a
+# decode tick of 8 slots and a 768-token prompt
+RMS_SHAPES += [(8, 2048), (8, 4096), (768, 2048), (768, 4096)]
 # flash decode held to its plain version: (B, S, H, Hkv, D, window,
 # engine[, dense_case keywords]), test_kernels.py::test_flash_decode's
 # cases (full caches), then caches as the engines leave them (``engine``:
@@ -507,12 +571,22 @@ DECODE_CASES = [
     (1, 1024, 14, 2, 64, 0, True, dict(ctx=[1000])),
     (2, 1024, 16, 1, 64, 0, True), (2, 1024, 16, 1, 80, 0, True),
     (8, 1024, 14, 2, 64, 0, True, dict(free=(2, 5, 6), holes=8))]
+# ... and whisper-large-v3's decode tick at 8 slots, 20 heads of 64: the
+# cross-attention over the 1500 frames, every one visible (the query at
+# position 1500; the split plan cuts 1500 keys into ragged splits), and
+# the self-attention over the decoder's 448 positions, ragged contexts
+DECODE_CASES += [(8, 1500, 20, 20, 64, 0, True, dict(all_visible=True)),
+                 (8, 448, 20, 20, 64, 0, True)]
 # flash decode's split plan at the shapes the serving paths give it (phase
 # 2): (label, B, H, Hkv, D), max_seq 1024
-FLASH_DECODE_PLANS = [("qwen2-0.5b dense tick and draft", 8, 14, 2, 64),
-                      ("qwen2-0.5b, one slot", 1, 14, 2, 64),
-                      ("zamba2-2.7b shared attention", 8, 32, 32, 80),
-                      ("gemma3-1b local layers", 8, 4, 1, 256)]
+# and key count S
+FLASH_DECODE_PLANS = [
+    ("qwen2-0.5b dense tick and draft", 8, 14, 2, 64, 1024),
+    ("qwen2-0.5b, one slot", 1, 14, 2, 64, 1024),
+    ("zamba2-2.7b shared attention", 8, 32, 32, 80, 1024),
+    ("gemma3-1b local layers", 8, 4, 1, 256, 1024),
+    ("whisper-large-v3 cross-attention", 8, 20, 20, 64, 1500),
+    ("whisper-large-v3 self-attention", 8, 20, 20, 64, 448)]
 # phase 10's engine variants: (label, engine keywords, speculative)
 VARIANTS = {"bf16": ({}, False), "bf16 spec": ({}, True),
             "int8": (dict(kv_dtype="int8"), False),
@@ -523,7 +597,9 @@ VARIANTS = {"bf16": ({}, False), "bf16 spec": ({}, True),
             "paged int8 monolithic": (dict(prefill_chunk=0, kv_dtype="int8"),
                                       False)}
 # phase 10's configs: (arch, overrides of the reduced config, max_batch,
-# the variants it serves).  The dense configs serve every variant.  The
+# the variants it serves).  xlstm and whisper have the dense backend with
+# monolithic prefill only (whisper with each request's frames).  The dense
+# configs serve every variant.  The
 # MoE configs share the engine's paths with them, so each MoE variant is
 # served once: granite-moe the bf16 pool plain and speculative and paged
 # monolithic prefill (whole-prompt buckets through the experts);
@@ -539,7 +615,9 @@ PARITY = [("qwen2-0.5b", {}, 3, tuple(VARIANTS)),
            ("bf16", "bf16 spec", "paged bf16 monolithic")),
           ("qwen2-moe-a2.7b", {}, 3, ("bf16", "bf16 spec")),
           ("granite-moe-1b-a400m", dict(capacity_factor=0.3), 16,
-           ("bf16", "bf16 spec", "int8", "dense chunked"))]
+           ("bf16", "bf16 spec", "int8", "dense chunked")),
+          ("xlstm-1.3b", {}, 3, ("dense monolithic",)),
+          ("whisper-large-v3", {}, 3, ("dense monolithic",))]
 # the dense cache's contexts at the main path's decode shape
 DENSE_CTX = np.asarray([60, 150, 290, 400, 520, 640, 760, 1000])
 # the grouped matmul held to its plain version: (label, E, C, K, N), the
@@ -747,7 +825,7 @@ def quantized(k, v):
 
 
 def dense_case(rng, B, S, H, Hkv, D, engine, *, layers=0, ctx=None,
-               free=None, holes=0, last_only=None):
+               free=None, holes=0, last_only=None, all_visible=False):
     """Random dense caches [B, S, Hkv, D] (fp32, on the card; with
     ``layers``, [layers, B, S, Hkv, D]), cache_positions [B, S] int32 and
     q [B, H, D] at pos [B].  Without ``engine``: every entry holds its
@@ -759,15 +837,19 @@ def dense_case(rng, B, S, H, Hkv, D, engine, *, layers=0, ctx=None,
     (by default, for B > 3 with random contexts, the one before the last)
     are free (all -1, pos 0: they see no key).  ``last_only`` = (b, k0,
     k1): keys k0 .. k1 - 2 of slot b are emptied (the split's only visible
-    key is its last).  Returns (q, k, v, cpos, pos, rows): ``rows`` the
-    slots that see a key."""
+    key is its last).  ``all_visible``: every slot holds all S entries
+    and queries at pos = S (whisper's cross-attention: every frame
+    visible).  Returns (q, k, v, cpos, pos, rows): ``rows`` the slots
+    that see a key."""
     dev = torch.device("cuda")
     lead = (layers,) if layers else ()
     q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
     k = torch.randn(lead + (B, S, Hkv, D), device=dev)
     v = torch.randn(lead + (B, S, Hkv, D), device=dev)
     cpos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
-    if not engine:
+    if all_visible:
+        pos = np.full(B, S, np.int32)
+    elif not engine:
         pos = rng.integers(S // 2, S, B).astype(np.int32)
     else:
         if free is None:
@@ -920,7 +1002,8 @@ def phase_build():
                     f"{rms_kernel.plan(rows, d, dt)}"
                     for rows, d in ((8, 896), (64, 896), (1024, 896),
                                     (8, 1024), (8, 1152), (56, 256),
-                                    (8, 3072), (8, 2560), (768, 5120))
+                                    (8, 3072), (8, 2560), (768, 5120),
+                                    (8, 2048), (8, 4096), (768, 4096))
                     for dt in (torch.bfloat16, torch.float32)))
     spills = ptxas_spills(infos["rmsnorm"]["ptxas"])
     spilled = [f"{name} ({n} bytes)" for name, D, n in spills if n]
@@ -935,13 +1018,13 @@ def phase_build():
         f"{str(q)[6:]} q, {str(c)[6:]} cache: {flash_decode.variant(q, c)}"
         for q, c in itertools.product((torch.bfloat16, torch.float32),
                                       flash_decode.CACHE_DTYPES)))
-    for label, B, H, Hkv, D in FLASH_DECODE_PLANS:
-        p = flash_decode.plan(B, H // Hkv, Hkv, 1024, D)
+    for label, B, H, Hkv, D, S in FLASH_DECODE_PLANS:
+        p = flash_decode.plan(B, H // Hkv, Hkv, S, D)
         smem = [flash_decode.smem_bytes(H // Hkv, D, p.split_keys, p.splits,
                                         dt)
                 for dt in (torch.bfloat16, torch.int8)]
         print(f"[build]   flash decode, {label} (B {B}, heads {H}/{Hkv}, D "
-              f"{D}, S 1024), bf16 q: {p.split_keys} keys a split "
+              f"{D}, S {S}), bf16 q: {p.split_keys} keys a split "
               f"({p.splits} splits), {p.ctas} CTAs a launch, {smem[0]} (bf16 "
               f"cache) and {smem[1]} (int8) bytes of dynamic shared memory a "
               "CTA")
@@ -1554,12 +1637,18 @@ def phase_timing_new(smi: str) -> dict:
     (S 16), the draft's causal prefill at qwen2-0.5b heads for each
     prompt bucket the smoke's requests reach (B 1, S 64-1024, bf16) and
     zamba2-2.7b's shared attention at its longest prompt (B 1, S 768, 32
-    heads of 80, causal bf16); each row names the instantiation that ran;
+    heads of 80, causal bf16), whisper-large-v3's encoder over its 1500
+    frames (non-causal), its cross-attention at a 64-token prefill (Sq 64
+    against Sk 1500, non-causal) and its decoder's causal self-attention
+    at 64 tokens (B 1, 20 heads of 64, bf16); each row names the
+    instantiation that ran;
     the yardstick is ``F.scaled_dot_product_attention`` on [B, H, S, D]
     copies (``enable_gqa``, ``is_causal``).  RMSNorm: a decode tick
     [8, 896] (the kernels-line entry) and a prefill chunk [64, 896] of
-    bf16 activations with bf16 scales, and the encoder's [1024, 896] in
-    fp32; the yardstick is ``F.rms_norm`` with the scale in x's type.
+    bf16 activations with bf16 scales, the encoder's [1024, 896] in
+    fp32, and xlstm-1.3b's widths in bf16 at a decode tick of 8 slots (d
+    2048 and d_in 4096) and a 768-token prompt (d_in 4096); the yardstick
+    is ``F.rms_norm`` with the scale in x's type.
     The flash bound counts the visible (query, key) pairs' q.k and p.v
     multiply-adds (2 flops each) at the peak of the inputs' type: bf16
     989 TFLOP/s (the tensor cores, on which the bf16 instantiation
@@ -1567,26 +1656,37 @@ def phase_timing_new(smi: str) -> dict:
     instantiation multiplies on the CUDA cores, never in TF32)."""
     dev = torch.device("cuda")
     out = {}
-    shapes = [("encoder 128x128", 4, 256, 2, 2, 448, torch.float32, False),
-              ("encoder 32x32", 4, 16, 2, 2, 448, torch.float32, False)]
-    shapes += [(f"draft prefill S {S}", 1, S, 14, 2, 64, torch.bfloat16,
+    # (label, B, Sq, Sk, H, Hkv, D, dtype, causal)
+    shapes = [("encoder 128x128", 4, 256, 256, 2, 2, 448, torch.float32,
+               False),
+              ("encoder 32x32", 4, 16, 16, 2, 2, 448, torch.float32, False)]
+    shapes += [(f"draft prefill S {S}", 1, S, S, 14, 2, 64, torch.bfloat16,
                 True) for S in (64, 128, 256, 512, 1024)]
-    shapes += [("zamba2 shared attention", 1, 768, 32, 32, 80,
-                torch.bfloat16, True)]
-    for label, B, S, H, Hkv, D, dt, causal in shapes:
-        q = torch.randn(B, S, H, D, device=dev, dtype=dt)
+    shapes += [("zamba2 shared attention", 1, 768, 768, 32, 32, 80,
+                torch.bfloat16, True),
+               ("whisper encoder", 1, 1500, 1500, 20, 20, 64,
+                torch.bfloat16, False),
+               ("whisper cross-attention", 1, 64, 1500, 20, 20, 64,
+                torch.bfloat16, False),
+               ("whisper decoder", 1, 64, 64, 20, 20, 64, torch.bfloat16,
+                True)]
+    for label, B, Sq, S, H, Hkv, D, dt, causal in shapes:
+        q = torch.randn(B, Sq, H, D, device=dev, dtype=dt)
         k = torch.randn(B, S, Hkv, D, device=dev, dtype=dt)
         v = torch.randn(B, S, Hkv, D, device=dev, dtype=dt)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        pairs = B * (S * (S + 1) // 2 if causal else S * S)
-        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        pairs = B * (S * (S + 1) // 2 if causal else Sq * S)
+        nbytes = 2 * q.numel() * q.element_size() \
+            + 2 * k.numel() * k.element_size()
 
         def library(i=0, qt=qt, kt=kt, vt=vt, causal=causal):
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            enable_gqa=True)
 
         row = _time_call("flash_attention",
-                         f"{label}: B={B} S={S} H={H}/{Hkv} D={D} "
+                         f"{label}: B={B} "
+                         + (f"S={S}" if Sq == S else f"Sq={Sq} Sk={S}")
+                         + f" H={H}/{Hkv} D={D} "
                          f"{'causal' if causal else 'non-causal'}; "
                          f"{flash_attention.variant(D, dt)}",
                          (q, k, v), dict(causal=causal), nbytes,
@@ -1594,7 +1694,11 @@ def phase_timing_new(smi: str) -> dict:
         out.setdefault("flash_attention", row)
     for label, shape, dt in (("decode tick", (8, 896), torch.bfloat16),
                              ("prefill chunk", (64, 896), torch.bfloat16),
-                             ("encoder", (1024, 896), torch.float32)):
+                             ("encoder", (1024, 896), torch.float32),
+                             ("xlstm tick d", (8, 2048), torch.bfloat16),
+                             ("xlstm tick d_in", (8, 4096), torch.bfloat16),
+                             ("xlstm 768-token prefill d_in", (768, 4096),
+                              torch.bfloat16)):
         x = torch.randn(shape, device=dev, dtype=dt)
         scale = torch.randn(shape[-1], device=dev, dtype=dt)
         nbytes = 2 * x.numel() * x.element_size() \
@@ -1717,15 +1821,22 @@ def _time_gmm(smi: str) -> dict:
 # zamba2-2.7b's shared attention (B 8, 32/32 heads of 80; nine caches, its
 # nine calls a tick)
 FLASH_DECODE_TIMING = [
-    ("dense decode", 8, 14, 2, 64, DENSE_CTX, (), 24),
-    ("one slot", 1, 14, 2, 64, np.asarray([1000]), (), 24),
-    ("2 free slots", 8, 14, 2, 64, DENSE_CTX, (6, 7), 24),
-    ("zamba2 shared attention", 8, 32, 32, 80, DENSE_CTX, (), 9)]
+    ("dense decode", 8, 14, 2, 64, 1024, DENSE_CTX, (), 24),
+    ("one slot", 1, 14, 2, 64, 1024, np.asarray([1000]), (), 24),
+    ("2 free slots", 8, 14, 2, 64, 1024, DENSE_CTX, (6, 7), 24),
+    ("zamba2 shared attention", 8, 32, 32, 80, 1024, DENSE_CTX, (), 9),
+    # whisper-large-v3's tick: 32 layers of cross-attention over the 1500
+    # frames (each visible) and of self-attention over a 448-position
+    # cache holding 40-100 tokens (prompts of 1-64 plus up to 32 new)
+    ("whisper cross-attention", 8, 20, 20, 64, 1500, np.full(8, 1500), (),
+     32),
+    ("whisper self-attention", 8, 20, 20, 64, 448,
+     np.asarray([40, 48, 55, 63, 70, 80, 90, 100]), (), 32)]
 
 
 def _time_flash_decode(smi: str) -> dict:
-    """Flash decode at the dense path's shapes (FLASH_DECODE_TIMING): a
-    max_seq 1024 cache per layer (taken in turn) holding the given
+    """Flash decode at the dense path's shapes (FLASH_DECODE_TIMING): an
+    S-entry cache per layer (taken in turn) holding the given
     contexts (-1 past each; free slots all -1 at pos 0), bf16 and int8
     caches, bf16 q; each row by device time per launch too.  The bound
     counts q and the output, every cache_positions entry and pos, each
@@ -1738,9 +1849,8 @@ def _time_flash_decode(smi: str) -> dict:
     dequantized to bf16 beforehand, not timed).  Returns the kernels-line
     numbers (the dense decode shape)."""
     rng = np.random.default_rng(3)
-    S = 1024
     out = {}
-    for label, B, H, Hkv, D, ctx, free, L in FLASH_DECODE_TIMING:
+    for label, B, H, Hkv, D, S, ctx, free, L in FLASH_DECODE_TIMING:
         q, k, v, cpos, pos, rows = dense_case(rng, B, S, H, Hkv, D, True,
                                               layers=L, ctx=ctx, free=free)
         pos = torch.from_numpy(np.where(np.isin(np.arange(B), free), 0,
@@ -1803,15 +1913,18 @@ def _prompts(rng, vocab):
     return prompts
 
 
-def _engine(model, params, kv_dtype, telemetry=None, **kw):
+def _engine(model, params, kv_dtype, telemetry=None, extra=None, **kw):
     """An engine for the main path whose first cuBLAS calls and caches are
-    already warm (one short request, then metrics and prefix cache reset);
-    ``kw`` reaches the engine (the speculation knobs)."""
+    already warm (one short request, with ``extra`` where the model needs
+    it, then metrics and prefix cache reset); ``kw`` reaches the engine
+    (the speculation knobs, another ``max_seq``)."""
     vocab = model.cfg.vocab
-    eng = ServingEngine(model, params, max_batch=8, page_size=16,
-                        max_seq=1024, kv_dtype=kv_dtype, device="cuda",
+    kw = {**dict(max_batch=8, page_size=16, max_seq=1024), **kw}
+    eng = ServingEngine(model, params, kv_dtype=kv_dtype,
+                        device=_device_of(params),
                         telemetry=telemetry, **kw)
-    eng.submit(Request(-1, np.arange(40) % vocab, max_new_tokens=4))
+    eng.submit(Request(-1, np.arange(40) % vocab, max_new_tokens=4,
+                       extra=extra))
     eng.run_until_drained()
     eng.metrics.reset()
     eng.reset_prefix_cache()
@@ -2604,6 +2717,316 @@ def hybrid_parity():
           f"{sorted({len(pr) for pr in prompts})} tokens")
 
 
+def family_model(arch: str, tag: str):
+    """``arch`` at full width and depth, random bf16 weights drawn on the
+    card from seed 0; prints the model's shape and parameter count."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(0, param_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    if cfg.block_kind == "xlstm":
+        G, P = lm.xlstm_groups(cfg)
+        d_in = int(cfg.proj_factor * cfg.d_model)
+        shape = (f"{cfg.n_layers} blocks in {G} groups of {P} mLSTM and 1 "
+                 f"sLSTM, d {cfg.d_model}, d_in {d_in}, {cfg.n_heads} heads "
+                 f"of {d_in // cfg.n_heads} (sLSTM "
+                 f"{cfg.d_model // cfg.n_heads}), conv width "
+                 f"{cfg.conv_width}, scan_chunk {cfg.scan_chunk}")
+    else:
+        shape = (f"{cfg.encoder_layers} encoder and {cfg.n_layers} decoder "
+                 f"layers, d {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd},"
+                 f" d_ff {cfg.d_ff}, {cfg.encoder_seq} encoder frames")
+    print(f"[{tag}] {arch} at full width and depth: {shape}; vocab "
+          f"{cfg.vocab}; {n:,} parameters, {nbytes / 1e9:.2f} GB in bf16, "
+          f"drawn on the card from seed 0 in {secs:.2f} s")
+    return model, params
+
+
+def _device_of(params) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def grown(cache: dict) -> dict:
+    """One more, empty entry in the sequence dim of the positional leaves
+    (k/v zeros, pos_map -1), for a decode step's token to land in."""
+    out = dict(cache)
+    for name in ("k", "v"):
+        if name in out:
+            c = out[name]
+            out[name] = torch.cat([c, torch.zeros_like(c[:, :, :1])], 2)
+    if "pos_map" in out:
+        pm = out["pos_map"]
+        out["pos_map"] = torch.cat([pm, torch.full_like(pm[:, :1], -1)], 1)
+    return out
+
+
+def consistency(model, params, extra: dict, tag: str, smi: str,
+                held=("bfloat16", "float32")):
+    """scripts/smoke_decode.py's check on the card, with the activations in
+    bf16 and in fp32 (the same bf16 weights, cast at each use): two
+    prompts of CONSISTENCY_S + 1 tokens; the last logits of ``prefill``
+    over all of them against ``prefill`` over the first CONSISTENCY_S,
+    then one ``serve_step`` at position CONSISTENCY_S, within
+    CONSISTENCY_RTOL of the largest |logit| for the activation types in
+    ``held``, printed for the others."""
+    S = CONSISTENCY_S
+    dev = _device_of(params)
+    rng = np.random.default_rng(21)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab, (2, S + 1)))
+    toks = toks.to(dev)
+    for act in ("bfloat16", "float32"):
+        m = build_model(dataclasses.replace(model.cfg, act_dtype=act))
+        full, _ = m.prefill(params, {"tokens": toks, **extra})
+        _, cache = m.prefill(params, {"tokens": toks[:, :S], **extra})
+        step, _ = m.serve_step(params, grown(cache), {
+            "tokens": toks[:, S],
+            "pos": torch.full((2,), S, dtype=torch.int32, device=dev)})
+        err = float((full - step).abs().max() / full.abs().max())
+        check(bool(torch.isfinite(step).all())
+              and (err < CONSISTENCY_RTOL or act not in held),
+              f"{model.cfg.name}: prefill({S + 1}) and prefill({S}) + "
+              f"serve_step disagree by {err:.3e} of the largest |logit| "
+              f"({act} activations)")
+        print(f"[{tag}] consistency, {act} activations, bf16 weights: "
+              f"prefill({S + 1})'s last logits against prefill({S}) + "
+              f"serve_step: {err:.3e} of the largest |logit| "
+              + (f"(held to {CONSISTENCY_RTOL})" if act in held
+                 else "(printed)") + f" ({smi})")
+
+
+def profile_call(tag: str, label: str, fn, smi: str) -> float:
+    """``fn`` once plainly to warm its shapes, once more timed by the host
+    (wall, ending on a synchronize), and once under ``torch.profiler``
+    (device activity only): the device busy time, the idle share of the
+    plain call's wall, the top kernels and the port's kernels' device
+    time and launches.  Returns the busy milliseconds."""
+    fn()
+    torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    calls = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    check(busy > 0, "the profiler saw no device time")
+    print(f"[{tag}] profile of {label}: wall {wall:.2f} ms, device busy "
+          f"{busy:.3f} ms, idle {1 - busy / wall:.1%}; wrapper calls "
+          f"{calls} ({smi})")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        print(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} x "
+              f"{e.key[:90]}")
+    for what, match in (
+            ("flash attention", lambda k: "flash_fp32" in k
+             or "flash_attention_" in k),
+            ("flash decode", lambda k: "DenseKeys" in k
+             or "flash_decode_kernel" in k),
+            ("RMSNorm", lambda k: "rmsnorm_kernel" in k)):
+        sel = [e for e in kernels if match(e.key)]
+        if sel:
+            ms = sum(dev_us(e) for e in sel) / 1e3
+            print(f"[{tag}]   {what}: {ms:.3f} ms of device time "
+                  f"({ms / busy:.1%} of busy), "
+                  f"{sum(e.count for e in sel)} kernel launches")
+    return busy
+
+
+def xlstm_norms(cfg) -> int:
+    """RMSNorm launches of one xlstm prefill or decode step: the pre-norm
+    and out norm of every mLSTM block, the pre-norm, out norm and FFN norm
+    of every sLSTM block, and the final norm."""
+    G, P = lm.xlstm_groups(cfg)
+    return 2 * G * P + 3 * G + 1
+
+
+def phase_xlstm(smi: str) -> dict:
+    """xlstm-1.3b at full width and depth serves 8 requests
+    (XLSTM_PROMPTS, 32 new tokens each) through ``ServingEngine(max_batch
+    8, max_seq 1024)``, which takes the dense backend and exact-shape
+    monolithic prefill for it; RMSNorm launches must equal
+    ``xlstm_norms`` x (prefills + decode steps), every other kernel none.
+    On a one-slot engine a 300-token prompt is refused at submission (the
+    prompt-length ValueError) and a 2-token prompt at admission (its two
+    conv rows do not broadcast into the window of three).  Then the
+    consistency check (held with fp32 activations, printed with bf16
+    ones), the mC state's size, and one 768-token prefill and one decode
+    tick of the 8 slots under ``torch.profiler``.  Returns the
+    run's launch counts."""
+    tag = "xlstm"
+    model, params = family_model(XLSTM_ARCH, tag)
+    cfg = model.cfg
+    V = cfg.vocab
+    nps = xlstm_norms(cfg)
+    dev = _device_of(params)
+    one = ServingEngine(model, params, max_batch=1, max_seq=1024,
+                        device=dev)
+    refused = ""
+    try:
+        one.submit(Request(-2, np.arange(300) % V, max_new_tokens=4))
+    except ValueError as e:
+        refused = str(e)
+    check("multiple" in refused and not one.busy(),
+          f"a 300-token prompt was not refused: {refused!r}")
+    print(f"[{tag}] a 300-token prompt is refused at submission: "
+          f"ValueError: {refused}")
+    one.submit(Request(-3, np.arange(2), max_new_tokens=4))
+    refused = ""
+    try:
+        one.run_until_drained()
+    except ValueError as e:
+        refused = str(e)
+    check("broadcast" in refused, f"a 2-token prompt was not refused at "
+          f"admission: {refused!r}")
+    print(f"[{tag}] a 2-token prompt is refused at admission: ValueError: "
+          f"{refused}")
+    del one
+    eng = _engine(model, params, "bf16")
+    rng = np.random.default_rng(13)
+    reqs = [Request(i, rng.integers(0, V, n), max_new_tokens=32)
+            for i, n in enumerate(XLSTM_PROMPTS)]
+    wall, counts, st = _drive(eng, reqs)
+    prefills, steps = st["prefills"], st["decode_steps"]
+    want = {n: 0 for n in WRAPPERS}
+    want["rmsnorm"] = nps * (prefills + steps)
+    check(counts == want, f"{XLSTM_ARCH} launched {counts}, want {want} "
+          f"({prefills} prefills, {steps} decode steps)")
+    check(not st["paged"] and not st["chunked"] and not st["bucketed"]
+          and prefills == len(reqs) and st["prefill_chunks"] == 0,
+          f"{XLSTM_ARCH}: paged {st['paged']}, chunked {st['chunked']}, "
+          f"bucketed {st['bucketed']}, {prefills} prefills")
+    sizes = ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]} "
+                      f"{v.numel() * v.element_size() / 1e6:.1f} MB"
+                      for k, v in eng.cache.items())
+    print(f"[{tag}] dense cache at {eng.max_batch} slots: {sizes}")
+    print(f"[{tag}] dense backend, monolithic exact-shape prefill: "
+          f"{len(reqs)} requests, prompts {sum(XLSTM_PROMPTS)} tokens "
+          f"(lengths {list(XLSTM_PROMPTS)}) in {prefills} prefills, "
+          f"{st['decode_tokens']} decode tokens in {steps} decode steps, "
+          f"{wall:.3f} s wall; {_latency_line(st, wall)}; launches: rmsnorm "
+          f"{want['rmsnorm']} = {nps} x ({prefills} + {steps}) ({smi})")
+    # in bf16 the two paths round differently (a 34-row and a 1-row GEMM,
+    # the conv's bf16 sums against its one-row einsum) and 48 recurrent
+    # blocks carry it: the JAX package's own xlstm in bf16 exceeds 2e-2
+    # already at reduced width (tests/test_torch_zoo.py::
+    # test_xlstm_bf16_gap_is_the_references), so the fp32 run is held
+    consistency(model, params, {}, tag, smi, held=("float32",))
+    prompt = torch.from_numpy(rng.integers(0, V, (1, max(XLSTM_PROMPTS))))
+    prompt = prompt.to(dev)
+    profile_call(tag, f"one monolithic prefill of {prompt.shape[1]} tokens",
+                 lambda: model.prefill(params, {"tokens": prompt}), smi)
+    tick = {"tokens": torch.zeros(eng.max_batch, dtype=torch.long,
+                                  device=dev),
+            "pos": torch.full((eng.max_batch,), 100, dtype=torch.int32,
+                              device=dev)}
+    busy = profile_call(tag, f"one decode tick of {eng.max_batch} slots",
+                        lambda: model.serve_step(params, eng.cache, tick),
+                        smi)
+    mC = eng.cache["mC"]
+    slot = mC[:, :, 0].numel() * mC.element_size()
+    total = mC.numel() * mC.element_size()
+    floor_ms = 2 * total / HBM_BYTES_PER_S * 1e3
+    print(f"[{tag}] the mC state: {slot / 1e6:.1f} MB a slot ({mC.shape[0]}"
+          f" x {mC.shape[1]} mLSTM blocks x {tuple(mC.shape[3:])} fp32), "
+          f"{total / 1e9:.2f} GB at {eng.max_batch} slots; read and written "
+          f"once a tick at the HBM rate: {floor_ms:.2f} ms, against the "
+          f"tick's {busy:.2f} ms of device time ({smi})")
+    del eng, model, params
+    return counts
+
+
+def whisper_frames(cfg, n: int, seed: int) -> list:
+    """``n`` requests' encoder frames [1, Se, d] fp32 (the stub
+    frontend's input), drawn from numpy."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((1, cfg.encoder_seq, cfg.d_model),
+                                dtype=np.float32) for _ in range(n)]
+
+
+def phase_whisper(smi: str) -> dict:
+    """whisper-large-v3 at full width and depth serves 8 requests, each
+    with its own encoder frames and a decoder prompt of WHISPER_PROMPTS
+    tokens (32 new tokens each), through ``ServingEngine(max_batch 8,
+    max_seq WHISPER_MAX_SEQ)``, which takes the dense backend and bucketed
+    monolithic prefill for it; flash-attention launches must equal
+    (encoder layers + 2 x decoder layers) x prefills, flash-decode
+    launches 2 x decoder layers x decode steps, every other kernel none
+    (its LayerNorms are plain in both packages).  Then the consistency
+    check (held with bf16 and fp32 activations) and one 64-token prefill
+    and one decode tick of the 8 slots under ``torch.profiler``.  Returns
+    the run's launch counts."""
+    tag = "whisper"
+    model, params = family_model(WHISPER_ARCH, tag)
+    cfg = model.cfg
+    L, Le = cfg.n_layers, cfg.encoder_layers
+    dev = _device_of(params)
+    frames = whisper_frames(cfg, len(WHISPER_PROMPTS) + 1, seed=14)
+    eng = _engine(model, params, "bf16", max_seq=WHISPER_MAX_SEQ,
+                  extra={"encoder_frames": frames[-1]})
+    rng = np.random.default_rng(15)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n), max_new_tokens=32,
+                    extra={"encoder_frames": frames[i]})
+            for i, n in enumerate(WHISPER_PROMPTS)]
+    wall, counts, st = _drive(eng, reqs)
+    prefills, steps = st["prefills"], st["decode_steps"]
+    want = {n: 0 for n in WRAPPERS}
+    want["flash_attention"] = (Le + 2 * L) * prefills
+    want["flash_decode"] = 2 * L * steps
+    check(counts == want, f"{WHISPER_ARCH} launched {counts}, want {want} "
+          f"({prefills} prefills, {steps} decode steps)")
+    check(not st["paged"] and not st["chunked"] and st["bucketed"]
+          and prefills == len(reqs) and st["prefill_chunks"] == 0,
+          f"{WHISPER_ARCH}: paged {st['paged']}, chunked {st['chunked']}, "
+          f"bucketed {st['bucketed']}, {prefills} prefills")
+    sizes = ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]} "
+                      f"{v.numel() * v.element_size() / 1e6:.1f} MB"
+                      for k, v in eng.cache.items())
+    print(f"[{tag}] dense cache at {eng.max_batch} slots, max_seq "
+          f"{eng.max_seq}: {sizes}")
+    print(f"[{tag}] dense backend, bucketed monolithic prefill: "
+          f"{len(reqs)} requests of {cfg.encoder_seq} frames each, decoder "
+          f"prompts {sum(WHISPER_PROMPTS)} tokens (lengths "
+          f"{list(WHISPER_PROMPTS)}, {st['prefill_tokens_padded']} padded) "
+          f"in {prefills} prefills, {st['decode_tokens']} decode tokens in "
+          f"{steps} decode steps, {wall:.3f} s wall; "
+          f"{_latency_line(st, wall)}; launches: flash_attention "
+          f"{want['flash_attention']} = ({Le} + 2 x {L}) x {prefills}, "
+          f"flash_decode {want['flash_decode']} = 2 x {L} x {steps} ({smi})")
+    two = np.concatenate(frames[:2])
+    consistency(model, params, {"encoder_frames": torch.from_numpy(two)
+                                .to(dev)}, tag, smi)
+    Sp = max(WHISPER_PROMPTS)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (1, Sp)))
+             .to(dev),
+             "length": torch.tensor([Sp], dtype=torch.int32, device=dev),
+             "encoder_frames": torch.from_numpy(frames[0]).to(dev)}
+    profile_call(tag, f"one monolithic prefill of {cfg.encoder_seq} frames "
+                 f"and {Sp} decoder tokens",
+                 lambda: model.prefill(params, batch), smi)
+    tick = {"tokens": torch.zeros(eng.max_batch, dtype=torch.long,
+                                  device=dev),
+            "pos": torch.full((eng.max_batch,), 100, dtype=torch.int32,
+                              device=dev)}
+    profile_call(tag, f"one decode tick of {eng.max_batch} slots",
+                 lambda: model.serve_step(params, eng.cache, tick), smi)
+    del eng, model, params
+    return counts
+
+
 def reduced_mm_features(d_model) -> dict:
     """Media features at reduced width: a 2-layer, two-head encoder of
     ``d_model`` (fp32, seed 17) on the card and on the CPU, which must
@@ -2654,7 +3077,12 @@ def phase_reduced_parity():
         prompts = [rng.integers(0, cfg.vocab, n) for n in (6, 21, 33, 9, 50)]
         prompts += [np.concatenate([shared, rng.integers(0, cfg.vocab, 5)])
                     for _ in range(3)]
-        feats = reduced_mm_features(cfg.d_model)
+        # media requests need embedding spans (the decoder-only attention
+        # family); whisper's requests carry their own encoder frames
+        feats = (reduced_mm_features(cfg.d_model)
+                 if model.supports_embed_spans else None)
+        frames = (whisper_frames(cfg, len(prompts), seed=3)
+                  if cfg.cross_attention else [None] * len(prompts))
 
         def serve(dev, params, spec, **kw):
             if spec:
@@ -2664,10 +3092,13 @@ def phase_reduced_parity():
                                 max_seq=128,
                                 device=dev, **{**dict(
                                     page_size=8, prefill_chunk=16), **kw})
-            reqs = [Request(i, p, max_new_tokens=8)
-                    for i, p in enumerate(prompts)]
-            reqs += mm_requests(cfg.vocab, feats, new_tokens=8,
-                                heads=(3, 9), tails=(4, 17))
+            reqs = [Request(i, p, max_new_tokens=8,
+                            extra=None if f is None
+                            else {"encoder_frames": f})
+                    for i, (p, f) in enumerate(zip(prompts, frames))]
+            if feats is not None:
+                reqs += mm_requests(cfg.vocab, feats, new_tokens=8,
+                                    heads=(3, 9), tails=(4, 17))
             for r in reqs:
                 eng.submit(r)
             eng.run_until_drained()
@@ -2682,10 +3113,14 @@ def phase_reduced_parity():
             cuda[label] = serve("cuda", gpu_params, spec, **kw)
             check(cpu == cuda[label], f"{arch} {label}: CPU and CUDA "
                   f"engines disagree:\n{cpu}\n{cuda[label]}")
+            kinds = (f"{len(MM_ORDER)} multimodal" if feats is not None
+                     else f"no multimodal ({cfg.name} takes no embedding "
+                     "spans)")
             print(f"[parity] reduced {arch} fp32, {label} engine: CPU "
                   f"(plain) and CUDA (kernels) engines give identical tokens "
-                  f"for {len(prompts)} text and {len(MM_ORDER)} multimodal "
-                  f"requests")
+                  f"for {len(prompts)} "
+                  f"{'audio (own frames)' if cfg.cross_attention else 'text'}"
+                  f" and {kinds} requests")
         # an MoE layer's capacity and drops depend on the tokens of the
         # call, which a verify pass batches differently from a decode tick:
         # speculation need not give plain decode's tokens there, in the JAX
@@ -3418,6 +3853,13 @@ def main():
         del hybrid, hybrid_params
     gc.collect()
     torch.cuda.empty_cache()
+    family_launches = {}
+    with timed("dense families"):
+        for arch, phase in ((XLSTM_ARCH, phase_xlstm),
+                            (WHISPER_ARCH, phase_whisper)):
+            family_launches[arch] = phase(smi)
+            gc.collect()
+            torch.cuda.empty_cache()
     with timed("continuum"):
         phase_continuum(smi)
         phase_migration(smi)
@@ -3462,7 +3904,12 @@ def main():
             # the library call, where phase 4 took it (the SSD scan has no
             # library call)
             "device_ms": t.get("device_ms"),
-            "library_device_ms": t.get("library_device_ms")})
+            "library_device_ms": t.get("library_device_ms"),
+            # the launches of phase 9f's full-width runs (xlstm-1.3b,
+            # whisper-large-v3), for each kernel they launch
+            "launches_by_path": {arch: c[name]
+                                 for arch, c in family_launches.items()
+                                 if c[name]}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Public model API of the attention family, dense and MoE, and of the
-zamba2 hybrid: spec/init, the paged and dense KV cache layouts, monolithic
-prefill (with embedding spans and, on a prefix-cache hit, against cached
+"""Public model API of the model zoo (the attention family, dense and MoE,
+the zamba2 hybrid, xlstm and whisper): spec/init, the paged and dense KV
+cache layouts, monolithic prefill (with embedding spans and, on a
+prefix-cache hit, against cached
 prefix K/V), chunked prefill into either cache, the batched paged and
 dense decode steps, the speculative verify step and the export and import
 of a request's pages (ports of ``repro/models/api.py``).  The dense
@@ -15,6 +16,22 @@ N] fp32 per Mamba2 layer (G groups of P), the shared block's ``k``/``v``
 SSD-scan kernel in every Mamba2 layer and the flash-attention kernel in
 every shared block; its decode step the flash-decode kernel in every
 shared block.
+
+xlstm (``block_kind="xlstm"``) has the dense cache only, with exact-shape
+monolithic prefill, as in the JAX package, and no positional leaves: per
+mLSTM block its conv window ``mconv`` [G, P, B, W-1, d_in] bf16 and its
+matrix memory ``mC`` [G, P, B, nh, dh, dh], ``mn`` [G, P, B, nh, dh],
+``mm`` [G, P, B, nh] fp32; per sLSTM block ``sc``, ``sn``, ``sm``, ``sh``
+[G, B, d] fp32.  Every norm of its prefill and decode runs the RMSNorm
+kernel; its cells are plain torch in both packages.
+
+whisper (``cross_attention``) has the dense cache only, with bucketed
+monolithic prefill: the decoder's self-attention ``k``/``v`` [L, B, Sa,
+Hkv, Dh] and ``pos_map`` as the attention family's, plus the cross K/V
+``xk``/``xv`` [L, B, Se, Hkv, Dh] bf16 of the encoder output, written once
+at prefill.  Its prefill runs the flash-attention kernel in every encoder
+layer and twice in every decoder layer (causal self-, non-causal
+cross-attention); its decode step the flash-decode kernel twice a layer.
 
 Paged cache layout: ``k_pages``/``v_pages`` [L, P, bs, Hkv, Dh] bf16, or
 int8 with fp32 row scales ``k_scales``/``v_scales`` [L, P, bs, Hkv]
@@ -49,6 +66,7 @@ from repro_torch.kernels.quant import dequantize_kv, quantize_kv
 from repro_torch.kernels.ssd_scan import chunk_length
 from repro_torch.models import lm
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import chunk_prefill_attention
 from repro_torch.nn.layers import apply_rope
 from repro_torch.nn.spec import init_params
@@ -83,17 +101,29 @@ class Model:
         """The dense cache's leaves as ``meta`` tensors: k/v
         [L, B, Sa, Hkv, Dh] bf16 and pos_map [B, Sa] int32; for zamba2 also
         conv [G, P, B, W-1, Ch] bf16 and ssm [G, P, B, nh, p, N] fp32, with
-        k/v per group [G, B, Sa, Hkv, Dh]."""
+        k/v per group [G, B, Sa, Hkv, Dh]; for whisper also xk/xv
+        [L, B, Se, Hkv, Dh] bf16; for xlstm only its recurrent states (the
+        module docstring's layout)."""
         cfg = self.cfg
-        if not lm.ported_family(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: dense caches of the xlstm and encoder-decoder "
-                "families are not ported to repro_torch yet (ROADMAP queue 1 "
-                "item 11 B)")
 
         def meta(shape, dt):
             return torch.empty(shape, dtype=dt, device="meta")
 
+        if cfg.block_kind == "xlstm":
+            G, P = lm.xlstm_groups(cfg)
+            d = cfg.d_model
+            d_in = int(cfg.proj_factor * d)
+            nh = cfg.n_heads
+            dh = d_in // nh
+            f32 = torch.float32
+            out = {"mconv": meta((G, P, B, cfg.conv_width - 1, d_in),
+                                 torch.bfloat16),
+                   "mC": meta((G, P, B, nh, dh, dh), f32),
+                   "mn": meta((G, P, B, nh, dh), f32),
+                   "mm": meta((G, P, B, nh), f32)}
+            out.update({name: meta((G, B, d), f32)
+                        for name in ("sc", "sn", "sm", "sh")})
+            return out
         kv = (cfg.n_layers, B, Sa, cfg.n_kv_heads, cfg.hd)
         out = {}
         if cfg.block_kind == "mamba_hybrid":
@@ -108,24 +138,31 @@ class Model:
         out["k"] = meta(kv, torch.bfloat16)
         out["v"] = meta(kv, torch.bfloat16)
         out["pos_map"] = meta((B, Sa), torch.int32)
+        if cfg.cross_attention:
+            xkv = (cfg.n_layers, B, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
+            out["xk"] = meta(xkv, torch.bfloat16)
+            out["xv"] = meta(xkv, torch.bfloat16)
         return out
 
     @property
     def supports_paged(self) -> bool:
-        """Paged KV serving covers the pure-attention family; zamba2's
-        recurrent states live in the dense cache."""
+        """Paged KV serving covers the pure-attention family; the
+        recurrent states of zamba2 and xlstm and whisper's cross K/V live
+        in the dense cache."""
         return self.cfg.block_kind == "attn" and not self.cfg.cross_attention
 
     @property
     def supports_embed_spans(self) -> bool:
-        """Embedding spans need the attention family (zamba2's recurrent
-        state updates are fused with its token scans)."""
+        """Embedding spans need the decoder-only attention family: the
+        recurrent state updates of zamba2 and xlstm are fused with their
+        token scans, and whisper carries audio through its own encoder."""
         return self.supports_paged
 
     @property
     def supports_bucketed_prefill(self) -> bool:
-        """Padded prefill needs a positional cache (attention family): a
-        recurrent state integrates every input token, padding included."""
+        """Padded prefill needs a positional cache (the attention family,
+        whisper's decoder included): a recurrent state integrates every
+        input token, padding included."""
         return self.cfg.block_kind == "attn"
 
     @property
@@ -134,9 +171,10 @@ class Model:
 
     def check_prompt_length(self, T: int):
         """Raise ValueError for a prompt length the model cannot prefill:
-        zamba2's SSD scan takes a prompt past ``scan_chunk`` only in whole
-        chunks (``ssd_scan.chunk_length``)."""
-        if self.cfg.block_kind == "mamba_hybrid":
+        zamba2's SSD scan and xlstm's chunkwise mLSTM take a prompt past
+        ``scan_chunk`` only in whole chunks (``ssd_scan.chunk_length``; the
+        JAX package asserts it inside the scan)."""
+        if self.cfg.block_kind in ("mamba_hybrid", "xlstm"):
             chunk_length(T, self.cfg.scan_chunk, "scan_chunk")
 
     def abstract_paged_cache(self, num_pages: int, block_size: int,
@@ -236,8 +274,12 @@ class Model:
         causal masking keeps the padding out of every real position.
         ``batch["embeds"]`` [B, S, d] and ``batch["embed_mask"]`` [B, S]
         optionally inject embedding spans (``lm.embed_inputs``).  zamba2
-        takes neither (ValueError, as in the JAX package), and a prompt
-        past ``scan_chunk`` only in whole chunks (ValueError).
+        and xlstm take neither (ValueError, as in the JAX package), and a
+        prompt past ``scan_chunk`` only in whole chunks (ValueError).
+        whisper needs ``batch["encoder_frames"]`` [B, Se, d] (a tensor or
+        an array; KeyError without it, as in the JAX package) and returns
+        k/v, pos_map and the cross K/V xk/xv; xlstm returns its recurrent
+        states only.
         """
         cfg = self.cfg
         tokens, length = batch["tokens"], batch.get("length")
@@ -256,21 +298,32 @@ class Model:
                                    device=tokens.device).expand(B, S)
         else:
             pos_map = lm.prompt_pos_map(length, S)
-        if cfg.block_kind == "mamba_hybrid":
+        if cfg.cross_attention:
+            if "encoder_frames" not in batch:
+                raise KeyError(f"{cfg.name}: prefill needs "
+                               "batch['encoder_frames'] [B, Se, d]")
+            frames = torch.as_tensor(batch["encoder_frames"],
+                                     device=tokens.device)
+            enc = lm.whisper_encode(cfg, params, frames)
+            h, (k, v, xk, xv) = lm.whisper_decode_forward(
+                cfg, params, tokens, enc, return_cache=True)
+            cache = {"k": k, "v": v, "xk": xk, "xv": xv, "pos_map": pos_map}
+        elif cfg.block_kind == "mamba_hybrid":
             h, ((conv, ssm), (k, v)) = lm.zamba2_forward(
                 cfg, params, tokens, return_cache=True)
             cache = {"conv": conv, "ssm": ssm, "k": k, "v": v,
                      "pos_map": pos_map}
-        elif lm.ported_family(cfg):
+        elif cfg.block_kind == "xlstm":
+            self.check_prompt_length(S)
+            h, ((mconv, (mC, mn, mm)), (sc, sn, sm, sh)) = \
+                lm.xlstm_forward(cfg, params, tokens, return_cache=True)
+            cache = {"mconv": mconv, "mC": mC, "mn": mn, "mm": mm,
+                     "sc": sc, "sn": sn, "sm": sm, "sh": sh}
+        else:
             h, (k, v) = lm.attn_forward(cfg, params, tokens,
                                         return_cache=True, embeds=embeds,
                                         embed_mask=batch.get("embed_mask"))
             cache = {"k": k, "v": v, "pos_map": pos_map}
-        else:
-            raise NotImplementedError(
-                f"{cfg.name}: prefill of the xlstm and encoder-decoder "
-                "families is not ported to repro_torch yet (ROADMAP queue 1 "
-                "item 11 B)")
         logits = lm.last_logits(cfg, params, lm.last_hidden(h, length))
         return logits, cache
 
@@ -368,17 +421,15 @@ class Model:
         writes nothing (the JAX package's out-of-bounds drop) and its
         logits are garbage nobody reads.  Attention runs
         ``ops.flash_decode`` over each layer's cache view (the CUDA kernel
-        on the card, its plain version on the CPU); zamba2 dispatches to
-        ``_zamba2_decode``.  The cache is updated in place; returns
+        on the card, its plain version on the CPU); zamba2, xlstm and
+        whisper dispatch to ``_zamba2_decode``, ``_xlstm_decode`` and
+        ``_whisper_decode``.  The cache is updated in place; returns
         (logits [B, V] fp32, cache)."""
         cfg = self.cfg
-        if not lm.ported_family(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: dense decode of the xlstm and encoder-decoder "
-                "families is not ported to repro_torch yet (ROADMAP queue 1 "
-                "item 11 B)")
         tokens, pos = batch["tokens"], batch["pos"].long()
         x = lm.embed_tokens(cfg, params, tokens)  # [B, d]
+        if cfg.block_kind == "xlstm":
+            return self._xlstm_decode(params, cache, x)
         B = x.shape[0]
         Sa = cache["k"].shape[2]
         rows = torch.arange(B, device=pos.device)
@@ -390,6 +441,9 @@ class Model:
         if cfg.block_kind == "mamba_hybrid":
             return self._zamba2_decode(params, cache, x, wpos, rows, live,
                                        pos32)
+        if cfg.cross_attention:
+            return self._whisper_decode(params, cache, x, pos, wpos, rows,
+                                        live, pos32)
 
         def attend(q1, k1, v1, kv, window):
             kc, vc = kv
@@ -444,6 +498,78 @@ class Model:
                                          rope, wpos[:, None], attend=attend)
         x = lm._norm(params, x, cfg.norm, "final")
         return lm.last_logits(cfg, params, x), {**cache, "conv": conv}
+
+    def _xlstm_decode(self, params, cache, x):
+        """xlstm's dense decode step (``api.py:819`` of the JAX package, with
+        Python loops in place of its scans): every group's mLSTM blocks,
+        then its sLSTM block, each advance every slot's state by one token
+        (free slots included, as in the JAX step: the splice overwrites
+        them at admission).  States are updated in place; the conv leaf
+        first takes the activation type where it differs (the JAX step
+        returns its conv windows in the promoted type, which the engine
+        keeps)."""
+        cfg = self.cfg
+        nh = cfg.n_heads
+        mconv = cache["mconv"]
+        dt = torch.promote_types(mconv.dtype, x.dtype)
+        if mconv.dtype != dt:
+            mconv = mconv.to(dt)
+        mC, mn, mm = cache["mC"], cache["mn"], cache["mm"]
+        G, P = lm.xlstm_groups(cfg)
+        for g in range(G):
+            pm = lm.layer_slice(params["mlstm"], g)
+            for i in range(P):
+                x, (cs, (C, n, m)) = xl.mlstm_block_decode(
+                    lm.layer_slice(pm, i), x,
+                    (mconv[g, i], (mC[g, i], mn[g, i], mm[g, i])), nh=nh)
+                mconv[g, i] = cs
+                mC[g, i] = C
+                mn[g, i] = n
+                mm[g, i] = m
+            state = tuple(cache[name][g] for name in ("sc", "sn", "sm", "sh"))
+            x, state = xl.slstm_block_decode(
+                lm.layer_slice(params["slstm"], g), x, state, nh=nh)
+            for name, leaf in zip(("sc", "sn", "sm", "sh"), state):
+                cache[name][g] = leaf
+        x = lm._norm(params, x, cfg.norm, "final")
+        return lm.last_logits(cfg, params, x), {**cache, "mconv": mconv}
+
+    def _whisper_decode(self, params, cache, x, pos, wpos, rows, live,
+                        pos32):
+        """whisper's dense decode step (``api.py:848`` of the JAX package):
+        the sinusoid at ``pos`` added to the token embedding, then per
+        decoder layer the self-attention K/V written at ``wpos`` (nothing
+        for a parked slot) and attended through ``ops.flash_decode`` with
+        ``pos_map``, then cross-attention through ``ops.flash_decode`` over
+        ``xk``/``xv`` at positions ``arange(Se)`` with the query at ``Se``,
+        so every frame is visible, then the MLP."""
+        cfg = self.cfg
+        B = x.shape[0]
+        x = x + lm.sinusoid(pos, cfg.d_model).to(x.dtype)
+        pos_map = cache["pos_map"]
+        Se = cache["xk"].shape[2]
+        xpos = torch.arange(Se, dtype=torch.int32,
+                            device=x.device).expand(B, Se).contiguous()
+        xq = torch.full((B,), Se, dtype=torch.int32, device=x.device)
+        for i in range(cfg.n_layers):
+            pl = lm.layer_slice(params["layers"], i)
+            kc, vc = cache["k"][i], cache["v"][i]
+            xn = lm._norm(pl, x[:, None], cfg.norm, "ln1")
+            q, k, v = lm._qkv(pl["attn"], cfg, xn, B, 1)
+            _masked_write(kc, (rows, wpos), k[:, 0], live)
+            _masked_write(vc, (rows, wpos), v[:, 0], live)
+            o = ops.flash_decode(q[:, 0].contiguous(), kc, vc, pos_map,
+                                 pos32)
+            x = x + o.reshape(B, -1) @ pl["attn"]["wo"].to(x.dtype)
+            xn = lm._norm(pl, x[:, None], cfg.norm, "lnx")
+            q2 = lm.cross_q(cfg, pl["xattn"], xn)
+            o2 = ops.flash_decode(q2[:, 0].contiguous(), cache["xk"][i],
+                                  cache["xv"][i], xpos, xq)
+            x = x + o2.reshape(B, -1) @ pl["xattn"]["wo"].to(x.dtype)
+            xn = lm._norm(pl, x[:, None], cfg.norm, "ln2")
+            x = x + lm._mlp(pl["mlp"], cfg, xn)[:, 0]
+        x = lm._norm(params, x, cfg.norm, "final")
+        return lm.last_logits(cfg, params, x), cache
 
     def serve_step_paged(self, params, cache, batch):
         """One token for the whole batch against the paged KV cache.

@@ -1,18 +1,22 @@
-"""Decoder stacks of the attention family, dense and MoE, and of the
-zamba2 hybrid (ports of ``repro/models/lm.py``): parameter specs,
-embedding, norms, the attention and MLP or MoE sub-blocks, per-layer
-windows, rope tables, the logits head, and zamba2's Mamba2 groups with
-their shared attention+MLP block.
+"""The model zoo's stacks (ports of ``repro/models/lm.py``): parameter
+specs, embedding, norms, the attention and MLP or MoE sub-blocks,
+per-layer windows, rope tables and the logits head of the attention
+family (dense and MoE); zamba2's Mamba2 groups with their shared
+attention+MLP block; xlstm's groups of mLSTM blocks and one sLSTM block;
+whisper's encoder over precomputed frame embeddings and its decoder with
+cross-attention.
 
 Parameters are a plain dict with the JAX tree's keys; per-layer leaves are
 stacked on dim 0.  Norms accumulate in fp32 (RMS norms through the fused
 RMSNorm kernel on the card); matmuls run in the activation dtype, with
 weights cast at the use site as in the JAX package.  Whole-prompt attention
+(the decoders' causal attention, whisper's encoder and cross-attention)
 runs the flash-attention kernel on the card.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -22,6 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import flash_attention
 from repro_torch.nn.layers import apply_rope, rope_frequencies
 from repro_torch.nn.spec import TensorSpec
@@ -92,7 +97,7 @@ def _head_rms(x, scale):
 def _act(name):
     if name == "silu_glu":
         return F.silu
-    if name == "gelu_glu":
+    if name in ("gelu_glu", "gelu"):  # jax.nn.gelu's default: the tanh form
         return lambda x: F.gelu(x, approximate="tanh")
     raise ValueError(name)
 
@@ -133,10 +138,20 @@ def attn_spec(cfg: ArchConfig, L: int, d: int):
 
 
 def mlp_spec(cfg: ArchConfig, L: int, d: int, ff: int):
-    """Gated MLP weights (the dense attention family's only MLP form)."""
+    """Gated MLP weights, or the plain MLP with biases of ``act="gelu"``
+    (whisper)."""
     stack = (L,) if L else ()
     ax = ("layers",) if L else ()
     sc, sc2 = d ** -0.5, ff ** -0.5
+    if cfg.act == "gelu":
+        return {
+            "w1": TensorSpec(stack + (d, ff), ax + ("embed", "mlp"),
+                             "normal", sc),
+            "b1": TensorSpec(stack + (ff,), ax + ("mlp",), "zeros"),
+            "w2": TensorSpec(stack + (ff, d), ax + ("mlp", "embed"),
+                             "normal", sc2),
+            "b2": TensorSpec(stack + (d,), ax + ("embed",), "zeros"),
+        }
     return {
         "w_gate": TensorSpec(stack + (d, ff), ax + ("embed", "mlp"),
                              "normal", sc),
@@ -147,22 +162,9 @@ def mlp_spec(cfg: ArchConfig, L: int, d: int, ff: int):
     }
 
 
-def ported_family(cfg: ArchConfig) -> bool:
-    """The families the port serves: attention decoders (dense, MoE) and
-    the zamba2 hybrid; xlstm and whisper are ROADMAP queue 1 item 11 B."""
-    if cfg.block_kind == "mamba_hybrid":
-        return True
-    return (cfg.block_kind == "attn" and not cfg.cross_attention
-            and cfg.act != "gelu")
-
-
 def build_spec(cfg: ArchConfig) -> Tree:
-    """Spec tree of an attention-family decoder (dense or MoE) or of the
-    zamba2 hybrid."""
-    if not ported_family(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the xlstm and encoder-decoder (whisper) families "
-            "are not ported to repro_torch yet (ROADMAP queue 1 item 11 B)")
+    """Spec tree of ``cfg``'s family: an attention decoder (dense or MoE),
+    the zamba2 hybrid, xlstm or whisper (JAX ``lm.py:build_spec``)."""
     d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
     spec: dict = {"embed": {"table": TensorSpec((V, d), ("vocab", "embed"),
                                                 "embed", scale=d ** -0.5)}}
@@ -172,6 +174,17 @@ def build_spec(cfg: ArchConfig) -> Tree:
                                      scale=d ** -0.5)
     if cfg.block_kind == "mamba_hybrid":
         spec.update(_zamba2_spec(cfg))
+        return spec
+    if cfg.block_kind == "xlstm":
+        G, P = xlstm_groups(cfg)
+        spec["mlstm"] = xl.mlstm_spec((G, P), d, int(cfg.proj_factor * d),
+                                      cfg.n_heads, cfg.conv_width)
+        spec["slstm"] = xl.slstm_spec((G,), d, cfg.n_heads)
+        return spec
+    if cfg.block_kind != "attn":
+        raise ValueError(cfg.block_kind)
+    if cfg.cross_attention:
+        spec.update(_whisper_spec(cfg))
         return spec
     layer = {}
     layer.update(_norm_spec(L, d, cfg.norm, "ln1"))
@@ -187,6 +200,25 @@ def build_spec(cfg: ArchConfig) -> Tree:
         layer["mlp"] = mlp_spec(cfg, L, d, cfg.d_ff)
     spec["layers"] = layer
     return spec
+
+
+def _whisper_spec(cfg: ArchConfig) -> Tree:
+    """whisper's encoder layers, its final norm ``enc_final`` and the
+    decoder layers with self- (``attn``) and cross-attention (``xattn``)
+    and their norms ln1, lnx, ln2."""
+    d, L, Le = cfg.d_model, cfg.n_layers, cfg.encoder_layers
+    enc = {"attn": attn_spec(cfg, Le, d)}
+    enc.update(_norm_spec(Le, d, cfg.norm, "ln1"))
+    enc.update(_norm_spec(Le, d, cfg.norm, "ln2"))
+    enc["mlp"] = mlp_spec(cfg, Le, d, cfg.d_ff)
+    dec = {"attn": attn_spec(cfg, L, d), "xattn": attn_spec(cfg, L, d)}
+    dec.update(_norm_spec(L, d, cfg.norm, "ln1"))
+    dec.update(_norm_spec(L, d, cfg.norm, "lnx"))
+    dec.update(_norm_spec(L, d, cfg.norm, "ln2"))
+    dec["mlp"] = mlp_spec(cfg, L, d, cfg.d_ff)
+    out = {"encoder": enc, "layers": dec}
+    out.update(_norm_spec(0, d, cfg.norm, "enc_final"))
+    return out
 
 
 def _zamba2_spec(cfg: ArchConfig) -> Tree:
@@ -259,6 +291,9 @@ def _qkv(pl, cfg, xn, B, S):
 def _mlp(pl, cfg, xn):
     dt = xn.dtype
     act = _act(cfg.act)
+    if "w1" in pl:  # plain, with biases (whisper)
+        h = act(xn @ pl["w1"].to(dt) + pl["b1"].to(dt))
+        return h @ pl["w2"].to(dt) + pl["b2"].to(dt)
     h = act(xn @ pl["w_gate"].to(dt)) * (xn @ pl["w_up"].to(dt))
     return h @ pl["w_down"].to(dt)
 
@@ -429,6 +464,146 @@ def zamba2_forward(cfg: ArchConfig, params, tokens, *, return_cache=False):
 
     return x, ((stacked(convs), stacked(ssms)),
                (torch.stack(ks), torch.stack(vs)))
+
+
+# ---------------------------------------------------------------- xlstm family
+
+
+def xlstm_groups(cfg: ArchConfig) -> "tuple[int, int]":
+    """(groups, mLSTM blocks per group): one sLSTM block ends each
+    group."""
+    P = cfg.mlstm_per_slstm
+    return cfg.n_layers // (P + 1), P
+
+
+def xlstm_forward(cfg: ArchConfig, params, tokens, *, return_cache=False):
+    """tokens [B, S] -> final-normed hidden [B, S, d] (``lm.py:544`` of the
+    JAX package, with Python loops in place of its scans): each group's
+    mLSTM blocks in order, then its sLSTM block.  With ``return_cache``
+    also ((mconv [G, P, B, min(S, W-1), d_in], (mC [G, P, B, nh, dh, dh],
+    mn [G, P, B, nh, dh], mm [G, P, B, nh])), (sc, sn, sm, sh) each
+    [G, B, d]), the states fp32.  A prompt past ``scan_chunk`` must be
+    whole chunks (ValueError)."""
+    x = embed_tokens(cfg, params, tokens)
+    G, P = xlstm_groups(cfg)
+    convs, Cs, ns, ms, sstates = [], [], [], [], []
+    for g in range(G):
+        pm = layer_slice(params["mlstm"], g)
+        for i in range(P):
+            x, (cs, (C, n, m)) = xl.mlstm_block(
+                layer_slice(pm, i), x, nh=cfg.n_heads, chunk=cfg.scan_chunk,
+                gather_qkv=cfg.xlstm_gather_qkv)
+            convs.append(cs)
+            Cs.append(C)
+            ns.append(n)
+            ms.append(m)
+        x, st = xl.slstm_block(layer_slice(params["slstm"], g), x,
+                               nh=cfg.n_heads)
+        sstates.append(st)
+    x = _norm(params, x, cfg.norm, "final")
+    if not return_cache:
+        return x
+
+    def stacked(ts):
+        t = torch.stack(ts)
+        return t.reshape((G, P) + t.shape[1:])
+
+    mstate = (stacked(convs), (stacked(Cs), stacked(ns), stacked(ms)))
+    return x, (mstate, tuple(torch.stack(leaf) for leaf in zip(*sstates)))
+
+
+# -------------------------------------------------------------- whisper family
+
+
+def sinusoid(pos, d: int):
+    """whisper's sinusoidal position table at ``pos`` [n] -> [n, d] fp32:
+    sin of the first half, cos of the second, frequencies
+    ``exp(-i / (half - 1) * ln 10000)`` (``half - 1``, as the JAX
+    package divides)."""
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=pos.device) / (half - 1)
+                      * math.log(10000.0))
+    ang = pos.float()[:, None] * freqs[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def whisper_encode(cfg: ArchConfig, params, frames):
+    """frames [B, Se, d] (the stub frontend's precomputed frame
+    embeddings) -> encoder output [B, Se, d] after ``enc_final``:
+    sinusoidal positions, then pre-LN layers of non-causal attention (the
+    flash-attention kernel on the card) and the plain gelu MLP."""
+    B, Se, d = frames.shape
+    x = frames.to(act_dtype(cfg))
+    x = x + sinusoid(torch.arange(Se, device=x.device), d)[None].to(x.dtype)
+    for i in range(cfg.encoder_layers):
+        pl = layer_slice(params["encoder"], i)
+        xn = _norm(pl, x, cfg.norm, "ln1")
+        q, k, v = _qkv(pl["attn"], cfg, xn, B, Se)
+        o = flash_attention(q, k, v, causal=False)
+        x = x + o.reshape(B, Se, -1) @ pl["attn"]["wo"].to(x.dtype)
+        x = x + _mlp(pl["mlp"], cfg, _norm(pl, x, cfg.norm, "ln2"))
+    return _norm(params, x, cfg.norm, "enc_final")
+
+
+def cross_q(cfg: ArchConfig, pl_xattn, xn):
+    """The cross-attention queries [B, S, H, Dh] of the lnx-normed
+    decoder stream xn [B, S, d] (the JAX package's ``_qkv`` computes this
+    layer's k and v of xn too, and drops them)."""
+    B, S, _ = xn.shape
+    q = xn @ pl_xattn["wq"].to(xn.dtype)
+    if "bq" in pl_xattn:
+        q = q + pl_xattn["bq"].to(xn.dtype)
+    return q.reshape(B, S, cfg.n_heads, cfg.hd)
+
+
+def cross_kv(cfg: ArchConfig, pl_xattn, enc):
+    """One decoder layer's cross-attention K/V [B, Se, Hkv, Dh] from the
+    encoder output, with ``bk``/``bv`` added where the config has them."""
+    B, Se, _ = enc.shape
+    dt = enc.dtype
+    shape = (B, Se, cfg.n_kv_heads, cfg.hd)
+    k = (enc @ pl_xattn["wk"].to(dt)).reshape(shape)
+    v = (enc @ pl_xattn["wv"].to(dt)).reshape(shape)
+    if "bk" in pl_xattn:
+        k = k + pl_xattn["bk"].to(dt).reshape(shape[2:])
+        v = v + pl_xattn["bv"].to(dt).reshape(shape[2:])
+    return k, v
+
+
+def whisper_decode_forward(cfg: ArchConfig, params, tokens, enc, *,
+                           return_cache=False):
+    """tokens [B, S], enc [B, Se, d] (``whisper_encode``'s output) ->
+    final-normed hidden [B, S, d]: sinusoidal positions, then per layer
+    causal self-attention, cross-attention over every frame (both through
+    the flash-attention kernel on the card) and the MLP.  With
+    ``return_cache`` also (k, v [L, B, S, Hkv, Dh], xk, xv [L, B, Se, Hkv,
+    Dh])."""
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    x = x + sinusoid(torch.arange(S, device=x.device),
+                     cfg.d_model)[None].to(x.dtype)
+    ks, vs, xks, xvs = [], [], [], []
+    for i in range(cfg.n_layers):
+        pl = layer_slice(params["layers"], i)
+        xn = _norm(pl, x, cfg.norm, "ln1")
+        q, k, v = _qkv(pl["attn"], cfg, xn, B, S)
+        o = flash_attention(q, k, v, causal=True)
+        x = x + o.reshape(B, S, -1) @ pl["attn"]["wo"].to(x.dtype)
+        xn = _norm(pl, x, cfg.norm, "lnx")
+        q2 = cross_q(cfg, pl["xattn"], xn)
+        k2, v2 = cross_kv(cfg, pl["xattn"], enc.to(x.dtype))
+        o2 = flash_attention(q2, k2, v2, causal=False)
+        x = x + o2.reshape(B, S, -1) @ pl["xattn"]["wo"].to(x.dtype)
+        x = x + _mlp(pl["mlp"], cfg, _norm(pl, x, cfg.norm, "ln2"))
+        ks.append(k)
+        vs.append(v)
+        xks.append(k2)
+        xvs.append(v2)
+    x = _norm(params, x, cfg.norm, "final")
+    if not return_cache:
+        return x
+    return x, tuple(torch.stack(t) for t in (ks, vs, xks, xvs))
 
 
 def layer_slice(tree, i: int):

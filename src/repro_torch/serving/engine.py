@@ -1,6 +1,6 @@
 """Slot-based continuous-batching serving engine (port of
-``repro/serving/engine.py`` for the attention family and the zamba2
-hybrid).
+``repro/serving/engine.py``): the attention family, the zamba2 hybrid,
+xlstm and whisper.
 
 A fixed decode batch of ``max_batch`` slots steps in lockstep, one batched
 decode step per tick with the argmax on the device.  Two cache backends:
@@ -19,7 +19,11 @@ decode step per tick with the argmax on the device.  Two cache backends:
 does: zamba2 is served on the dense backend, its recurrent conv and SSM
 states in the dense cache beside the shared block's K/V, with exact-shape
 monolithic prefill (neither bucketed nor chunked: a recurrent state
-integrates every token, padding included).
+integrates every token, padding included); so is xlstm, whose cache holds
+its mLSTM and sLSTM states only.  whisper is served on the dense backend
+with bucketed monolithic prefill; a request carries its encoder frames in
+``Request.extra["encoder_frames"]`` [1, Se, d], which reaches
+``Model.prefill``, and its cross K/V stay in the slot's ``xk``/``xv``.
 
 Prompts are prefilled ``prefill_chunk`` tokens at a time under a per-tick
 ``prefill_budget``, sharing ticks with the decode step, or, with
@@ -65,8 +69,7 @@ Admission batching (``sorted_batch_sizes``, ``max_live_batches``,
 ``batching_wait_secs``) admits queued requests in groups on the engine
 clock, as the JAX engine does.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the xlstm and encoder-decoder (whisper) families and
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
 tensor-parallel meshes (``mesh``).
 """
 from __future__ import annotations
@@ -81,7 +84,6 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.kernels.quant import dequantize_kv, quantize_kv
-from repro_torch.models import lm
 from repro_torch.models.api import Model, build_model
 from repro_torch.serving import segments as sg
 from repro_torch.serving.kv_cache import (BlockPool, BlockTable, KVSnapshot,
@@ -92,9 +94,12 @@ from repro_torch.serving.telemetry import MetricsRegistry, latency_summary
 
 
 # batch and sequence dims of the dense cache leaves (Model.abstract_cache):
-# zamba2's conv windows and SSM states [G, P, B, ...] have no sequence dim;
-# the leaves of xlstm and whisper come with ROADMAP queue 1 item 11 B
-_BATCH_DIM = {"k": 1, "v": 1, "pos_map": 0, "conv": 2, "ssm": 2}
+# zamba2's conv windows and SSM states and xlstm's mLSTM states [G, P, B,
+# ...], xlstm's sLSTM states [G, B, d] and whisper's cross K/V [L, B, Se,
+# ...] have no sequence dim to grow
+_BATCH_DIM = {"k": 1, "v": 1, "xk": 1, "xv": 1, "pos_map": 0,
+              "conv": 2, "ssm": 2, "mconv": 2, "mC": 2, "mn": 2, "mm": 2,
+              "sc": 1, "sn": 1, "sm": 1, "sh": 1}
 _SEQ_DIM = {"k": 2, "v": 2, "pos_map": 1}
 
 
@@ -209,9 +214,6 @@ class ServingEngine:
         cache and the steps run; None means the CUDA card and raises when
         there is none.  ``params`` must already be on that device.
         """
-        if not lm.ported_family(model.cfg):
-            raise _unported(f"{model.cfg.name}: the xlstm and "
-                            "encoder-decoder cache families", "item 11 B")
         self.paged = model.supports_paged if paged is None else bool(paged)
         if self.paged and not model.supports_paged:
             raise ValueError(
@@ -1032,8 +1034,9 @@ class ServingEngine:
                 "prompt")
         if len(req.tokens) < 1:
             raise ValueError(f"request {req.uid}: empty prompt")
-        # zamba2: a prompt past scan_chunk must be whole chunks (the JAX
-        # engine fails the same prompt at admission, with an assertion)
+        # zamba2 and xlstm: a prompt past scan_chunk must be whole chunks
+        # (the JAX engine fails the same prompt at admission, with an
+        # assertion)
         self.model.check_prompt_length(len(req.tokens))
         if req.imported is not None:
             self._check_import(req)
@@ -1132,9 +1135,9 @@ class ServingEngine:
         leaf without a sequence dim (zamba2's conv windows and SSM states)
         is copied as it is, broadcast to the slot's shape as the JAX
         splice's ``.at[].set`` broadcasts it: a 1-token prompt's one conv
-        row fills all W-1 rows of its window, and a prompt of 2 to W-2
-        tokens raises ValueError before any leaf is written, as the JAX
-        splice raises."""
+        row (zamba2's ``conv``, xlstm's ``mconv``) fills all W-1 rows of
+        its window, and a prompt of 2 to W-2 tokens raises ValueError
+        before any leaf is written, as the JAX splice raises."""
         rcs = {}
         for name, leaf in cache.items():
             rc = req_cache[name]

@@ -239,6 +239,31 @@ def test_unported_handle_knobs_raise():
     assert sim.tp == 2 and sim.decode_tick_s > 0
 
 
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-large-v3"])
+def test_dense_family_edge_handles_fall_back_to_bf16(arch):
+    """test_kv_quant.py::test_cluster_edge_tiers_default_int8's recurrent
+    case, and the same for whisper: an edge handle of a family without a
+    paged cache falls back from the edge tiers' int8 default to a bf16
+    dense engine instead of failing, and that engine serves a request to
+    its budget (whisper's with its encoder frames in ``extra``)."""
+    edge = build_continuum([(0, 1)], max_seq=48, torch_device="cpu")[0]
+    assert not edge.is_cloud and edge.kv_dtype == "int8"
+    h = cluster_mod.EngineHandle(f"edge-{arch}", arch, edge.device,
+                                 edge.profile, max_seq=48,
+                                 torch_device="cpu")
+    assert h.kv_dtype == "bf16" and h.engine.kv_dtype == "bf16"
+    assert not h.engine.paged
+    cfg = h.cfg
+    extra = None
+    if cfg.cross_attention:
+        extra = {"encoder_frames": np.random.default_rng(0).normal(
+            size=(1, cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
+    req = Request(0, _prompt(cfg, n=7), max_new_tokens=3, extra=extra)
+    h.engine.submit(req)
+    h.engine.run_until_drained()
+    assert req.done and len(req.output) == 3
+
+
 # ------------------------------------------- test_disagg.py cluster cases
 
 

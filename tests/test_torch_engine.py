@@ -181,7 +181,9 @@ def _reduced_engine(arch="qwen2-0.5b", **kw):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(paged=False, arch="xlstm-1.3b"),  # a recurrent family: item 11 B
+    # a recurrent family is served on the dense backend only: the paged
+    # one is refused as by the JAX engine
+    dict(paged=True, arch="xlstm-1.3b"),
     dict(paged=False, kv_dtype="int8"),  # refused as by the JAX engine
     # a recurrent draft: refused as by the JAX engine
     dict(draft_config=reduced(get_config("zamba2-2.7b"))),
@@ -191,13 +193,15 @@ def _reduced_engine(arch="qwen2-0.5b", **kw):
     dict(sorted_batch_sizes=[1, 2], max_live_batches=1)])
 def test_unported_knobs_raise(knob):
     """Knobs the port does not serve raise: unported ones
-    ``NotImplementedError`` naming their ROADMAP item; an int8 dense cache
-    and a draft outside the attention family ``ValueError``, as in the JAX
-    engine (test_kv_quant.py:183-186, engine.py's draft check).  The dense
+    ``NotImplementedError`` naming their ROADMAP item; a paged xlstm
+    engine, an int8 dense cache and a draft outside the attention family
+    ``ValueError``, as in the JAX engine (engine.py's backend check,
+    test_kv_quant.py:183-186, engine.py's draft check).  The dense
     backend and monolithic prefill of the attention family, MoE drafts,
-    zamba2 and admission batching are ported
+    zamba2, xlstm, whisper and admission batching are ported
     (tests/test_torch_dense_engine.py, test_moe_draft_is_served,
-    tests/test_torch_mamba2.py, tests/test_torch_disagg.py); the batching
+    tests/test_torch_mamba2.py, test_torch_xlstm.py,
+    test_torch_whisper.py, tests/test_torch_disagg.py); the batching
     knobs are served here."""
     if "sorted_batch_sizes" in knob:
         eng = _reduced_engine(**knob)
@@ -210,14 +214,14 @@ def test_unported_knobs_raise(knob):
         # one live group at a time, each the largest bucket the queue fills
         assert eng.metrics.histogram("batch_admit_size").values == [2, 1]
         return
-    refused = {"kv_dtype": "paged", "draft_config": "attention-family"}
+    refused = {"arch": "paged serving needs", "kv_dtype": "paged",
+               "draft_config": "attention-family"}
     for key, match in refused.items():
         if key in knob:
             with pytest.raises(ValueError, match=match):
                 _reduced_engine(**knob)
             return
-    match = "ROADMAP queue 1 item 11" if "arch" in knob else "ROADMAP"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         _reduced_engine(**knob)
 
 

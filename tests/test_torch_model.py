@@ -149,10 +149,27 @@ def test_init_is_seeded_per_leaf():
     assert bool((a["layers"]["ln1_s"] == 1).all())
 
 
-def test_unported_families_raise():
-    """Families still unported raise (the MoE family and zamba2 are
-    ported: tests/test_torch_moe.py, tests/test_torch_mamba2.py)."""
-    with pytest.raises(NotImplementedError):
-        build_model(reduced(get_config("xlstm-1.3b"))).spec
-    with pytest.raises(NotImplementedError):
-        build_model(reduced(get_config("whisper-large-v3"))).spec
+def test_unported_families_raise(need_jax):
+    """No family is left unported: the spec tree of every config in
+    ``ARCH_IDS``, reduced and at full width, has the JAX spec tree's paths
+    and shapes, and the port builds its dense cache (the MoE family,
+    zamba2, xlstm and whisper: tests/test_torch_moe.py,
+    test_torch_mamba2.py, test_torch_xlstm.py, test_torch_whisper.py)."""
+    from repro.configs import ARCH_IDS as JARCH_IDS
+    from repro.nn.spec import TensorSpec as JSpec
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.nn import spec as spec_lib
+
+    assert ARCH_IDS == JARCH_IDS
+    for arch in ARCH_IDS:
+        for jcfg, cfg in ((jget_config(arch), get_config(arch)),
+                          (jreduced(jget_config(arch)),
+                           reduced(get_config(arch)))):
+            want = jax.tree.map(lambda s: tuple(s.shape),
+                                jbuild(jcfg).spec,
+                                is_leaf=lambda x: isinstance(x, JSpec))
+            tm = build_model(cfg)
+            got = spec_lib.tree_map_specs(lambda path, s: tuple(s.shape),
+                                          tm.spec)
+            assert got == want, arch
+            assert tm.abstract_cache(2, 16), arch
