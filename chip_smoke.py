@@ -11,7 +11,8 @@ exits non-zero without printing a result:
   1. device: the card's name and ``nvidia-smi`` name and power limit;
   2. build: compiles ``kernels/csrc/paged_decode.cu``, ``paged_verify.cu``,
      ``flash_attention.cu``, ``rmsnorm.cu``, ``flash_decode.cu``,
-     ``moe_gmm.cu`` and ``ssd_scan.cu`` for sm_90a, all nvcc runs at once
+     ``moe_gmm.cu``, ``ssd_scan.cu`` and ``flash_attention_bwd.cu`` for
+     sm_90a, all nvcc runs at once
      (seconds; each kernel's registers, shared memory and spills; where
      ``cuobjdump`` is installed, each library's count of HMMA tensor-core
      instructions, at least one in ``paged_verify.cu`` and in
@@ -30,7 +31,9 @@ exits non-zero without printing a result:
      at D <= 128, nor in ``flash_decode.cu``'s split passes
      (``split_decode.cuh``), nor in flash attention's CUDA-core
      instantiations (every D up to 448), nor in ``rmsnorm.cu``, nor in
-     the SSD scan's chunked passes);
+     the SSD scan's chunked passes, nor in the flash-attention backward,
+     whose passes' shared memory at every head dim it prints beside the
+     RMSNorm backward's plan);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (decode also
@@ -71,7 +74,15 @@ exits non-zero without printing a result:
      state, at the CPU tests' sweep, at zamba2-2.7b's width (80 heads
      of 64, state 64) over 1-1024 tokens, and at the edges of the
      chunked kernel's tiles (b 2, 64 chunks, p and n off multiples of 8
-     and past one 64-column block);
+     and past one 64-column block); the training kernels
+     (``phase_train_compare``): the flash-attention backward against its
+     plain backward in bf16 and fp32 at qwen2-0.5b's heads (S 1024),
+     llama3.2-3b's (24/8 of 128), gemma3-1b's local (window 512) and
+     global layers (4/1 of 256), a ragged S, a suffix at a q_offset and
+     the reduced configs' D 16, with the forward's lse against the plain
+     version's; the RMSNorm backward at rows 1-8192 for widths 896, 1152,
+     2048, 3072 and 256, zero-centred or not; each within its stated
+     fraction of the output's largest magnitude, two calls bit-equal;
   4. kernel, plain version and one library call's times at the main
      path's shapes (decode: B 8, B 1 at a 1000-token context, B 8 with
      two free slots; verify: the speculative B 8, T 4, the same with two
@@ -94,8 +105,13 @@ exits non-zero without printing a result:
      C 88, against ``torch.bmm``; each flash-attention and grouped-matmul
      row names the instantiation that ran; the SSD
      scan at a zamba2 prefill of 256, 768 and 1024 tokens, also by device
-     time and by pass, which no single PyTorch call computes), beside the
-     least time the card could take,
+     time and by pass, which no single PyTorch call computes; the
+     flash-attention backward at qwen2-0.5b's training shape (B 8, S 1024;
+     also by device time) and gemma3-1b's layers against SDPA's backward,
+     the RMSNorm backward at [8192, 896] (also by device time), [8192,
+     1152] and [32768, 256] against ``F.rms_norm``'s, and the forward
+     kernel without and with its lse),
+     beside the least time the card could take,
      and the kernel held to its plain version there;
   5. the text path: qwen2-0.5b at full width, cut to its first
      MAIN_LAYERS (12) of 24 layers to keep the run's time (random seeded
@@ -221,9 +237,26 @@ exits non-zero without printing a result:
      prefill gives the CPU engine's tokens on the card; so do reduced
      xlstm-1.3b (text prompts) and whisper-large-v3 (each request with its
      own frames) in fp32 on the dense backend with monolithic prefill;
- 11. one JSON line for the kernels (each with its device time and the
+     then (``train_parity``) reduced qwen2-0.5b and gemma3-1b in fp32,
+     weights drawn on the CPU: the loss and every gradient leaf of the
+     first step on the card within 1e-5 of each leaf's largest |g| of the
+     CPU's, and the parameters after 3 AdamW steps within the Adam-aware
+     bound; and (``hold_no_backward``) no serving phase launched a
+     backward kernel;
+ 11. training (``phase_train``): ``launch.train.train`` on qwen2-0.5b at
+     full width and depth (24 layers, 494 M parameters drawn on the card,
+     bf16 with an fp32 AdamW master, SyntheticLM batches of 8 x 1024
+     tokens), 8 steps uninterrupted; the same run checkpointing at 4
+     under ``build/`` and killed in step 5, then a run resumed from that
+     checkpoint to step 8: losses finite and falling, the killed and the
+     resumed runs' losses and the resumed run's parameters equal the
+     uninterrupted run's bit for bit, each step's launches what 24 layers
+     under remat give; step time p50, tokens a second, MFU, peak memory
+     and one step under ``torch.profiler``;
+ 12. one JSON line for the kernels (each with its device time and the
      library call's at its phase-4 shape beside the contract's keys, and
-     the launches of phase 9f's runs by path), then the result line.
+     the launches of phase 9f's and phase 11's runs by path; the two
+     backward kernels with phase 11's launches), then the result line.
 
 Needs a CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
 ``src`` directory beside this file.
@@ -249,7 +282,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import (ShapeConfig, get_config,  # noqa: E402
+                                 reduced)
 from repro_torch.core import encoders  # noqa: E402
 from repro_torch.core.baselines import (all_cloud_policy,  # noqa: E402
                                         evaluate_heuristics, greedy_policy)
@@ -258,6 +292,7 @@ from repro_torch.core.feature_store import compute_features  # noqa: E402
 from repro_torch.core.predictors import (Predictor,  # noqa: E402
                                          PredictorConfig)
 from repro_torch.core.qlmio import QLMIO, QLMIOConfig  # noqa: E402
+from repro_torch.data.lm_data import LMDataConfig, SyntheticLM  # noqa: E402
 from repro_torch.data.taskgen import (CATEGORIES, make_taskset,  # noqa: E402
                                       splits)
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -278,7 +313,8 @@ from repro_torch.kernels.paged_verify import (  # noqa: E402
 from repro_torch.kernels.quant import quantize_kv  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_ref  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.launch.train import train as launch_train  # noqa: E402
+from repro_torch.models import counting, lm  # noqa: E402
 from repro_torch.models import mm_encoder as enc  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.serving.cluster import (CLASS_ARCHS,  # noqa: E402
@@ -295,6 +331,12 @@ from repro_torch.nn.spec import init_params, tree_leaves  # noqa: E402
 from repro_torch.sim.cemllm import (make_servers,  # noqa: E402
                                     make_servers_from_spec, run_policy)
 from repro_torch.sim.miobench import SERVER_CLASSES, generate  # noqa: E402
+from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.train.optimizer import leaves as opt_leaves  # noqa: E402
+from repro_torch.train.optimizer import tree_map as opt_tree_map  # noqa: E402
+from repro_torch.train.optimizer import (  # noqa: E402
+    tree_paths as opt_tree_paths)
 
 # H100 SXM, NVIDIA's data sheet (dense): HBM rate and peak operation rates
 # (bf16: the tensor cores, on which flash attention and the grouped matmul
@@ -365,7 +407,9 @@ SOURCES = {"paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
            "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
            "moe_gmm": "src/repro_torch/kernels/csrc/moe_gmm.cu",
-           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
 # the source of each kernel whose name is not its source's
 SOURCE_OF = {"grouped_matmul": "moe_gmm"}
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:92",
@@ -686,35 +730,106 @@ def dev_us(e) -> float:
     return 0
 
 
+# torch.profiler sessions a reading may take, and the pause after one that
+# recorded nothing: on the card's host about one session in 500 records
+# none of its window's kernels (or only some), in runs of up to three
+# back-to-back sessions, some 30 ms (scripts/profiler_gaps.py); a pause
+# of PROFILE_GAP_S outlasts such a run
+PROFILE_TRIES = 8
+PROFILE_GAP_S = 0.5
+
+
+def _kernels(prof) -> list:
+    """A finished profiler session's kernels with device time."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
+
+
+def profiled(run, label: str):
+    """``run(profiler)`` with a new ``torch.profiler`` (device activity
+    only) that ``run`` enters around what it measures, run again while its
+    session records no device time, up to ``PROFILE_TRIES`` times: the last
+    run's result and its session's kernels.  Fails when no session
+    recorded any."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        out = run(prof)
+        kernels = _kernels(prof)
+        if kernels:
+            return out, kernels
+        print(f"[profiler] {label}: session {attempt} of {PROFILE_TRIES} "
+              "recorded no device time")
+        time.sleep(PROFILE_GAP_S)
+    raise RuntimeError(f"the profiler saw no device time in {PROFILE_TRIES} "
+                       f"sessions ({label})")
+
+
+def queued_ms(fn, calls: int) -> float:
+    """Mean milliseconds per call of ``fn(i)`` by CUDA events, the calls
+    issued while a sleep kernel of about 50 ms holds the stream, so that
+    the events time the calls' kernels back to back and not the host that
+    issues them (checked: the host issued them all before the sleep
+    ended)."""
+    fn(0)
+    torch.cuda.synchronize()
+    slept, start, stop = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+    slept.record()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(calls):
+        fn(i)
+    stop.record()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = slept.elapsed_time(start)
+    check(issue_ms < sleep_ms, f"issuing {calls} calls took {issue_ms:.1f} "
+          f"ms, longer than the {sleep_ms:.1f} ms sleep kernel that hides it")
+    return start.elapsed_time(stop) / calls
+
+
 def device_ms(fn, calls: int = 20, by_kernel: "dict | None" = None
               ) -> float:
     """Mean device time per call of ``fn(i)``: the kernels it launches as
     ``torch.profiler`` records them, without the host's time between
     launches (which sets ``cuda_ms`` of a call whose kernels are short).
-    The window is profiled three times and the fullest reading kept: on
+    The window is profiled until three sessions have recorded device time
+    (at most ``PROFILE_TRIES`` sessions) and the fullest reading kept: on
     the card's host a session now and then records none or only some of
     the window's kernels (an SDPA call read 0.0009 ms of its usual 0.022
     once, and whole windows came back empty), and a lost kernel can only
-    lower a reading.  ``by_kernel``, if given,
-    receives that reading's kernels (name -> ms a call)."""
+    lower a reading.  Where no session recorded any, the window is timed
+    by ``queued_ms`` instead, and a line says so.  ``by_kernel``, if
+    given, receives the reading's kernels (name -> ms a call; nothing
+    from ``queued_ms``)."""
     fn(0)
     torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    best_us, best = 0.0, []
-    for _ in range(3):
+    best_us, best, seen = 0.0, [], 0
+    for _ in range(PROFILE_TRIES):
         prof = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA])
         with prof:
             for i in range(calls):
                 fn(i)
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None) == cuda
-                  and dev_us(e) > 0]
+        events = _kernels(prof)
         us = sum(dev_us(e) for e in events)
         if us > best_us:
             best_us, best = us, events
-    check(best_us > 0, "the profiler saw no device time")
+        seen += us > 0
+        if seen == 3:
+            break
+        if us == 0:
+            time.sleep(PROFILE_GAP_S)
+    if best_us == 0:
+        ms = queued_ms(fn, calls)
+        print(f"[profiler] no device time in {PROFILE_TRIES} sessions: "
+              f"{ms:.4f} ms a call by CUDA events behind a sleep kernel "
+              "instead")
+        return ms
     if by_kernel is not None:
         by_kernel.update({e.key: dev_us(e) / calls / 1e3 for e in best})
     return best_us / calls / 1e3
@@ -1011,6 +1126,22 @@ def phase_build():
     print("[build]   rmsnorm: " + (
         f"{len(spills)} instantiations, none spills" if spills
         else "already built, ptxas not rerun"))
+    print("[build]   rmsnorm backward plan (CTAs, warps a CTA; one warp a "
+          "row): " + "; ".join(f"[{rows}, {d}] {rms_kernel.bwd_plan(rows, d)}"
+                              for rows, d in ((8192, 896), (8192, 1152),
+                                              (32768, 256), (8192, 3072),
+                                              (1, 896))))
+    spills = ptxas_spills(infos["flash_attention_bwd"]["ptxas"])
+    spilled = [f"{name} ({n} bytes)" for name, D, n in spills if n]
+    check(not spilled, "flash_attention_bwd.cu: register spills: "
+          + ", ".join(spilled))
+    print("[build]   flash attention backward (bf16 and fp32 q, fp32 "
+          "CUDA-core products): dynamic shared memory a CTA " + "; ".join(
+              f"D {D}: key pass {kv}, query pass {qp} bytes"
+              for D in flash_attention.BWD_HEAD_DIMS
+              for kv, qp in [flash_attention.bwd_smem_bytes(D)])
+          + (f"; {len(spills)} kernels, none spills" if spills
+             else "; already built, ptxas not rerun"))
     print("[build]   grouped matmul: " + "; ".join(
         f"{str(dt)[6:]} C {C}: {moe_gmm.variant(dt, C)}"
         for dt in (torch.bfloat16, torch.float32) for C in (8, 16, 24, 320)))
@@ -2402,11 +2533,15 @@ def _profile_window(model, params, label, kw, smi: str):
         return wall, {n: w.launches for n, w in WRAPPERS.items()}
 
     wall, _ = window(None, contextlib.nullcontext())
-    tel = Telemetry(trace=True)
+    tels = []
+
+    def run(prof):
+        tels.append(Telemetry(trace=True))
+        return window(tels[-1], prof)
+
     # device activity only: the kernels' device time is all that is read
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
-    pwall, calls = window(tel, prof)
+    (pwall, calls), kernels = profiled(run, f"{label} window")
+    tel = tels[-1]
     spans: dict = {}
     for ev in tel.tracer.events:
         if ev.get("ph") == "X" and ev["cat"] in ("engine", "prefill"):
@@ -2414,11 +2549,7 @@ def _profile_window(model, params, label, kw, smi: str):
             spans[ev["name"]] = (n + 1, t + ev["dur"] / 1e6)
     check(spans.get("decode_tick", (0,))[0] > 0,
           f"the profiled window ran no decode tick: {spans}")
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e6
-    check(busy > 0, "the profiler saw no device time")
     print(f"[profile] {label}, engine steps {PROFILE_SKIP}.."
           f"{PROFILE_SKIP + PROFILE_STEPS}: wall {wall:.4f} s (under "
           f"torch.profiler {pwall:.4f} s); device busy {busy:.4f} s = "
@@ -2650,22 +2781,21 @@ def phase_hybrid_profile(model, params, smi: str):
         check(r.done and len(r.output) == 1, f"prefill {uid}: {r.output}")
 
     prefill(-3)
-    for w in WRAPPERS.values():
-        w.launches = 0
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
-    with prof:
-        t0 = time.perf_counter()
-        prefill(-4)
-        wall = time.perf_counter() - t0
+    uids = itertools.count(-4, -1)
+
+    def run(prof):
+        for w in WRAPPERS.values():
+            w.launches = 0
+        with prof:
+            t0 = time.perf_counter()
+            prefill(next(uids))
+            return time.perf_counter() - t0
+
+    wall, kernels = profiled(run, "hybrid prefill")
     calls = scan_kernel.ssd_scan.launches
     check(calls == cfg.n_layers, f"the profiled prefill made {calls} "
           f"ssd_scan calls, want {cfg.n_layers}")
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e3
-    check(busy > 0, "the profiler saw no device time")
     scan = [e for e in kernels if "ssd_" in e.key]
     scan_ms = sum(dev_us(e) for e in scan) / 1e3
     print(f"[hybrid] profile of one monolithic prefill of {len(prompt)} "
@@ -2815,16 +2945,14 @@ def profile_call(tag: str, label: str, fn, smi: str) -> float:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     calls = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
-    with prof:
-        fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
+
+    def run(prof):
+        with prof:
+            fn()
+            torch.cuda.synchronize()
+
+    _, kernels = profiled(run, f"{tag} {label}")
     busy = sum(dev_us(e) for e in kernels) / 1e3
-    check(busy > 0, "the profiler saw no device time")
     print(f"[{tag}] profile of {label}: wall {wall:.2f} ms, device busy "
           f"{busy:.3f} ms, idle {1 - busy / wall:.1%}; wrapper calls "
           f"{calls} ({smi})")
@@ -3774,6 +3902,505 @@ def phase_learning(smi: str):
     check(not launched, f"the learning pipeline launched {launched}")
 
 
+# ------------------------------------------------------------- training
+
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 8, 1024, 8, 4
+TRAIN_WARMUP = 2  # steps before the step times are read
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "smoke_train"
+# the backward kernels against their plain backwards, as a fraction of
+# each output's largest magnitude: fp32 the order of the sums; bf16 one
+# rounding of each output to bf16 (from fp32 sums that differ in their
+# last bits, which can round a value to its neighbour, 2^-8 of it)
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+# (label, B, Sq, Sk, H, Hkv, D, window, q_offset), all causal
+FLASH_BWD_CASES = [
+    ("qwen2-0.5b heads, S 1024", 2, 1024, 1024, 14, 2, 64, 0, None),
+    ("llama3.2-3b heads, S 1024", 1, 1024, 1024, 24, 8, 128, 0, None),
+    ("gemma3-1b local layer (window 512)", 1, 1024, 1024, 4, 1, 256, 512,
+     None),
+    ("gemma3-1b global layer", 1, 1024, 1024, 4, 1, 256, 0, None),
+    ("ragged S 999", 2, 999, 999, 14, 2, 64, 0, None),
+    ("suffix of 300 at q_offset 700 (Sk 1024)", 2, 300, 1024, 14, 2, 64, 0,
+     700),
+    ("reduced configs' D 16", 2, 64, 64, 4, 2, 16, 0, None),
+    ("reduced gemma3-1b window 32", 2, 64, 64, 4, 1, 16, 32, None),
+]
+# RMSNorm backward: rows x (qwen2-0.5b 896, gemma3-1b 1152, 2048,
+# llama3.2-3b 3072, gemma3-1b's qk-norm 256)
+RMS_BWD_ROWS, RMS_BWD_WIDTHS = (1, 64, 8192), (896, 1152, 2048, 3072, 256)
+TRAIN_PARITY = ("qwen2-0.5b", "gemma3-1b")  # reduced, fp32
+TRAIN_GRAD_REL = 1e-5  # of each gradient leaf's largest |g|
+ADAM_PARAM_ATOL, ADAM_GRAD_REL = 1e-6, 1e-5  # test_torch_core_qlmio.py's
+
+
+def visible_pairs(Sq, Sk, causal, window, q_offset) -> int:
+    """(query, key) pairs a mask leaves visible, per (batch, head)."""
+    qpos = (Sk - Sq if q_offset is None else q_offset) + np.arange(Sq)
+    kpos = np.arange(Sk)
+    live = np.ones((Sq, Sk), bool)
+    if causal:
+        live &= kpos[None] <= qpos[:, None]
+    if window:
+        live &= qpos[:, None] - kpos[None] < window
+    return int(live.sum())
+
+
+def flash_bwd_inputs(B, Sq, Sk, H, Hkv, D, dt, window, q_offset):
+    dev = torch.device("cuda")
+    q = torch.randn(B, Sq, H, D, device=dev, dtype=dt)
+    k = torch.randn(B, Sk, Hkv, D, device=dev, dtype=dt)
+    v = torch.randn(B, Sk, Hkv, D, device=dev, dtype=dt)
+    do = torch.randn(B, Sq, H, D, device=dev, dtype=dt)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, return_lse=True,
+                                                 **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def hold_bwd(label, got, want, dt) -> float:
+    """Each output within BWD_TOL[dt] of its plain version's largest
+    magnitude; returns the largest |error|."""
+    worst = 0.0
+    for a, w in zip(got, want):
+        err = rel_err(a, w)
+        check(err <= BWD_TOL[dt], f"{label}: {err:.3g} of the plain "
+              f"version's largest magnitude, over {BWD_TOL[dt]:.3g}")
+        worst = max(worst, float((a.float() - w.float()).abs().max()))
+    return worst
+
+
+def phase_train_compare() -> dict:
+    """Phase 3's backward cases: the flash-attention backward kernel and
+    the RMSNorm backward kernels against their plain backwards on the
+    same inputs, in bf16 and fp32, two calls bit-equal; the forward's lse
+    against the plain version's.  Returns the largest error per kernel."""
+    worst = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
+    for (label, B, Sq, Sk, H, Hkv, D, window, q_offset), dt in \
+            itertools.product(FLASH_BWD_CASES,
+                              (torch.bfloat16, torch.float32)):
+        args, kw = flash_bwd_inputs(B, Sq, Sk, H, Hkv, D, dt, window,
+                                    q_offset)
+        _, lse = flash_attention_ref(*args[:3], return_lse=True, **kw)
+        lse_err = float((args[4] - lse).abs().max())
+        check(lse_err <= 1e-4, f"flash lse, {label}: {lse_err:.3g}")
+        got = flash_attention.flash_attention_bwd(*args, **kw)
+        again = flash_attention.flash_attention_bwd(*args, **kw)
+        want = flash_attention.flash_attention_bwd_ref(*args, **kw)
+        check(all(map(torch.equal, got, again)),
+              f"flash backward, {label}: two calls differ")
+        err = hold_bwd(f"flash backward, {label}, {str(dt)[6:]}", got, want,
+                       dt)
+        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], err)
+        print(f"[compare] flash attention backward, {label} (B {B}, Sq {Sq},"
+              f" Sk {Sk}, heads {H}/{Hkv}, D {D}), {str(dt)[6:]}: dq/dk/dv "
+              + "/".join(f"{rel_err(a, w):.2e}" for a, w in zip(got, want))
+              + f" of the largest magnitude, lse {lse_err:.2e}; two calls "
+              "bit-equal")
+        del args, got, again, want
+    errs = []
+    for rows, d, zc, dt in itertools.product(
+            RMS_BWD_ROWS, RMS_BWD_WIDTHS, (False, True),
+            (torch.bfloat16, torch.float32)):
+        x = torch.randn(rows, d, device="cuda", dtype=dt)
+        dy = torch.randn(rows, d, device="cuda", dtype=dt)
+        s = (1 + 0.5 * torch.randn(d, device="cuda")).to(dt)
+        got = rms_kernel.rmsnorm_bwd(x, s, dy, zero_centered=zc)
+        again = rms_kernel.rmsnorm_bwd(x, s, dy, zero_centered=zc)
+        want = rms_kernel.rmsnorm_bwd_ref(x, s, dy, zero_centered=zc)
+        check(all(map(torch.equal, got, again)),
+              f"rmsnorm backward [{rows}, {d}]: two calls differ")
+        err = hold_bwd(f"rmsnorm backward [{rows}, {d}] zero-centred {zc} "
+                       f"{str(dt)[6:]}", got, want, dt)
+        worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], err)
+        errs.append(max(rel_err(a, w) for a, w in zip(got, want)))
+    print(f"[compare] rmsnorm backward: {len(errs)} cases (rows "
+          f"{RMS_BWD_ROWS}, d {RMS_BWD_WIDTHS}, zero-centred or not, bf16 "
+          f"and fp32), dx and dscale within {max(errs):.2e} of the largest "
+          "magnitude; two calls bit-equal")
+    return worst
+
+
+def _time_bwd(name, label, fn, plain, library, nbytes, nops, dt, smi,
+              err, device: bool) -> dict:
+    """A backward kernel's row: ``fn(i)``, its plain backward and one
+    library backward (a yardstick the port never calls) at one shape;
+    with ``device``, also the kernel's and the library's device times
+    (``device_ms``: three profiler sessions each, the phase's main
+    cost)."""
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = nops / PEAK_OPS_PER_S[dt]
+    split: dict = {}
+    row = {"ms": cuda_ms(fn, 48),
+           "device_ms": device_ms(fn, 10, split) if device else None,
+           "plain_ms": cuda_ms(plain, 3, warmup=1),
+           "library_ms": cuda_ms(library, 48),
+           "library_device_ms": device_ms(library, 10) if device else None,
+           "bound_ms": max(bytes_s, ops_s) * 1e3,
+           "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+           "main_shapes_max_abs_err": err}
+    dev = ("", "", "")
+    if device:
+        dev = (f" (device {row['device_ms']:.4f} ms)",
+               f" (device {row['library_device_ms']:.4f} ms)",
+               f" ({row['bound_ms'] / row['device_ms']:.2%} by device time)")
+    print(f"[timing] {name} ({label}): kernel {row['ms']:.4f} ms{dev[0]}, "
+          f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+          f"ms{dev[1]}, bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
+          f"{nbytes} bytes, {nops} operations at the {str(dt)[6:]} peak), "
+          f"{row['bound_ms'] / row['ms']:.2%} of bound{dev[2]} ({smi})")
+    if len(split) > 1:
+        print(f"[timing]   {name} ({label}) device time by kernel: " +
+              "; ".join(f"{_short(key)} {ms:.4f} ms"
+                        for key, ms in split.items()))
+    return row
+
+
+def phase_train_timing(smi: str) -> dict:
+    """Phase 4's training rows.  The flash-attention backward at
+    qwen2-0.5b's training shape (B 8, S 1024, 14/2 heads of 64, causal,
+    bf16; the kernels-line entry) and gemma3-1b's local and global layers
+    (B 2, S 1024, 4/1 heads of 256), against ``torch.autograd.grad`` of
+    ``F.scaled_dot_product_attention`` (``is_causal``, ``enable_gqa``, on
+    [B, H, S, D] copies; the backward alone); its bound is 5 products of
+    the visible pairs (s, dp, dv, dk, dq: 2 flops a multiply-add) at the
+    inputs' type's peak, or q, k, v, o, do, lse read and dq, dk, dv
+    written once.  The RMSNorm backward at qwen2-0.5b's [8192, 896] (the
+    kernels-line entry) and gemma3-1b's [8192, 1152] and qk-norm rows
+    [32768, 256], bf16, against ``F.rms_norm``'s backward; bytes bound
+    it.  Device times (``device_ms``) only at the two kernels-line
+    shapes.  And the forward kernel at the training shape without and
+    with its lse output, twice each in turn (CUDA events)."""
+    out = {}
+    for label, B, H, Hkv, D, window in (
+            ("qwen2-0.5b training, B 8, S 1024", 8, 14, 2, 64, 0),
+            ("gemma3-1b local layer, B 2, S 1024", 2, 4, 1, 256, 512),
+            ("gemma3-1b global layer, B 2, S 1024", 2, 4, 1, 256, 0)):
+        dt, S = torch.bfloat16, TRAIN_S
+        args, kw = flash_bwd_inputs(B, S, S, H, Hkv, D, dt, window, None)
+        q, k, v, o, lse, do = args
+        got = flash_attention.flash_attention_bwd(*args, **kw)
+        want = flash_attention.flash_attention_bwd_ref(*args, **kw)
+        err = hold_bwd(f"flash backward, {label}", got, want, dt)
+        del got, want
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        mask = None
+        if window:
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None] <= pos[:, None]) & \
+                (pos[:, None] - pos[None] < window)
+        ot = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+
+        def library(i=0, ot=ot, qt=qt, kt=kt, vt=vt, dot=dot):
+            torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+        pairs = B * visible_pairs(S, S, True, window, None)
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+            + lse.numel() * 4
+        row = _time_bwd(
+            "flash_attention_bwd", f"{label}, heads {H}/{Hkv}, D {D}"
+            + (f", window {window}" if window else ""),
+            lambda i=0: flash_attention.flash_attention_bwd(*args, **kw),
+            lambda i=0: flash_attention.flash_attention_bwd_ref(*args, **kw),
+            library, nbytes, 5 * 2 * pairs * H * D, dt, smi, err,
+            device=B == TRAIN_B)
+        out.setdefault("flash_attention_bwd", row)
+        if B == TRAIN_B:
+            for with_lse in (False, True, False, True):
+                ms = cuda_ms(lambda i=0: flash_attention.flash_attention_fwd(
+                    q, k, v, return_lse=with_lse), 48)
+                print(f"[timing] flash_attention forward ({label}) "
+                      f"{'with' if with_lse else 'without'} lse: {ms:.4f} ms "
+                      f"({smi})")
+        del args, q, k, v, o, lse, do, qt, kt, vt, ot
+    for label, shape in (("qwen2-0.5b training", (8192, 896)),
+                         ("gemma3-1b training", (8192, 1152)),
+                         ("gemma3-1b qk-norm", (32768, 256))):
+        dt = torch.bfloat16
+        x = torch.randn(shape, device="cuda", dtype=dt)
+        dy = torch.randn(shape, device="cuda", dtype=dt)
+        s = (1 + 0.5 * torch.randn(shape[-1], device="cuda")).to(dt)
+        got = rms_kernel.rmsnorm_bwd(x, s, dy)
+        err = hold_bwd(f"rmsnorm backward, {label}", got,
+                       rms_kernel.rmsnorm_bwd_ref(x, s, dy), dt)
+        xl, sl = x.clone().requires_grad_(), s.clone().requires_grad_()
+        yl = F.rms_norm(xl, (shape[-1],), weight=sl, eps=1e-6)
+
+        def library(i=0, yl=yl, xl=xl, sl=sl, dy=dy):
+            torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True)
+
+        row = _time_bwd(
+            "rmsnorm_bwd", f"{label} {list(shape)} bf16",
+            lambda i=0: rms_kernel.rmsnorm_bwd(x, s, dy),
+            lambda i=0: rms_kernel.rmsnorm_bwd_ref(x, s, dy), library,
+            3 * x.numel() * x.element_size() + 2 * s.numel() * 2,
+            10 * x.numel(), dt, smi, err, device=shape == (8192, 896))
+        out.setdefault("rmsnorm_bwd", row)
+    return out
+
+
+def train_launches(cfg) -> dict:
+    """Launches of one training step of the attention family under remat:
+    each layer's forward runs twice (the forward and the recompute), its
+    backward once; the final norm once each way."""
+    norms = 2 + 2 * cfg.post_norms + 2 * cfg.qk_norm  # a layer's
+    L = cfg.n_layers
+    return {"flash_attention": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm": 2 * norms * L + 1, "rmsnorm_bwd": norms * L + 1}
+
+
+def _counts() -> dict:
+    return {"flash_attention": ops.flash_attention.launches,
+            "flash_attention_bwd": ops.flash_attention.bwd_launches,
+            "rmsnorm": ops.rmsnorm.launches,
+            "rmsnorm_bwd": ops.rmsnorm.bwd_launches}
+
+
+def hold_no_backward():
+    """No serving phase launched a backward kernel: the backward counts,
+    set to 0 after phase 4, are still 0."""
+    now = _counts()
+    check(now["flash_attention_bwd"] == now["rmsnorm_bwd"] == 0,
+          f"a serving phase launched a backward kernel: {now}")
+    print("[train] no serving phase launched a backward kernel")
+
+
+class Killed(Exception):
+    """Ends a training run from its ``on_step`` hook (a preemption)."""
+
+
+def phase_train(smi: str) -> dict:
+    """Phase 11: ``launch.train.train`` trains qwen2-0.5b at full width and
+    depth (494 M parameters drawn on the card from seed 0 in bf16, AdamW
+    with an fp32 master, ``SyntheticLM`` batches of 8 x 1024 tokens) for
+    8 steps uninterrupted (no checkpoint); the same run, checkpointing
+    every 4 steps under the git-ignored ``build/``, is killed in step 5
+    (an exception from ``on_step``, after the step-4 checkpoint); a third
+    run resumes from that checkpoint to step 8 (saving none).  One 7.9 GB
+    checkpoint is written and read.
+    Checks: every loss finite, the mean of the last two below the first,
+    the killed run's losses and the resumed run's losses and final
+    parameters equal to the uninterrupted run's bit for bit, and every
+    step's launches what the layer count gives (``train_launches``).
+    The counts are set to 0 just before the uninterrupted run and read
+    just after it.
+    Prints the step time p50 after two warm-up steps, tokens a second, MFU
+    (``counting.model_flops`` / step time / 989 TFLOP/s), peak memory and
+    one step under ``torch.profiler``.  Returns the uninterrupted run's
+    launches."""
+    cfg = get_config(TRAIN_ARCH)
+    want = train_launches(cfg)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, per_step = [], []
+    mark = {"t": 0.0, "n": _counts()}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now, n = time.perf_counter(), _counts()
+        times.append(now - mark["t"])
+        per_step.append({k: n[k] - mark["n"][k] for k in n})
+        mark["t"], mark["n"] = now, n
+
+    kw = dict(batch=TRAIN_B, seq=TRAIN_S, use_reduced=False,
+              ckpt_every=TRAIN_CKPT, log_every=0,
+              param_dtype=torch.bfloat16, device="cuda")
+    for w in (ops.flash_attention, ops.rmsnorm):
+        w.launches = w.bwd_launches = 0
+    mark["n"] = _counts()
+    t0 = time.perf_counter()
+    mark["t"] = t0
+    params, losses = launch_train(TRAIN_ARCH, steps=TRAIN_STEPS,
+                                  on_step=on_step, **kw)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
+          f"training losses {losses}")
+    check(np.mean(losses[-2:]) < losses[0],
+          f"the loss did not fall: {losses}")
+    for i, n in enumerate(per_step):
+        check(n == want, f"training step {i} launched {n}, want {want} "
+              f"({cfg.n_layers} layers under remat)")
+    first = []
+
+    def kill(step, metrics):
+        first.append(float(metrics["loss"]))
+        if step == TRAIN_CKPT:
+            raise Killed
+
+    t1 = time.perf_counter()
+    try:
+        launch_train(TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_dir=str(TRAIN_DIR),
+                     on_step=kill, **kw)
+    except Killed:
+        pass
+    stop_wall = time.perf_counter() - t1
+    check(first == losses[:TRAIN_CKPT + 1], f"the killed run's losses "
+          f"{first} against {losses[:TRAIN_CKPT + 1]}")
+    check(train_ckpt.list_checkpoints(str(TRAIN_DIR)) == [TRAIN_CKPT],
+          "checkpoints of the killed run")
+    t1 = time.perf_counter()
+    resumed, rest = launch_train(  # saving none
+        TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_dir=str(TRAIN_DIR),
+        **dict(kw, ckpt_every=TRAIN_STEPS + 1))
+    resume_wall = time.perf_counter() - t1
+    check(rest == losses[TRAIN_CKPT:], f"resumed losses {rest} against "
+          f"{losses[TRAIN_CKPT:]}")
+    same = all(torch.equal(a, b) for a, b in
+               zip(opt_leaves(resumed), opt_leaves(params)))
+    check(same, "the resumed run's parameters differ from the "
+          "uninterrupted run's")
+    del resumed
+    p50 = float(np.median(times[TRAIN_WARMUP:]))
+    flops = counting.model_flops(cfg, ShapeConfig("train", "train", TRAIN_S,
+                                                  TRAIN_B))
+    print(f"[train] {TRAIN_ARCH} at full width and depth ({n_params:,} "
+          f"parameters, bf16 with an fp32 AdamW master), B {TRAIN_B} x S "
+          f"{TRAIN_S}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; {wall:.1f} s for {TRAIN_STEPS} steps uninterrupted, the "
+          f"killed run {stop_wall:.1f} s for {TRAIN_CKPT + 1} steps and a "
+          f"checkpoint, the resumed run {resume_wall:.1f} s for "
+          f"{TRAIN_STEPS - TRAIN_CKPT} steps after reading it; their losses "
+          "and the resumed run's final parameters equal the uninterrupted "
+          "run's bit for bit")
+    print(f"[train] step times (ms) " + ", ".join(
+        f"{1e3 * t:.1f}" for t in times) + f"; p50 after {TRAIN_WARMUP} "
+        f"warm-up steps {1e3 * p50:.1f} ms, {TRAIN_B * TRAIN_S / p50:.0f} "
+        f"tokens/s, MFU {flops / p50 / PEAK_OPS_PER_S[torch.bfloat16]:.2%} "
+        f"({flops:.4g} model FLOPs a step at 989 TFLOP/s); peak memory "
+        f"{peak:.2f} GiB ({smi})")
+    print(f"[train] launches a step {per_step[0]} (want {want}); in all "
+          f"{launches}")
+    # one more step under the profiler, from the trained weights
+    model = build_model(cfg)
+    opt = model.init_opt(params)
+    step = model.make_train_step()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        LMDataConfig(cfg.vocab, TRAIN_S, TRAIN_B)).batch(TRAIN_STEPS).items()}
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def run(prof):
+        with prof:
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+
+    _, kernels = profiled(run, "training step")
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    print(f"[train] profile of one step: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle {1 - busy / wall_ms:.1%} ({smi})")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+        print(f"[train]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} x "
+              f"{e.key[:90]}")
+    for what, match in (("flash attention backward", "flash_bwd_"),
+                        ("RMSNorm backward", "rmsnorm_bwd"),
+                        ("flash attention forward", "flash_attention_tc"),
+                        ("RMSNorm forward", "rmsnorm_kernel")):
+        sel = [e for e in kernels if match in e.key]
+        ms = sum(dev_us(e) for e in sel) / 1e3
+        print(f"[train]   {what}: {ms:.3f} ms of device time "
+              f"({ms / busy:.1%} of busy), {sum(e.count for e in sel)} "
+              "kernel launches")
+    del params, opt, model
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_parity():
+    """Reduced qwen2-0.5b and gemma3-1b (windows, qk-norm, zero-centred
+    norms) in fp32, weights drawn on the CPU and copied: the loss and
+    every gradient leaf on the card (kernels) against the CPU (plain
+    versions) at the first step (the same weights; later steps start from
+    weights Adam has moved apart), within TRAIN_GRAD_REL of each leaf's
+    largest |g|, and the parameters after 3 AdamW steps within the
+    Adam-aware bound of
+    ``tests/test_torch_core_qlmio.py`` (1e-6 + 2 lr steps min(1, 1e-5 s /
+    |g|), s the largest gradient, |g| a value's own smallest over the
+    steps).  The worst leaf is also printed against a float64 run on the
+    CPU (both fp32 runs' own rounding)."""
+    for arch in TRAIN_PARITY:
+        cfg = reduced(get_config(arch), act_dtype="float32")
+        model = build_model(cfg)
+        params = {"cpu": model.init(0, torch.float32, device="cpu")}
+        params["cuda"] = opt_tree_map(lambda t: t.to("cuda"), params["cpu"])
+        paths = [p for p, _ in opt_tree_paths(params["cpu"])]
+        ocfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+        steps = {d: model.make_train_step(ocfg) for d in params}
+        opts = {d: model.init_opt(p) for d, p in params.items()}
+        data = SyntheticLM(LMDataConfig(cfg.vocab, 64, 2))
+        lo, s, worst = None, 0.0, (0.0, "", 0.0, 0.0)
+        for i in range(3):
+            batch = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+            grads, losses = {}, {}
+            runs = [(d, model, p) for d, p in params.items()]
+            if i == 0:  # a float64 reference of the first step
+                runs.append(("float64", build_model(reduced(
+                    get_config(arch), act_dtype="float64")), opt_tree_map(
+                        lambda t: t.double(), params["cpu"])))
+            for d, m, p in runs:
+                live = opt_tree_map(lambda t: t.detach().requires_grad_(), p)
+                dev = "cpu" if d == "float64" else d
+                loss = m.train_loss(live, {k: v.to(dev)
+                                           for k, v in batch.items()})
+                grads[d] = [g.cpu() for g in
+                            torch.autograd.grad(loss, opt_leaves(live))]
+                losses[d] = loss.item()
+            check(abs(losses["cuda"] - losses["cpu"])
+                  <= 1e-5 * abs(losses["cpu"]),
+                  f"{arch} reduced: loss {losses['cuda']} on the card, "
+                  f"{losses['cpu']} on the CPU")
+            for j, (g, c) in enumerate(zip(grads["cuda"], grads["cpu"])):
+                err = rel_err(g, c)
+                if i == 0:
+                    check(err <= TRAIN_GRAD_REL, f"{arch} reduced: gradient "
+                          f"{paths[j]} {err:.3g} of its largest |g| from "
+                          "the CPU's")
+                if i == 0 and err > worst[0]:
+                    ref = grads["float64"][j]
+                    worst = (err, paths[j], rel_err(g, ref), rel_err(c, ref))
+            ga = [g.abs() for g in grads["cpu"]]
+            lo = ga if lo is None else [torch.minimum(a, b)
+                                        for a, b in zip(lo, ga)]
+            s = max(s, max(float(a.max()) for a in ga))
+            for d in params:
+                b = {k: v.to(d) for k, v in batch.items()}
+                params[d], opts[d], _ = steps[d](params[d], opts[d], b)
+        moved = 0.0
+        for g, c, low in zip(opt_leaves(params["cuda"]),
+                             opt_leaves(params["cpu"]), lo):
+            diff = (g.cpu() - c).abs()
+            bound = ADAM_PARAM_ATOL + 2 * ocfg.lr * 3 * torch.clamp(
+                ADAM_GRAD_REL * s / low.clamp(min=1e-30), max=1.0)
+            check(bool((diff <= bound).all()), f"{arch} reduced: parameters "
+                  "after 3 AdamW steps outside the Adam-aware bound")
+            moved = max(moved, float(diff.max()))
+        print(f"[train parity] {arch} reduced, fp32: loss and gradients on "
+              f"the card within {worst[0]:.2e} of each leaf's largest |g| of "
+              f"the CPU's (bound {TRAIN_GRAD_REL:g}; worst {worst[1]}, "
+              f"{worst[2]:.2e} from a float64 run on the card and "
+              f"{worst[3]:.2e} on the CPU); parameters after 3 AdamW steps within the Adam-aware "
+              f"bound (largest |diff| {moved:.3g})")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3827,9 +4454,15 @@ def main():
     torch.manual_seed(0)
     with timed("compare"):
         worst = phase_compare(rng)
+        with timed("compare: backward kernels"):
+            worst.update(phase_train_compare())
     with timed("timing"):
         timing = phase_timing(rng, smi)
         timing.update(phase_timing_new(smi))
+        with timed("timing: backward kernels"):
+            timing.update(phase_train_timing(smi))
+    # no serving phase may launch a backward kernel (hold_no_backward)
+    ops.flash_attention.bwd_launches = ops.rmsnorm.bwd_launches = 0
     with timed("text path"):
         model, params = main_model()
         launches, streams = phase_main_path(model, params, smi)
@@ -3868,6 +4501,11 @@ def main():
     with timed("reduced parity"):
         phase_reduced_parity()
         hybrid_parity()
+        hold_no_backward()
+        with timed("reduced parity: training"):
+            train_parity()
+    with timed("training"):
+        trained = phase_train(smi)
     kernels = []
     for name in WRAPPERS:
         t = timing[name]
@@ -3910,6 +4548,27 @@ def main():
             "launches_by_path": {arch: c[name]
                                  for arch, c in family_launches.items()
                                  if c[name]}})
+        if name in trained:  # phase 11's forward launches
+            kernels[-1]["launches_by_path"][f"{TRAIN_ARCH} training"] = \
+                trained[name]
+    # the backward kernels: phase 11's launches (the uninterrupted run)
+    for name, source, replaces in (
+            ("flash_attention_bwd", "flash_attention_bwd",
+             "src/repro/models/attention.py:158 (_flash_bwd, jnp; no "
+             "Pallas kernel)"),
+            ("rmsnorm_bwd", "rmsnorm",
+             "src/repro/models/lm.py:79 (XLA autodiff of _norm and "
+             "_head_rms :105; no Pallas kernel)")):
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[source],
+            "replaces": replaces, "launches": trained[name],
+            "max_abs_err": max(worst[name], t["main_shapes_max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "launches_by_path": {f"{TRAIN_ARCH} training": trained[name]}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

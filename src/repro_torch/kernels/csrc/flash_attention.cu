@@ -85,8 +85,12 @@
 // first (the last query tiles, with every head of the batch before the
 // next tile).  The ragged edges of Sq and Sk are masked per element (and
 // zero-filled by cp.async's source size): no host-side padding or
-// transposed copy; q, k and v are read in place.  Later work: wgmma with
-// TMA, and one CTA per kv head for all G query heads.
+// transposed copy; q, k and v are read in place.  For training, both
+// instantiations also write each row's logsumexp (flash_attention_launch_lse,
+// [B, H, Sq] fp32, natural units, after the split merge in the CUDA-core
+// kernel), the residual from which the backward (flash_attention_bwd.cu)
+// recomputes p; serving passes no lse.  Later work: wgmma with TMA, and
+// one CTA per kv head for all G query heads.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +103,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 constexpr float kMasked = -1e29f;  // scores at or below this are masked
+constexpr float kLn2 = 0.6931471805599453f;  // lse from log2 to natural units
 
 // ------------------------------------ fp32: register-tiled CUDA-core kernel
 
@@ -196,8 +201,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 o) {
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1) flash_fp32(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int H,
-    int Hkv, int causal, int window, int q_offset, float scale_log2) {
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    int Sq, int Sk, int H, int Hkv, int causal, int window, int q_offset,
+    float scale_log2) {
   using C = Cfg<D>;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;                      // [kStages][STAGE]
@@ -455,6 +461,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fp32(
   __syncthreads();
 
   if (splits == 1) {
+    if (lse != nullptr && tid < rows)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + i0 + tid] =
+          (m_s[tid] + log2f(fmaxf(l_s[tid], 1e-30f))) * kLn2;
 #pragma unroll
     for (int i = 0; i < C::RO; ++i) {
       const int row = r0 + i;
@@ -507,6 +516,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fp32(
     }
     L_s[tid] = L;
     c_s[tid] = w_own;
+    if (lse != nullptr && split == 0 && tid < rows)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + i0 + tid] =
+          (M + log2f(fmaxf(L, 1e-30f))) * kLn2;
   }
   __syncthreads();
   float* part_s = ring;  // [BM][D]
@@ -550,9 +562,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fp32(
 }
 
 template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int Hkv, int causal, int window,
-           int q_offset, float scale, int splits, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int H, int Hkv, int causal,
+           int window, int q_offset, float scale, int splits,
+           cudaStream_t stream) {
   if (splits < 1 || splits > kMaxSplits || (splits & (splits - 1)))
     return -2;  // a power of two, so that it divides BM
   constexpr int bytes = Cfg<D>::SMEM_FLOATS * static_cast<int>(sizeof(float));
@@ -576,8 +589,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   cfg.numAttrs = splits > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, Hkv, causal,
-      window, q_offset, scale * 1.4426950408889634f);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, H, Hkv,
+      causal, window, q_offset, scale * 1.4426950408889634f);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -601,13 +614,13 @@ int smem_bytes(int D) {
 }
 
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
-                int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
-                int window, int q_offset, float scale, int splits,
-                cudaStream_t s) {
+                float* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
+                int causal, int window, int q_offset, float scale,
+                int splits, cudaStream_t s) {
   switch (D) {
 #define FLASH_CC_CASE(d)                                                   \
   case d:                                                                  \
-    return launch<d, float>(q, k, v, out, B, Sq, Sk, H, Hkv, causal,       \
+    return launch<d, float>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal,  \
                             window, q_offset, scale, splits, s);
     FLASH_CC_CASE(16)
     FLASH_CC_CASE(32)
@@ -643,8 +656,9 @@ __host__ __device__ constexpr int tc_smem_bytes(int D) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int Sk,
-    int H, int Hkv, int causal, int window, int q_offset, float scale_log2) {
+    const bf16* __restrict__ v, bf16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int causal,
+    int window, int q_offset, float scale_log2) {
   constexpr int BKV = tc_keys(D), LD = D + kPad, RUNS = D / 8;
   constexpr int KD = D / 16;        // 16-deep steps of q.k
   constexpr bool QREG = D <= 128;   // Q fragments kept in registers
@@ -820,6 +834,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc(
     const int row = warp * 16 + g + 8 * r;
     if (row >= rows) continue;
     const float L = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && t4 == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + i0 + row] =
+          (m[r] + log2f(L)) * kLn2;
     bf16* dst = out + ((static_cast<size_t>(b) * Sq + i0 + row) * H + h) * D;
 #pragma unroll
     for (int df = 0; df < D / 8; ++df)
@@ -829,9 +846,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc(
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Sk, int H, int Hkv, int causal, int window,
-              int q_offset, float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int Sq, int Sk, int H, int Hkv, int causal,
+              int window, int q_offset, float scale, cudaStream_t stream) {
   constexpr int bytes = tc_smem_bytes(D);
   auto kernel = flash_attention_tc<D>;
   if (bytes > 48 * 1024) {
@@ -842,8 +859,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(H, B, (Sq + kTcRows - 1) / kTcRows);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, Hkv,
-      causal, window, q_offset, scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq, Sk, H,
+      Hkv, causal, window, q_offset, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -855,14 +872,14 @@ bool tc_head_dim(int D) {
 
 
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
-                int window, int q_offset, float scale, int splits,
-                cudaStream_t s) {
+                float* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
+                int causal, int window, int q_offset, float scale,
+                int splits, cudaStream_t s) {
   switch (D) {
 #define FLASH_TC_CASE(d)                                                   \
   case d:                                                                  \
-    return launch_tc<d>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window,   \
-                        q_offset, scale, s);
+    return launch_tc<d>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal,      \
+                        window, q_offset, scale, s);
     FLASH_TC_CASE(16)
     FLASH_TC_CASE(32)
     FLASH_TC_CASE(64)
@@ -871,9 +888,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
     FLASH_TC_CASE(256)
 #undef FLASH_TC_CASE
     case 448:
-      return cc::launch<448, __nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv,
-                                            causal, window, q_offset, scale,
-                                            splits, s);
+      return cc::launch<448, __nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H,
+                                            Hkv, causal, window, q_offset,
+                                            scale, splits, s);
     default:
       return -1;
   }
@@ -912,24 +929,39 @@ const char* flash_attention_variant(int dtype, int D) {
 // 32, 64, 80, 128, 256, 448; H a multiple of Hkv.  Query row i sits at
 // q_offset + i.  splits (1, 2, 4 or 8: the CTAs of a cluster that share
 // one query tile's keys) is read by the CUDA-core kernel only (fp32, and
-// bf16 at D 448).  Returns cudaGetLastError() after the launch, -1 for a
-// bad dtype code or D, -2 for a bad splits.
+// bf16 at D 448).  lse, when not null, is [B, H, Sq] fp32: each row's
+// logsumexp of its visible scaled scores in natural units, m + log(max(l,
+// 1e-30)) after the split merge (the backward's saved residual; serving
+// passes null and writes none).  Returns cudaGetLastError() after the
+// launch, -1 for a bad dtype code or D, -2 for a bad splits.
+int flash_attention_launch_lse(int dtype, const void* q, const void* k,
+                               const void* v, void* out, void* lse, int B,
+                               int Sq, int Sk, int H, int Hkv, int D,
+                               int causal, int window, int q_offset,
+                               float scale, int splits, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lp = static_cast<float*>(lse);
+  switch (dtype) {
+    case 0:
+      return cc::launch_fp32(q, k, v, out, lp, B, Sq, Sk, H, Hkv, D, causal,
+                             window, q_offset, scale, splits, s);
+    case 1:
+      return launch_bf16(q, k, v, out, lp, B, Sq, Sk, H, Hkv, D, causal,
+                         window, q_offset, scale, splits, s);
+    default:
+      return -1;
+  }
+}
+
+// flash_attention_launch_lse without the lse (the serving entry point).
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* out, int B, int Sq, int Sk,
                            int H, int Hkv, int D, int causal, int window,
                            int q_offset, float scale, int splits,
                            void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return cc::launch_fp32(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
-                             window, q_offset, scale, splits, s);
-    case 1:
-      return launch_bf16(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal, window,
-                         q_offset, scale, splits, s);
-    default:
-      return -1;
-  }
+  return flash_attention_launch_lse(dtype, q, k, v, out, nullptr, B, Sq, Sk,
+                                    H, Hkv, D, causal, window, q_offset,
+                                    scale, splits, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-"""Fused RMSNorm: the wrapper of the hand-written CUDA kernel
-``csrc/rmsnorm.cu`` and its plain PyTorch version.
+"""Fused RMSNorm: the wrappers of the hand-written CUDA kernels in
+``csrc/rmsnorm.cu`` (forward and backward), their plain PyTorch versions
+and the autograd Function that joins them.
 
 The kernel replaces the Pallas TPU kernel ``rmsnorm_tpu``
 (``repro/kernels/rmsnorm.py:23``).  The port calls it for every norm of
@@ -15,6 +16,13 @@ a row and how many of its 16-byte vectors each holds.
 plain version; for CUDA tensors it launches the kernel or raises, never
 falling back.  It counts its kernel launches in its ``launches``
 attribute (a plain integer).
+
+Training: where grad mode is on and x or the scale requires grad,
+``rmsnorm`` is the apply of ``RMSNorm``, a ``torch.autograd.Function``
+whose backward is ``rmsnorm_bwd``: the backward kernel on CUDA tensors
+(counted in ``rmsnorm.bwd_launches``), ``rmsnorm_bwd_ref`` on CPU
+tensors.  It replaces XLA's autodiff of the JAX package's ``lm._norm``
+and ``_head_rms``: dx in x's type, dscale in the scale's.
 """
 from __future__ import annotations
 
@@ -32,16 +40,41 @@ MAX_THREADS = 256  # threads a row at most (csrc/rmsnorm.cu kMaxThreads)
 VECTORS = (1, 2, 4, 8)  # the instantiations: 16-byte vectors a thread
 
 
+def _wide(x) -> torch.dtype:
+    """The plain versions' arithmetic type: fp32, or float64 for float64
+    inputs (so that gradcheck can hold the backward in float64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def rmsnorm_ref(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
     """Plain version: ``x * rsqrt(mean(x^2) + eps) * scale`` in fp32, in
     that order, cast back to x's type (``scale + 1`` when zero-centered,
     the gemma convention).  x [..., d]; scale [d]."""
-    xf = x.float()
+    xf = x.to(_wide(x))
     var = (xf * xf).mean(-1, keepdim=True)
-    s = scale.float()
+    s = scale.to(_wide(x))
     if zero_centered:
         s = s + 1.0
     return (xf * torch.rsqrt(var + eps) * s).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x, scale, dy, *, eps: float = 1e-6,
+                    zero_centered: bool = False):
+    """Plain backward of ``rmsnorm_ref``: with ``r = rsqrt(mean(x^2) +
+    eps)``, ``x^ = x r`` and ``s = scale (+ 1)``, ``dx = r (g s - x^
+    mean(g s x^))`` and ``dscale = sum over rows of g x^``, in fp32; dx
+    in x's type, dscale in the scale's."""
+    d = x.shape[-1]
+    xf, g = x.to(_wide(x)), dy.to(_wide(x))
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    s = scale.to(_wide(x))
+    if zero_centered:
+        s = s + 1.0
+    xhat = xf * r
+    gs = g * s
+    dx = r * (gs - xhat * (gs * xhat).mean(-1, keepdim=True))
+    dscale = (g * xhat).reshape(-1, d).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
 @functools.lru_cache(maxsize=1024)  # shapes vary with prompts
@@ -76,7 +109,25 @@ def _lib():
     lib.rmsnorm_launch.argtypes = ([i32, i32] + [ptr] * 3 + [i32] * 2
                                    + [ctypes.c_float] + [i32] * 3 + [ptr])
     lib.rmsnorm_launch.restype = i32
+    lib.rmsnorm_bwd_launch.argtypes = ([i32, i32] + [ptr] * 6 + [i32] * 2
+                                       + [ctypes.c_float] + [i32] * 3
+                                       + [ptr])
+    lib.rmsnorm_bwd_launch.restype = i32
     return lib
+
+
+BWD_SMEM_BYTES = 96 * 1024  # the backward's [warps + 1, d] fp32 at most
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(rows: int, d: int) -> tuple:
+    """(blocks, warps) of the backward, from the shapes alone: one warp a
+    row, up to 8 warps a CTA while their [warps + 1, d] fp32 accumulators
+    fit in ``BWD_SMEM_BYTES``, and at most two CTAs an SM (each warp then
+    walks rows / (blocks x warps) rows; fewer CTAs, fewer dscale
+    partials)."""
+    warps = max(1, min(MAX_THREADS // 32, BWD_SMEM_BYTES // (4 * d) - 1))
+    return max(1, min(-(-rows // warps), 2 * SMS)), warps
 
 
 def _check(x, scale, out):
@@ -99,7 +150,16 @@ def _check(x, scale, out):
 def rmsnorm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
     """x [..., d] fp32/bf16, scale [d] fp32/bf16 -> [..., d] in x's type.
     On the card a row must fill whole 16-byte vectors (d a multiple of 8
-    in bf16, of 4 in fp32)."""
+    in bf16, of 4 in fp32).  Differentiable (through ``RMSNorm``) where
+    grad mode is on and x or the scale requires grad."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNorm.apply(x, scale, eps, zero_centered)
+    return rmsnorm_fwd(x, scale, eps=eps, zero_centered=zero_centered)
+
+
+def rmsnorm_fwd(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
+    """The forward alone (no graph): the plain version on the CPU, the
+    kernel on the card."""
     if on_cpu("rmsnorm", x, scale):
         return rmsnorm_ref(x, scale, eps=eps, zero_centered=zero_centered)
     out = torch.empty_like(x)
@@ -121,4 +181,60 @@ def rmsnorm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
     return out
 
 
-rmsnorm.launches = 0
+def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-6,
+                zero_centered: bool = False):
+    """(dx in x's type, dscale in the scale's) from the forward's inputs
+    and the output's gradient ``dy`` (x's type and shape): the plain
+    version on the CPU, the backward kernels on the card (or raises)."""
+    if on_cpu("rmsnorm backward", x, scale, dy):
+        return rmsnorm_bwd_ref(x, scale, dy, eps=eps,
+                               zero_centered=zero_centered)
+    dx = torch.empty_like(x)
+    _check(x, scale, dx)
+    if dy.shape != x.shape or dy.dtype != x.dtype or \
+            not dy.is_contiguous() or dy.data_ptr() % 16:
+        raise ValueError(f"rmsnorm backward: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} must be x's shape and type, "
+                         "contiguous and 16-byte aligned")
+    d = x.shape[-1]
+    rows = x.numel() // d if d else 0
+    dscale = torch.empty_like(scale)
+    if rows == 0:
+        return dx, dscale.zero_()
+    blocks, warps = bwd_plan(rows, d)
+    partial = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().rmsnorm_bwd_launch(
+            DTYPES[x.dtype], DTYPES[scale.dtype], x.data_ptr(),
+            scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), dscale.data_ptr(), rows, d, float(eps),
+            int(bool(zero_centered)), blocks, warps, stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm backward kernel launch failed: error "
+                           f"{err}")
+    rmsnorm.bwd_launches += 1
+    return dx, dscale
+
+
+class RMSNorm(torch.autograd.Function):
+    """RMSNorm with its hand-written backward (``rmsnorm_bwd``); saves x
+    and the scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, zero_centered):
+        ctx.save_for_backward(x, scale)
+        ctx.args = (eps, zero_centered)
+        return rmsnorm_fwd(x, scale, eps=eps, zero_centered=zero_centered)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        eps, zero_centered = ctx.args
+        dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), eps=eps,
+                                 zero_centered=zero_centered)
+        return dx, dscale, None, None
+
+
+rmsnorm.launches = 0  # forward kernel launches
+rmsnorm.bwd_launches = 0  # backward calls (two kernels each)

@@ -7,6 +7,9 @@ dense decode steps, the speculative verify step and the export and import
 of a request's pages (ports of ``repro/models/api.py``).  The dense
 decode step serves the engine's dense backend and the speculative draft
 model; its attention runs the flash-decode kernel on the card.
+Training (``train_loss``, ``make_train_step``, ``init_opt``) covers the
+attention family without experts; its backward runs the flash-attention
+and RMSNorm backward kernels on the card.
 
 zamba2 (``block_kind="mamba_hybrid"``) has the dense cache only, with
 exact-shape monolithic prefill, as in the JAX package: conv windows
@@ -69,7 +72,9 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import chunk_prefill_attention
 from repro_torch.nn.layers import apply_rope
-from repro_torch.nn.spec import init_params
+from repro_torch.nn.spec import init_params, tree_leaves
+from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                         adamw_update, tree_map)
 
 Tree = Any
 
@@ -95,6 +100,61 @@ class Model:
     def init(self, seed: int = 0, param_dtype=torch.bfloat16, device=None):
         """Seeded parameters (``repro_torch.nn.spec.init_params``)."""
         return init_params(self.spec, seed, param_dtype, device)
+
+    # ------------------------------------------------------------- train
+    def train_loss(self, params, batch, *, remat=True):
+        """Mean next-token cross-entropy (``lm.train_loss``); raises
+        NotImplementedError for MoE, zamba2, xlstm and whisper."""
+        return lm.train_loss(self.cfg, params, batch, remat=remat)
+
+    def make_train_step(self, opt_cfg: AdamWConfig | None = None):
+        """``train_step(params, opt_state, batch) -> (params, opt_state,
+        {"loss", "grad_norm", "lr"})``: the loss and its gradients
+        (autograd through the hand-written backward kernels on the card,
+        each layer recomputed under ``remat``), then one AdamW step.  As
+        in ``adamw_update``, the parameters and the state are updated in
+        place and returned (no second copy of the training state); the
+        metrics are scalar tensors on the device (no host sync)."""
+        cfg = self.cfg
+        lm.check_trainable(cfg)
+        opt_cfg = opt_cfg or AdamWConfig()
+
+        def train_step(params, opt_state, batch):
+            live = tree_map(lambda p: p.detach().requires_grad_(), params)
+            loss = lm.train_loss(cfg, live, batch)
+            it = iter(torch.autograd.grad(loss, tree_leaves(live)))
+            grads = tree_map(lambda _: next(it), live)  # the same order
+            params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
+                                                      opt_state)
+            return params, opt_state, {"loss": loss.detach(), **metrics}
+
+        return train_step
+
+    def init_opt(self, params):
+        return adamw_init(params)
+
+    # ------------------------------------------------------------- inputs
+    def input_specs(self, shape, *, mode: str | None = None):
+        """``meta`` tensors standing in for a batch of ``shape`` (a
+        ``configs.ShapeConfig``): train tokens and labels, prefill tokens,
+        decode tokens and positions (whisper adds its encoder frames)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        mode = mode or shape.kind
+
+        def meta(s, dt):
+            return torch.empty(s, dtype=dt, device="meta")
+
+        if mode == "decode":
+            return {"tokens": meta((B,), torch.int32),
+                    "pos": meta((B,), torch.int32)}
+        out = {"tokens": meta((B, S), torch.int32)}
+        if mode == "train":
+            out["labels"] = meta((B, S), torch.int32)
+        if cfg.cross_attention:
+            out["encoder_frames"] = meta((B, cfg.encoder_seq, cfg.d_model),
+                                         torch.bfloat16)
+        return out
 
     # ------------------------------------------------------------- caches
     def abstract_cache(self, B: int, Sa: int):

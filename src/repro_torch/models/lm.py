@@ -11,7 +11,10 @@ stacked on dim 0.  Norms accumulate in fp32 (RMS norms through the fused
 RMSNorm kernel on the card); matmuls run in the activation dtype, with
 weights cast at the use site as in the JAX package.  Whole-prompt attention
 (the decoders' causal attention, whisper's encoder and cross-attention)
-runs the flash-attention kernel on the card.
+runs the flash-attention kernel on the card.  Training
+(``forward_hidden``, ``chunked_xent``, ``train_loss``) covers the
+attention family without experts (``check_trainable``), each layer
+recomputed in the backward under ``remat``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm import rmsnorm
@@ -33,7 +37,8 @@ from repro_torch.nn.spec import TensorSpec
 
 Tree = Any
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float64": torch.float64}  # float64: references of fp32 runs
 
 
 def act_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -362,29 +367,46 @@ def _attn_layer(cfg: ArchConfig, pl, x, rope, window: int, positions,
 
 
 def attn_forward(cfg: ArchConfig, params, tokens, *, return_cache=False,
-                 prefix_kv=None, embeds=None, embed_mask=None):
+                 prefix_kv=None, embeds=None, embed_mask=None, remat=False):
     """tokens [B, S] -> final-normed hidden [B, S, d], plus the stacked
     cache (k, v) [L, B, S, Hkv, Dh] with ``return_cache``.  Layers walk in
     order, each with its window from ``static_layer_windows``.
+
+    ``remat`` (training; the JAX package's ``jax.checkpoint`` of each
+    layer, ``lm.py:420,452,462``) runs each layer under
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant): its activations
+    are recomputed in the backward instead of kept, with the same values
+    bit for bit.  Where grad mode is on, the per-layer parameters are
+    views from one ``unbind`` of each stacked leaf (``unbind_layers``), so
+    a leaf's gradient is stacked once.
 
     ``prefix_kv = (k, v)`` [L, B, Spre, Hkv, Dh] makes this a suffix
     prefill: the S tokens sit at positions [Spre, Spre + S) and attend to
     the cached prefix without recomputing it (the paged engine's
     prefix-hit path); the returned cache covers the suffix only.
     ``embeds``/``embed_mask`` inject embedding spans (``embed_inputs``)."""
+    if remat and (return_cache or prefix_kv is not None):
+        raise ValueError("attn_forward: remat is for training, without a "
+                         "cache or a cached prefix")
     B, S = tokens.shape
     x = embed_inputs(cfg, params, tokens, embeds, embed_mask)
     offset = 0 if prefix_kv is None else prefix_kv[0].shape[2]
     positions = offset + torch.arange(S, device=tokens.device)
     rope_l, rope_g = _rope_tables(cfg, offset + S, tokens.device)
+    layers = (unbind_layers(params["layers"], cfg.n_layers)
+              if torch.is_grad_enabled() else None)
     ks, vs = [], []
     for i, is_global in enumerate(static_layer_windows(cfg)):
-        pl = layer_slice(params["layers"], i)
+        pl = layer_slice(params["layers"], i) if layers is None else layers[i]
+        args = (cfg, pl, x, rope_g if is_global else rope_l,
+                0 if is_global else cfg.window, positions)
+        if remat:
+            x = checkpoint(lambda *a: _attn_layer(*a)[0], *args,
+                           use_reentrant=False)
+            continue
         pkv = None if prefix_kv is None else (prefix_kv[0][i],
                                               prefix_kv[1][i])
-        x, (k, v) = _attn_layer(cfg, pl, x, rope_g if is_global else rope_l,
-                                0 if is_global else cfg.window, positions,
-                                pkv)
+        x, (k, v) = _attn_layer(*args, pkv)
         ks.append(k)
         vs.append(v)
     x = _norm(params, x, cfg.norm, "final")
@@ -613,6 +635,17 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def unbind_layers(tree, n: int) -> list:
+    """The n layers of a layer-stacked parameter dict as n dicts of views,
+    one ``unbind`` a leaf (its backward stacks the layers' gradients
+    once, where ``n`` selects would each add a full-size zero-filled
+    gradient)."""
+    if isinstance(tree, dict):
+        per = {k: unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return tree.unbind(0)
+
+
 def last_hidden(h, length=None):
     """The true last-token hidden state of a (possibly padded) batch:
     h [B, S, d]; ``length`` [B] true lengths, or None for ``h[:, -1]``."""
@@ -626,6 +659,77 @@ def prompt_pos_map(length, S: int):
     for the first ``length`` entries, -1 (empty, masked) for the padding."""
     pos = torch.arange(S, dtype=torch.int32, device=length.device)[None]
     return torch.where(pos < length[:, None], pos, -1).to(torch.int32)
+
+
+# ------------------------------------------------------------------ losses
+
+
+TRAINED = "the attention family without experts"
+_REFUSED = {"mamba_hybrid": "zamba2 (its SSD-scan kernel has no backward)",
+            "xlstm": "xlstm", "whisper": "whisper",
+            "moe": "MoE configs (the grouped-matmul kernel has no backward)"}
+
+
+def check_trainable(cfg: ArchConfig):
+    """Raise NotImplementedError for a family the port cannot train yet:
+    MoE, zamba2, xlstm and whisper (ROADMAP item 13)."""
+    kind = ("whisper" if cfg.cross_attention else "moe" if cfg.n_experts
+            else cfg.block_kind)
+    if kind in _REFUSED:
+        raise NotImplementedError(
+            f"{cfg.name}: training {_REFUSED[kind]} is not ported yet "
+            f"(ROADMAP queue 1 item 13); the port trains {TRAINED}")
+
+
+def forward_hidden(cfg: ArchConfig, params, batch, *, remat=True):
+    """Final hidden states [B, S, d] of ``batch`` (``lm.py:697`` of the
+    JAX package).  Only the attention family's branch is here, the one
+    family the port trains (``check_trainable``); ROADMAP item 13 adds the
+    others with their training."""
+    check_trainable(cfg)
+    return attn_forward(cfg, params, batch["tokens"], remat=remat)
+
+
+def _xent_chunk(h, y, head, softcap: float):
+    """Summed cross-entropy of one chunk's tokens h [B, c, d] against
+    labels y [B, c] (-1 ignored): fp32 logits of the head, the softcap,
+    ``logsumexp - gold`` on the valid tokens."""
+    logits = (h @ head.to(h.dtype)).float()
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    lse = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, y.clamp(min=0)[..., None])[..., 0]
+    return ((lse - gold) * (y >= 0).float()).sum()
+
+
+def chunked_xent(cfg: ArchConfig, params, hidden, labels, *, chunk=512):
+    """Per-token mean cross-entropy of hidden [B, S, d] against labels
+    [B, S] (-1 ignored) without a full [B, S, V] logits tensor
+    (``lm.py:637`` of the JAX package): chunks of ``chunk`` positions, each
+    under ``checkpoint`` so that its logits are recomputed in the backward
+    rather than kept; the tied head is ``embed.table.T``.  The sums add
+    chunk by chunk in order, as the JAX scan's carry does; the last chunk
+    is cut short where JAX pads it with ignored labels."""
+    S = hidden.shape[1]
+    head = (params["embed"]["table"].T if cfg.tie_embeddings
+            else params["lm_head"])
+    chunk = min(chunk, S)
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    for c0 in range(0, S, chunk):
+        h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        tot = tot + checkpoint(_xent_chunk, h, y, head,
+                               float(cfg.logit_softcap), use_reentrant=False)
+        cnt = cnt + (y >= 0).float().sum()
+    return tot / cnt.clamp(min=1.0)
+
+
+def train_loss(cfg: ArchConfig, params, batch, *, remat=True):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
+    [B, S]; ``lm.py:710``); NotImplementedError for the families the port
+    does not train yet (``check_trainable``)."""
+    h = forward_hidden(cfg, params, batch, remat=remat)
+    return chunked_xent(cfg, params, h, batch["labels"])
 
 
 # ------------------------------------------------------------------ head
