@@ -37,6 +37,11 @@
 // in each pass), 52.7 GFLOP, in fp32 on the CUDA cores (67 TFLOP/s: 0.79
 // ms at best).
 //
+// Head dims 16, 32, 64, 80 (zamba2-2.7b's shared block, whose output
+// tile takes 4 column lanes of 5 float4s), 128 and 256; whisper's
+// encoder and cross-attention (1500 keys, non-causal) run the ragged last
+// key tile through the same masks.
+//
 // Design (simple first; tensor cores, wgmma and TMA are later work): 256
 // threads a CTA.  Tiles of BM query rows and BN keys (64 and 64; 32 and 32
 // at D 256, so that a thread's dK and dV rows stay in registers) are
@@ -449,6 +454,7 @@ int launch_dtype(int D, const void* q, const void* k, const void* v,
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)
     FLASH_BWD_CASE(64)
+    FLASH_BWD_CASE(80)
     FLASH_BWD_CASE(128)
     FLASH_BWD_CASE(256)
 #undef FLASH_BWD_CASE
@@ -471,6 +477,7 @@ int flash_attention_bwd_smem_bytes(int which, int D) {
     FLASH_BWD_SMEM(16)
     FLASH_BWD_SMEM(32)
     FLASH_BWD_SMEM(64)
+    FLASH_BWD_SMEM(80)
     FLASH_BWD_SMEM(128)
     FLASH_BWD_SMEM(256)
 #undef FLASH_BWD_SMEM
@@ -482,7 +489,7 @@ int flash_attention_bwd_smem_bytes(int which, int D) {
 // q, o, dout, dq [B, Sq, H, D]; k, v, dk, dv [B, Sk, Hkv, D]: contiguous,
 // 16-byte aligned, one type (dtype 0 fp32, 1 bf16); lse [B, H, Sq] fp32
 // from the forward (natural units); dvec [B, H, Sq] fp32 scratch (pass 1
-// writes it).  D one of 16, 32, 64, 128, 256; H a multiple of Hkv; mask
+// writes it).  D one of 16, 32, 64, 80, 128, 256; H a multiple of Hkv; mask
 // and scale as the forward's.  Three kernels on `stream`; returns
 // cudaGetLastError() after each launch (the first failure), -1 for a bad
 // dtype code or D.

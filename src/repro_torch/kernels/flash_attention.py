@@ -51,10 +51,10 @@ NEG_INF = -1e30
 # 80, llama3.2-3b 128, gemma3-1b 256, and the multimodal encoder at
 # qwen2-0.5b's width with two heads, 448 (each has its own instantiation)
 HEAD_DIMS = (16, 32, 64, 80, 128, 256, 448)
-# the backward's instantiations: the trained configs' head dims (qwen2 64,
-# llama3.2-3b and chameleon 128, gemma3-1b 256, the reduced configs' 16)
-# and the kernel tests' 32
-BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the backward's instantiations: the trained configs' head dims (qwen2 and
+# whisper 64, zamba2-2.7b's shared attention 80, llama3.2-3b and chameleon
+# 128, gemma3-1b 256, the reduced configs' 16) and the kernel tests' 32
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 227 * 1024  # per-block dynamic shared memory on Hopper
 # the CUDA-core instantiation's tiles (csrc/flash_attention.cu, cc::BM and

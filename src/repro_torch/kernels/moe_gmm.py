@@ -15,6 +15,16 @@ small-C tile at C <= 16, fp32 on the CUDA cores.
 runs the plain version; for CUDA tensors it launches the kernel or raises,
 never falling back.  It counts its kernel launches in its ``launches``
 attribute (a plain integer).
+
+Training: where grad mode is on and x or w requires grad,
+``grouped_matmul`` is the apply of ``GroupedMatmul``, a
+``torch.autograd.Function`` whose backward is ``grouped_matmul_bwd``: the
+backward kernel ``csrc/moe_gmm_bwd.cu`` on CUDA tensors (counted in
+``grouped_matmul.bwd_launches``), ``grouped_matmul_bwd_ref`` on CPU
+tensors.  It replaces XLA's autodiff of the JAX package's expert einsums
+(``repro/models/moe.py:128-146``): dx = dy w^T and dw = x^T dy per
+expert, in the inputs' type.  Elsewhere (serving, ``no_grad``) nothing
+is saved and no graph is built.
 """
 from __future__ import annotations
 
@@ -29,10 +39,28 @@ from repro_torch.kernels import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # x, w and the output
 
 
+def _wide(x) -> torch.dtype:
+    """The plain versions' arithmetic type: fp32, or float64 for float64
+    inputs (so that gradcheck can hold the backward in float64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def grouped_matmul_ref(x, w):
     """Plain version: ``einsum("eck,ekn->ecn")`` of the operands widened to
     fp32, cast back to x's type (``repro/kernels/ref.py:70``)."""
-    return torch.einsum("eck,ekn->ecn", x.float(), w.float()).to(x.dtype)
+    return torch.einsum("eck,ekn->ecn", x.to(_wide(x)),
+                        w.to(_wide(x))).to(x.dtype)
+
+
+def grouped_matmul_bwd_ref(x, w, dy):
+    """Plain backward of ``grouped_matmul_ref``: ``dx = dy w^T`` [E, C, K]
+    and ``dw = x^T dy`` [E, K, N] per expert, in fp32, each cast to its
+    operand's type."""
+    wide = _wide(x)
+    dyw = dy.to(wide)
+    dx = torch.einsum("ecn,ekn->eck", dyw, w.to(wide))
+    dw = torch.einsum("eck,ecn->ekn", x.to(wide), dyw)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 @functools.cache
@@ -86,7 +114,16 @@ def _rows_aligned(t) -> int:
 def grouped_matmul(x, w):
     """x [E, C, K], w [E, K, N], both fp32 or both bf16 -> [E, C, N] in
     x's type, accumulated in fp32.  Ragged C, K and N are masked in the
-    kernel: no operand is padded or copied."""
+    kernel: no operand is padded or copied.  Differentiable (through
+    ``GroupedMatmul``) where grad mode is on and x or w requires grad."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMatmul.apply(x, w)
+    return grouped_matmul_fwd(x, w)
+
+
+def grouped_matmul_fwd(x, w):
+    """The forward alone (no graph): the plain version on the CPU, the
+    kernel on the card."""
     if on_cpu("grouped_matmul", x, w):
         return grouped_matmul_ref(x, w)
     _check(x, w)
@@ -114,4 +151,63 @@ def grouped_matmul(x, w):
     return out
 
 
-grouped_matmul.launches = 0
+@functools.cache
+def _bwd_lib():
+    lib = build.load("moe_gmm_bwd")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.grouped_matmul_bwd_launch.argtypes = ([i32] + [ptr] * 5 + [i32] * 7
+                                              + [ptr])
+    lib.grouped_matmul_bwd_launch.restype = i32
+    return lib
+
+
+def grouped_matmul_bwd(x, w, dy):
+    """(dx [E, C, K], dw [E, K, N]) in the inputs' type from the forward's
+    operands and the output's gradient ``dy`` [E, C, N] (x's type): the
+    plain version on the CPU, the backward kernels on the card (or
+    raises)."""
+    if on_cpu("grouped_matmul backward", x, w, dy):
+        return grouped_matmul_bwd_ref(x, w, dy)
+    _check(x, w)
+    E, C, K = x.shape
+    N = w.shape[2]
+    if tuple(dy.shape) != (E, C, N) or dy.dtype != x.dtype \
+            or not dy.is_contiguous():
+        raise ValueError(f"grouped_matmul backward: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} must be [{E}, {C}, {N}] in x's type "
+                         "and contiguous")
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    if x.numel() == 0 or w.numel() == 0:  # a launch of 0 CTAs is refused
+        return dx.zero_(), dw.zero_()
+    if dy.numel() == 0:  # N == 0: nothing flows back
+        return dx.zero_(), dw
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib().grouped_matmul_bwd_launch(
+            DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), E, C, K, N, _rows_aligned(x),
+            _rows_aligned(w), _rows_aligned(dy), stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_matmul backward kernel launch failed: "
+                           f"error {err}")
+    grouped_matmul.bwd_launches += 1
+    return dx, dw
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """The grouped matmul with its hand-written backward
+    (``grouped_matmul_bwd``); saves x and w."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return grouped_matmul_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return grouped_matmul_bwd(x, w, dy.contiguous())
+
+
+grouped_matmul.launches = 0  # forward kernel launches
+grouped_matmul.bwd_launches = 0  # backward calls (two kernels each)

@@ -27,6 +27,18 @@ it runs the plain version; for CUDA tensors it launches the kernels or
 raises, never falling back.  It counts its calls that launch in its
 ``launches`` attribute (a plain integer): one per call, whether the call
 runs one kernel or three.
+
+Training: where grad mode is on and x, dt, a_neg, B or C requires grad,
+``ssd_scan`` is the apply of ``SSDScan``, a ``torch.autograd.Function``
+whose backward is ``ssd_scan_bwd``: the backward kernels
+``csrc/ssd_scan_bwd.cu`` on CUDA tensors (counted in
+``ssd_scan.bwd_launches``), ``ssd_scan_bwd_ref`` on CPU tensors.  It
+replaces XLA's autodiff of the JAX package's ``ssd_chunked``
+(``repro/models/mamba2.py:51``).  The Function saves the forward's inputs
+and nothing else: the backward recomputes the states it needs, and the
+forward runs the serving kernels with their own scratch, unchanged.  The
+initial state is not differentiated (no training path passes one,
+ROADMAP item 18): a gradient asked through it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -98,6 +110,12 @@ def segsum(a):
     return torch.where(mask, seg, -torch.inf)
 
 
+def _wide(x) -> torch.dtype:
+    """The plain versions' arithmetic type: fp32, or float64 for float64
+    inputs (so that gradcheck can hold the backward in float64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def ssd_scan_ref(x, dt, a_neg, B, C, *, chunk: int, init_state=None):
     """Plain version, the chunked form in einsums, step by step as
     ``ssd_chunked`` computes it.
@@ -110,16 +128,17 @@ def ssd_scan_ref(x, dt, a_neg, B, C, *, chunk: int, init_state=None):
     n = B.shape[-1]
     nc = S // chunk
     assert nc * chunk == S, (S, chunk)
+    wide = _wide(x)
     a = dt * a_neg[None, None, :]  # [b,S,h] log-decay per step
-    xd = (x * dt[..., None]).float()  # discretized input
+    xd = (x * dt[..., None]).to(wide)  # discretized input
 
     def r(t, shape):  # [b, S, ...] -> [nc, b, chunk, ...]
         return t.reshape((b, nc, chunk) + shape).transpose(0, 1)
 
     ac = r(a, (h,)).permute(0, 1, 3, 2)  # [nc,b,h,Q]
-    xc, Bc, Cc = r(xd, (h, p)), r(B.float(), (n,)), r(C.float(), (n,))
-    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-             if init_state is None else init_state.float())
+    xc, Bc, Cc = r(xd, (h, p)), r(B.to(wide), (n,)), r(C.to(wide), (n,))
+    state = (torch.zeros((b, h, p, n), dtype=wide, device=x.device)
+             if init_state is None else init_state.to(wide))
     ys = []
     for x_k, B_k, C_k, a_k in zip(xc, Bc, Cc, ac):
         a_cum = torch.cumsum(a_k, -1)  # [b,h,Q]
@@ -136,6 +155,102 @@ def ssd_scan_ref(x, dt, a_neg, B, C, *, chunk: int, init_state=None):
         ys.append(y)
     y = torch.stack(ys, 0).transpose(0, 1).reshape(b, S, h, p)
     return y, state
+
+
+def ssd_scan_bwd_ref(x, dt, a_neg, B, C, dy, dfinal=None, *, chunk: int,
+                     init_state=None):
+    """Plain backward of ``ssd_scan_ref``, the chunked form written out by
+    hand: the states entering each chunk (the forward's recurrence), then
+    the chunks in reverse with the gradient of the state leaving each
+    (from ``dfinal`` [b,h,p,n], or zeros), per chunk the gradients of C, B,
+    the discretised input xd = x dt and the log-decays' cumulative sum.
+    With L[t, s] = exp(acum[t] - acum[s]) (s <= t), CB = C[t].B[s], DX =
+    dy[t].xd[s], S the entering state, G the leaving state's gradient and
+    e the chunk's last token::
+
+        dxd[s] = sum_t L CB dy[t] + exp(acum[e] - acum[s]) G B[s]
+        dC[t]  = sum_s L DX B[s] + exp(acum[t]) dy[t] S
+        dB[s]  = sum_t L DX C[t] + exp(acum[e] - acum[s]) xd[s] G
+        dacum  = rows(M) - cols(M) + Y0 - W  (+ exp(acum[e]) <G, S> +
+                 sum W at e), M = L CB DX, Y0[t] = exp(acum[t])
+                 C[t].(dy[t] S), W[s] = exp(acum[e] - acum[s]) B[s].(xd[s] G)
+
+    and G of the chunk before = exp(acum[e]) G + sum_t exp(acum[t]) dy[t]
+    (x) C[t].  da is dacum's reverse cumulative sum; ddt = da a_neg + dxd.x,
+    dx = dxd dt, da_neg = sum da dt.  Returns (dx in x's type, ddt [b,S,h],
+    da_neg [h] in dt's, dB, dC in B's); the initial state gets none."""
+    b, S, h, p = x.shape
+    n = B.shape[-1]
+    nc = S // chunk
+    assert nc * chunk == S, (S, chunk)
+    wide = _wide(x)
+    dtw = dt.to(wide)
+    a = dtw * a_neg.to(wide)[None, None, :]
+    xf = x.to(wide)
+    xd = xf * dtw[..., None]
+
+    def r(t, shape):  # [b, S, ...] -> [nc, b, chunk, ...]
+        return t.reshape((b, nc, chunk) + shape).transpose(0, 1)
+
+    ac = r(a, (h,)).permute(0, 1, 3, 2)  # [nc,b,h,Q]
+    xc, dyc = r(xd, (h, p)), r(dy.to(wide), (h, p))
+    Bc, Cc = r(B.to(wide), (n,)), r(C.to(wide), (n,))
+    state = (torch.zeros((b, h, p, n), dtype=wide, device=x.device)
+             if init_state is None else init_state.to(wide))
+    entering = []
+    for x_k, B_k, a_k in zip(xc, Bc, ac):
+        entering.append(state)
+        a_cum = torch.cumsum(a_k, -1)
+        decay_states = torch.exp(a_cum[..., -1:] - a_cum)
+        state = state * torch.exp(a_cum[..., -1])[..., None, None] + \
+            torch.einsum("bsn,bhs,bshp->bhpn", B_k, decay_states, x_k)
+    g = (torch.zeros((b, h, p, n), dtype=wide, device=x.device)
+         if dfinal is None else dfinal.to(wide))
+    dxds, das, dBs, dCs = [], [], [], []
+    for k in reversed(range(nc)):
+        x_k, dy_k, B_k, C_k, a_k = xc[k], dyc[k], Bc[k], Cc[k], ac[k]
+        S_in = entering[k]
+        a_cum = torch.cumsum(a_k, -1)  # [b,h,Q]
+        a_e = a_cum[..., -1]  # [b,h]
+        L = torch.exp(segsum(a_k))  # [b,h,Q(t),Q(s)]
+        to_end = torch.exp(a_e[..., None] - a_cum)  # [b,h,Q]
+        from_start = torch.exp(a_cum)
+        CB = torch.einsum("btn,bsn->bts", C_k, B_k)
+        DX = torch.einsum("bthp,bshp->bhts", dy_k, x_k)
+        Lcb, Ldx = L * CB[:, None], L * DX
+        M = Lcb * DX
+        gB = torch.einsum("bhpn,bsn->bshp", g, B_k)  # (G B[s])[p]
+        dxd = torch.einsum("bhts,bthp->bshp", Lcb, dy_k) \
+            + to_end.transpose(1, 2)[..., None] * gB
+        dyS = torch.einsum("bthp,bhpn->bthn", dy_k, S_in)  # (dy[t] S)[n]
+        dC = torch.einsum("bhts,bsn->btn", Ldx, B_k) \
+            + torch.einsum("bht,bthn->btn", from_start, dyS)
+        xG = torch.einsum("bshp,bhpn->bshn", x_k, g)  # (xd[s] G)[n]
+        dB = torch.einsum("bhts,btn->bsn", Ldx, C_k) \
+            + torch.einsum("bhs,bshn->bsn", to_end, xG)
+        Y0 = from_start * torch.einsum("bthn,btn->bht", dyS, C_k)
+        W = to_end * torch.einsum("bshn,bsn->bhs", xG, B_k)
+        dac = M.sum(-1) - M.sum(-2) + Y0 - W
+        last = torch.exp(a_e) * (g * S_in).sum((-2, -1)) + W.sum(-1)
+        dac = torch.cat([dac[..., :-1], dac[..., -1:] + last[..., None]], -1)
+        da = torch.flip(torch.cumsum(torch.flip(dac, (-1,)), -1), (-1,))
+        g = g * torch.exp(a_e)[..., None, None] + torch.einsum(
+            "bht,bthp,btn->bhpn", from_start, dy_k, C_k)
+        dxds.append(dxd)
+        das.append(da.transpose(1, 2))  # [b,Q,h]
+        dBs.append(dB)
+        dCs.append(dC)
+
+    def cat(ts, shape):  # chunks (reversed) -> [b, S, ...]
+        return torch.stack(ts[::-1], 1).reshape((b, S) + shape)
+
+    dxd = cat(dxds, (h, p))
+    da = cat(das, (h,))
+    dx = (dxd * dtw[..., None]).to(x.dtype)
+    ddt = da * a_neg.to(wide)[None, None, :] + (dxd * xf).sum(-1)
+    da_neg = (da * dtw).sum((0, 1))
+    return (dx, ddt.to(dt.dtype), da_neg.to(a_neg.dtype),
+            cat(dBs, (n,)).to(B.dtype), cat(dCs, (n,)).to(C.dtype))
 
 
 @functools.cache
@@ -234,7 +349,24 @@ def ssd_scan(x, dt, a_neg, B, C, *, chunk: int = 256, init_state=None):
     """x [b,S,h,p] fp32/bf16; dt [b,S,h] fp32 (> 0); a_neg [h] fp32 (< 0);
     B, C [b,S,n] in x's type; init_state [b,h,p,n] fp32 or None.  Runs in
     chunks of ``Q = min(chunk, S)`` (ValueError unless S is a multiple of
-    Q).  Returns (y [b,S,h,p] fp32, final_state [b,h,p,n] fp32)."""
+    Q).  Returns (y [b,S,h,p] fp32, final_state [b,h,p,n] fp32).
+    Differentiable in x, dt, a_neg, B and C (through ``SSDScan``) where
+    grad mode is on and one of them requires grad."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a_neg, B, C, init_state)
+            if t is not None):
+        if init_state is not None and init_state.requires_grad:
+            raise NotImplementedError(
+                "ssd_scan: the initial state is not differentiated (no "
+                "training path passes one; ROADMAP queue 1 item 18)")
+        return SSDScan.apply(x, dt, a_neg, B, C, chunk, init_state)
+    return ssd_scan_fwd(x, dt, a_neg, B, C, chunk=chunk,
+                        init_state=init_state)
+
+
+def ssd_scan_fwd(x, dt, a_neg, B, C, *, chunk: int = 256, init_state=None):
+    """The forward alone (no graph): the plain version on the CPU, the
+    kernels on the card."""
     b, S, h, p = x.shape
     Q = chunk_length(S, chunk)
     tensors = (x, dt, a_neg, B, C) + (
@@ -267,4 +399,123 @@ def ssd_scan(x, dt, a_neg, B, C, *, chunk: int = 256, init_state=None):
     return y, final
 
 
-ssd_scan.launches = 0
+@functools.cache
+def _bwd_lib():
+    lib = build.load("ssd_scan_bwd")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_bwd_launch.argtypes = [i32] + [ptr] * 14 + [i32] * 6 + [ptr]
+    lib.ssd_scan_bwd_launch.restype = i32
+    lib.ssd_scan_bwd_smem_bytes.argtypes = [i32] * 3
+    lib.ssd_scan_bwd_smem_bytes.restype = i32
+    lib.ssd_scan_bwd_scratch_bytes.argtypes = [i32] * 6
+    lib.ssd_scan_bwd_scratch_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd_block.argtypes = []
+    lib.ssd_scan_bwd_block.restype = i32
+    if lib.ssd_scan_bwd_block() != BLOCK:
+        raise RuntimeError("ssd_scan backward: the library's block differs "
+                           "from the plan's")
+    return lib
+
+
+def bwd_block(Q: int) -> int:
+    """Tokens of a block of the backward for chunk Q: ``min(Q, BLOCK)``
+    (a chunk of BLOCK or fewer is one block, as the plain version cuts
+    it)."""
+    return min(Q, BLOCK)
+
+
+def bwd_scratch_bytes(b: int, S: int, h: int, p: int, n: int,
+                      Q: int) -> int:
+    """The backward's fp32 scratch for chunk Q, from the shapes alone: each
+    block's entering state and its leaving state's gradient [b, blocks,
+    h, p, n], its decay exponent and da_neg partial [b, blocks, h], and
+    the per-head partials of dB and dC [b, S, h, n]."""
+    nb = -(-S // bwd_block(Q))
+    return 4 * (2 * b * nb * h * p * n + 2 * b * nb * h + 2 * b * S * h * n)
+
+
+def bwd_smem_bytes(p: int, n: int) -> dict:
+    """Dynamic shared memory one CTA of the backward's block-terms pass and
+    block-gradients pass takes (from the built library)."""
+    lib = _bwd_lib()
+    return {"block terms": lib.ssd_scan_bwd_smem_bytes(1, p, n),
+            "block gradients": lib.ssd_scan_bwd_smem_bytes(3, p, n)}
+
+
+def ssd_scan_bwd(x, dt, a_neg, B, C, dy, dfinal=None, *, chunk: int = 256,
+                 init_state=None):
+    """(dx in x's type, ddt [b,S,h] fp32, da_neg [h] fp32, dB, dC in B's
+    type) from the forward's inputs, y's gradient ``dy`` [b,S,h,p] fp32 and
+    the final state's ``dfinal`` [b,h,p,n] fp32 (None: zeros): the plain
+    version on the CPU, the backward kernels on the card (or raises).  The
+    kernels cut the sequence into blocks of ``bwd_block(Q)`` tokens (the
+    same function as the plain version's chunks of Q)."""
+    b, S, h, p = x.shape
+    Q = chunk_length(S, chunk)
+    tensors = (x, dt, a_neg, B, C, dy) + tuple(
+        t for t in (dfinal, init_state) if t is not None)
+    if on_cpu("ssd_scan backward", *tensors):
+        return ssd_scan_bwd_ref(x, dt, a_neg, B, C, dy, dfinal, chunk=Q,
+                                init_state=init_state)
+    _check(x, dt, a_neg, B, C, init_state, Q)
+    n = B.shape[-1]
+    for t, shape in ((dy, (b, S, h, p)), (dfinal, (b, h, p, n))):
+        if t is not None and (tuple(t.shape) != shape or t.dtype !=
+                              torch.float32 or not t.is_contiguous()):
+            raise ValueError(f"ssd_scan backward: a gradient {t.dtype} "
+                             f"{tuple(t.shape)} must be fp32 {shape} and "
+                             "contiguous")
+    lib = _bwd_lib()
+    smem = max(bwd_smem_bytes(p, n).values())
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"ssd_scan backward: p {p}, n {n} need {smem} "
+                         f"bytes of shared memory, over {MAX_SMEM_BYTES}")
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(B), torch.empty_like(C)
+    ddt, da_neg = torch.empty_like(dt), torch.empty_like(a_neg)
+    if b == 0 or S == 0 or h == 0:  # a launch of 0 CTAs is refused
+        return dx.zero_(), ddt.zero_(), da_neg.zero_(), dB.zero_(), \
+            dC.zero_()
+    scratch = torch.empty(bwd_scratch_bytes(b, S, h, p, n, Q) // 4,
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_scan_bwd_launch(
+            DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(),
+            B.data_ptr(), C.data_ptr(),
+            None if init_state is None else init_state.data_ptr(),
+            dy.data_ptr(), None if dfinal is None else dfinal.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), da_neg.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), scratch.data_ptr(), b, S, h, p, n, Q, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: error "
+                           f"{err}")
+    ssd_scan.bwd_launches += 1
+    return dx, ddt, da_neg, dB, dC
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with its hand-written backward (``ssd_scan_bwd``):
+    saves the forward's inputs (the backward recomputes the states)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_neg, B, C, chunk, init_state):
+        ctx.save_for_backward(x, dt, a_neg, B, C, init_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)  # an unused final state: None
+        return ssd_scan_fwd(x, dt, a_neg, B, C, chunk=chunk,
+                            init_state=init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, a_neg, B, C, init_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32 if x.dtype !=
+                             torch.float64 else x.dtype, device=x.device)
+        grads = ssd_scan_bwd(x, dt, a_neg, B, C, dy.contiguous(),
+                             None if dfinal is None else dfinal.contiguous(),
+                             chunk=ctx.chunk, init_state=init_state)
+        return grads + (None, None)
+
+
+ssd_scan.launches = 0  # forward calls that launch
+ssd_scan.bwd_launches = 0  # backward calls (four kernels each)

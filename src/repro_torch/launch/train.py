@@ -12,15 +12,21 @@ and depth (fp32 parameters, as the JAX driver's; ``train(...,
 param_dtype=torch.bfloat16)`` keeps bf16 parameters with an fp32 master,
 ~7.9 GB of state for qwen2-0.5b).
 
-The port trains the attention family without experts (qwen2-0.5b,
-llama3.2-3b, gemma3-1b, codeqwen1.5-7b, chameleon-34b); the other archs
-raise NotImplementedError (ROADMAP item 13).
+Every arch of the zoo trains: the attention family (dense and MoE),
+zamba2, xlstm and whisper, whose encoder frames are drawn at each step as
+the JAX driver draws them (``np.random.default_rng(step)``, normal, fp32).
+zamba2 and xlstm take a ``--seq`` of at most ``scan_chunk`` (256) or a
+multiple of it, e.g.
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch zamba2-2.7b --seq 256 --batch 2 --steps 4
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
@@ -34,19 +40,25 @@ from repro_torch.train.optimizer import AdamWConfig, AdamWState, tree_map
 def train(arch: str, *, steps: int, batch: int, seq: int,
           use_reduced: bool = True, ckpt_dir: str | None = None,
           ckpt_every: int = 20, lr: float = 3e-4, log_every: int = 10,
-          param_dtype=torch.float32, device=None, on_step=None):
+          param_dtype=torch.float32, device=None, on_step=None,
+          overrides: dict | None = None):
     """Train ``arch`` for ``steps`` steps of ``batch`` x ``seq`` tokens
-    (``SyntheticLM`` batch ``step`` at step ``step``), resuming from the
+    (``SyntheticLM`` batch ``step`` at step ``step``; whisper's encoder
+    frames drawn from ``np.random.default_rng(step)``), resuming from the
     newest checkpoint in ``ckpt_dir`` and saving one every ``ckpt_every``
     steps; returns (params, the losses of the steps this call ran) with
     the losses as floats.  Weights are drawn on ``device`` from seed 0
     (``Model.init``).  The losses are read on the host after the last
     step (and at each log line).  ``on_step(step, metrics)``, if given,
-    is called after each step (a caller's timer or counter)."""
+    is called after each step (a caller's timer or counter).
+    ``overrides`` replaces fields of the config after its lookup (a depth
+    cut such as ``{"n_layers": 16}``)."""
     dev = resolve(device)
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     model = build_model(cfg)
     data = SyntheticLM(LMDataConfig(cfg.vocab, seq, batch))
     step_fn = model.make_train_step(
@@ -68,6 +80,10 @@ def train(arch: str, *, steps: int, batch: int, seq: int,
     for step in range(start, steps):
         b = {k: torch.from_numpy(v).to(dev)
              for k, v in data.batch(step).items()}
+        if cfg.cross_attention:  # the JAX driver's frames (launch/train.py)
+            frames = np.random.default_rng(step).normal(
+                size=(batch, cfg.encoder_seq, cfg.d_model))
+            b["encoder_frames"] = torch.from_numpy(frames).float().to(dev)
         params, opt, metrics = step_fn(params, opt, b)
         losses.append(metrics["loss"])
         if on_step is not None:

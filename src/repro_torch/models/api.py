@@ -7,9 +7,10 @@ dense decode steps, the speculative verify step and the export and import
 of a request's pages (ports of ``repro/models/api.py``).  The dense
 decode step serves the engine's dense backend and the speculative draft
 model; its attention runs the flash-decode kernel on the card.
-Training (``train_loss``, ``make_train_step``, ``init_opt``) covers the
-attention family without experts; its backward runs the flash-attention
-and RMSNorm backward kernels on the card.
+Training (``train_loss``, ``make_train_step``, ``init_opt``) covers every
+family of the zoo; its backward runs the flash-attention, RMSNorm,
+grouped-matmul and SSD-scan backward kernels on the card (xlstm's cells
+and whisper's LayerNorm are plain torch in both packages).
 
 zamba2 (``block_kind="mamba_hybrid"``) has the dense cache only, with
 exact-shape monolithic prefill, as in the JAX package: conv windows
@@ -103,8 +104,9 @@ class Model:
 
     # ------------------------------------------------------------- train
     def train_loss(self, params, batch, *, remat=True):
-        """Mean next-token cross-entropy (``lm.train_loss``); raises
-        NotImplementedError for MoE, zamba2, xlstm and whisper."""
+        """Mean next-token cross-entropy (``lm.train_loss``): ``batch``
+        holds ``tokens`` and ``labels`` [B, S], and for whisper
+        ``encoder_frames`` [B, Se, d]."""
         return lm.train_loss(self.cfg, params, batch, remat=remat)
 
     def make_train_step(self, opt_cfg: AdamWConfig | None = None):
@@ -116,7 +118,6 @@ class Model:
         place and returned (no second copy of the training state); the
         metrics are scalar tensors on the device (no host sync)."""
         cfg = self.cfg
-        lm.check_trainable(cfg)
         opt_cfg = opt_cfg or AdamWConfig()
 
         def train_step(params, opt_state, batch):

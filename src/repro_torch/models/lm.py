@@ -12,13 +12,17 @@ RMSNorm kernel on the card); matmuls run in the activation dtype, with
 weights cast at the use site as in the JAX package.  Whole-prompt attention
 (the decoders' causal attention, whisper's encoder and cross-attention)
 runs the flash-attention kernel on the card.  Training
-(``forward_hidden``, ``chunked_xent``, ``train_loss``) covers the
-attention family without experts (``check_trainable``), each layer
-recomputed in the backward under ``remat``.
+(``forward_hidden``, ``chunked_xent``, ``train_loss``) covers every family
+of the zoo, as in the JAX package: under ``remat`` the attention family's
+layers, zamba2's Mamba2 layers (not its shared block), xlstm's mLSTM
+blocks (not its sLSTM blocks) and whisper's encoder and decoder layers are
+recomputed in the backward, at the JAX package's ``jax.checkpoint``
+boundaries.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -366,6 +370,21 @@ def _attn_layer(cfg: ArchConfig, pl, x, rope, window: int, positions,
     return _ffn(pl, cfg, x + o), (k, v)
 
 
+def _stack_layers(tree, n: int) -> list:
+    """The n layers of a stacked parameter dict: views from one ``unbind``
+    a leaf where grad mode is on (``unbind_layers``), else slices."""
+    if torch.is_grad_enabled():
+        return unbind_layers(tree, n)
+    return [layer_slice(tree, i) for i in range(n)]
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward, with the same values bit
+    for bit (the JAX package's ``jax.checkpoint``)."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def attn_forward(cfg: ArchConfig, params, tokens, *, return_cache=False,
                  prefix_kv=None, embeds=None, embed_mask=None, remat=False):
     """tokens [B, S] -> final-normed hidden [B, S, d], plus the stacked
@@ -393,16 +412,14 @@ def attn_forward(cfg: ArchConfig, params, tokens, *, return_cache=False,
     offset = 0 if prefix_kv is None else prefix_kv[0].shape[2]
     positions = offset + torch.arange(S, device=tokens.device)
     rope_l, rope_g = _rope_tables(cfg, offset + S, tokens.device)
-    layers = (unbind_layers(params["layers"], cfg.n_layers)
-              if torch.is_grad_enabled() else None)
     ks, vs = [], []
-    for i, is_global in enumerate(static_layer_windows(cfg)):
-        pl = layer_slice(params["layers"], i) if layers is None else layers[i]
+    for i, (pl, is_global) in enumerate(zip(
+            _stack_layers(params["layers"], cfg.n_layers),
+            static_layer_windows(cfg))):
         args = (cfg, pl, x, rope_g if is_global else rope_l,
                 0 if is_global else cfg.window, positions)
         if remat:
-            x = checkpoint(lambda *a: _attn_layer(*a)[0], *args,
-                           use_reentrant=False)
+            x = _remat(lambda *a: _attn_layer(*a)[0], *args)
             continue
         pkv = None if prefix_kv is None else (prefix_kv[0][i],
                                               prefix_kv[1][i])
@@ -450,12 +467,19 @@ def zamba2_groups(cfg: ArchConfig) -> "tuple[int, int]":
     return cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
 
 
-def zamba2_forward(cfg: ArchConfig, params, tokens, *, return_cache=False):
+def zamba2_forward(cfg: ArchConfig, params, tokens, *, return_cache=False,
+                   remat=False):
     """tokens [B, S] -> final-normed hidden [B, S, d] (``lm.py:515`` of the
     JAX package, with Python loops in place of its two scans): each group's
     Mamba2 layers in order, then the shared block on concat(x, x0).  With
     ``return_cache`` also ((conv [G, P, B, min(S, W-1), Ch], ssm
-    [G, P, B, nh, p, N] fp32), (k, v) [G, B, S, Hkv, Dh])."""
+    [G, P, B, nh, p, N] fp32), (k, v) [G, B, S, Hkv, Dh]).  ``remat``
+    (training) recomputes each Mamba2 layer in the backward, as the JAX
+    package checkpoints ``inner`` (``lm.py:530``); the shared block is not
+    recomputed."""
+    if remat and return_cache:
+        raise ValueError("zamba2_forward: remat is for training, without a "
+                         "cache")
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     x0 = x
@@ -463,13 +487,19 @@ def zamba2_forward(cfg: ArchConfig, params, tokens, *, return_cache=False):
     rope, _ = _rope_tables(cfg, S, tokens.device)
     G, P = zamba2_groups(cfg)
     convs, ssms, ks, vs = [], [], [], []
-    for g in range(G):
-        pm = layer_slice(params["mamba"], g)
-        for i in range(P):
-            y, (cs, ss) = m2.mamba2_forward(
-                layer_slice(pm, i), x, n_state=cfg.ssm_state,
-                headdim=cfg.ssm_headdim, chunk=cfg.scan_chunk)
-            x = x + y
+
+    def inner(pl, x):
+        y, st = m2.mamba2_forward(pl, x, n_state=cfg.ssm_state,
+                                  headdim=cfg.ssm_headdim,
+                                  chunk=cfg.scan_chunk)
+        return x + y, st
+
+    for pm in _stack_layers(params["mamba"], G):
+        for pl in _stack_layers(pm, P):
+            if remat:
+                x = _remat(lambda *a: inner(*a)[0], pl, x)
+                continue
+            x, (cs, ss) = inner(pl, x)
             convs.append(cs)
             ssms.append(ss)
         x, (k, v) = _shared_attn_apply(cfg, params["shared_attn"], x, x0,
@@ -498,29 +528,40 @@ def xlstm_groups(cfg: ArchConfig) -> "tuple[int, int]":
     return cfg.n_layers // (P + 1), P
 
 
-def xlstm_forward(cfg: ArchConfig, params, tokens, *, return_cache=False):
+def xlstm_forward(cfg: ArchConfig, params, tokens, *, return_cache=False,
+                  remat=False):
     """tokens [B, S] -> final-normed hidden [B, S, d] (``lm.py:544`` of the
     JAX package, with Python loops in place of its scans): each group's
     mLSTM blocks in order, then its sLSTM block.  With ``return_cache``
     also ((mconv [G, P, B, min(S, W-1), d_in], (mC [G, P, B, nh, dh, dh],
     mn [G, P, B, nh, dh], mm [G, P, B, nh])), (sc, sn, sm, sh) each
     [G, B, d]), the states fp32.  A prompt past ``scan_chunk`` must be
-    whole chunks (ValueError)."""
+    whole chunks (ValueError).  ``remat`` (training) recomputes each mLSTM
+    block in the backward, as the JAX package checkpoints ``inner``
+    (``lm.py:558``); the sLSTM blocks are not recomputed."""
+    if remat and return_cache:
+        raise ValueError("xlstm_forward: remat is for training, without a "
+                         "cache")
     x = embed_tokens(cfg, params, tokens)
     G, P = xlstm_groups(cfg)
     convs, Cs, ns, ms, sstates = [], [], [], [], []
-    for g in range(G):
-        pm = layer_slice(params["mlstm"], g)
-        for i in range(P):
-            x, (cs, (C, n, m)) = xl.mlstm_block(
-                layer_slice(pm, i), x, nh=cfg.n_heads, chunk=cfg.scan_chunk,
-                gather_qkv=cfg.xlstm_gather_qkv)
+
+    def inner(pl, x):
+        return xl.mlstm_block(pl, x, nh=cfg.n_heads, chunk=cfg.scan_chunk,
+                              gather_qkv=cfg.xlstm_gather_qkv)
+
+    for pm, ps in zip(_stack_layers(params["mlstm"], G),
+                      _stack_layers(params["slstm"], G)):
+        for pl in _stack_layers(pm, P):
+            if remat:
+                x = _remat(lambda *a: inner(*a)[0], pl, x)
+                continue
+            x, (cs, (C, n, m)) = inner(pl, x)
             convs.append(cs)
             Cs.append(C)
             ns.append(n)
             ms.append(m)
-        x, st = xl.slstm_block(layer_slice(params["slstm"], g), x,
-                               nh=cfg.n_heads)
+        x, st = xl.slstm_block(ps, x, nh=cfg.n_heads)
         sstates.append(st)
     x = _norm(params, x, cfg.norm, "final")
     if not return_cache:
@@ -550,21 +591,28 @@ def sinusoid(pos, d: int):
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
 
-def whisper_encode(cfg: ArchConfig, params, frames):
+def _whisper_enc_layer(cfg: ArchConfig, pl, x):
+    B, Se, _ = x.shape
+    xn = _norm(pl, x, cfg.norm, "ln1")
+    q, k, v = _qkv(pl["attn"], cfg, xn, B, Se)
+    o = flash_attention(q, k, v, causal=False)
+    x = x + o.reshape(B, Se, -1) @ pl["attn"]["wo"].to(x.dtype)
+    return x + _mlp(pl["mlp"], cfg, _norm(pl, x, cfg.norm, "ln2"))
+
+
+def whisper_encode(cfg: ArchConfig, params, frames, *, remat=False):
     """frames [B, Se, d] (the stub frontend's precomputed frame
     embeddings) -> encoder output [B, Se, d] after ``enc_final``:
     sinusoidal positions, then pre-LN layers of non-causal attention (the
-    flash-attention kernel on the card) and the plain gelu MLP."""
+    flash-attention kernel on the card) and the plain gelu MLP.
+    ``remat`` (training) recomputes each layer in the backward (JAX
+    ``lm.py:591``)."""
     B, Se, d = frames.shape
     x = frames.to(act_dtype(cfg))
     x = x + sinusoid(torch.arange(Se, device=x.device), d)[None].to(x.dtype)
-    for i in range(cfg.encoder_layers):
-        pl = layer_slice(params["encoder"], i)
-        xn = _norm(pl, x, cfg.norm, "ln1")
-        q, k, v = _qkv(pl["attn"], cfg, xn, B, Se)
-        o = flash_attention(q, k, v, causal=False)
-        x = x + o.reshape(B, Se, -1) @ pl["attn"]["wo"].to(x.dtype)
-        x = x + _mlp(pl["mlp"], cfg, _norm(pl, x, cfg.norm, "ln2"))
+    for pl in _stack_layers(params["encoder"], cfg.encoder_layers):
+        x = (_remat(functools.partial(_whisper_enc_layer, cfg), pl, x)
+             if remat else _whisper_enc_layer(cfg, pl, x))
     return _norm(params, x, cfg.norm, "enc_final")
 
 
@@ -593,31 +641,44 @@ def cross_kv(cfg: ArchConfig, pl_xattn, enc):
     return k, v
 
 
+def _whisper_dec_layer(cfg: ArchConfig, pl, x, enc):
+    """One decoder layer; returns (x, (k, v, xk, xv))."""
+    B, S, _ = x.shape
+    xn = _norm(pl, x, cfg.norm, "ln1")
+    q, k, v = _qkv(pl["attn"], cfg, xn, B, S)
+    o = flash_attention(q, k, v, causal=True)
+    x = x + o.reshape(B, S, -1) @ pl["attn"]["wo"].to(x.dtype)
+    xn = _norm(pl, x, cfg.norm, "lnx")
+    q2 = cross_q(cfg, pl["xattn"], xn)
+    k2, v2 = cross_kv(cfg, pl["xattn"], enc.to(x.dtype))
+    o2 = flash_attention(q2, k2, v2, causal=False)
+    x = x + o2.reshape(B, S, -1) @ pl["xattn"]["wo"].to(x.dtype)
+    x = x + _mlp(pl["mlp"], cfg, _norm(pl, x, cfg.norm, "ln2"))
+    return x, (k, v, k2, v2)
+
+
 def whisper_decode_forward(cfg: ArchConfig, params, tokens, enc, *,
-                           return_cache=False):
+                           return_cache=False, remat=False):
     """tokens [B, S], enc [B, Se, d] (``whisper_encode``'s output) ->
     final-normed hidden [B, S, d]: sinusoidal positions, then per layer
     causal self-attention, cross-attention over every frame (both through
     the flash-attention kernel on the card) and the MLP.  With
     ``return_cache`` also (k, v [L, B, S, Hkv, Dh], xk, xv [L, B, Se, Hkv,
-    Dh])."""
+    Dh]).  ``remat`` (training) recomputes each layer in the backward (JAX
+    ``lm.py:628``)."""
+    if remat and return_cache:
+        raise ValueError("whisper_decode_forward: remat is for training, "
+                         "without a cache")
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     x = x + sinusoid(torch.arange(S, device=x.device),
                      cfg.d_model)[None].to(x.dtype)
     ks, vs, xks, xvs = [], [], [], []
-    for i in range(cfg.n_layers):
-        pl = layer_slice(params["layers"], i)
-        xn = _norm(pl, x, cfg.norm, "ln1")
-        q, k, v = _qkv(pl["attn"], cfg, xn, B, S)
-        o = flash_attention(q, k, v, causal=True)
-        x = x + o.reshape(B, S, -1) @ pl["attn"]["wo"].to(x.dtype)
-        xn = _norm(pl, x, cfg.norm, "lnx")
-        q2 = cross_q(cfg, pl["xattn"], xn)
-        k2, v2 = cross_kv(cfg, pl["xattn"], enc.to(x.dtype))
-        o2 = flash_attention(q2, k2, v2, causal=False)
-        x = x + o2.reshape(B, S, -1) @ pl["xattn"]["wo"].to(x.dtype)
-        x = x + _mlp(pl["mlp"], cfg, _norm(pl, x, cfg.norm, "ln2"))
+    for pl in _stack_layers(params["layers"], cfg.n_layers):
+        if remat:
+            x = _remat(lambda *a: _whisper_dec_layer(cfg, *a)[0], pl, x, enc)
+            continue
+        x, (k, v, k2, v2) = _whisper_dec_layer(cfg, pl, x, enc)
         ks.append(k)
         vs.append(v)
         xks.append(k2)
@@ -664,30 +725,22 @@ def prompt_pos_map(length, S: int):
 # ------------------------------------------------------------------ losses
 
 
-TRAINED = "the attention family without experts"
-_REFUSED = {"mamba_hybrid": "zamba2 (its SSD-scan kernel has no backward)",
-            "xlstm": "xlstm", "whisper": "whisper",
-            "moe": "MoE configs (the grouped-matmul kernel has no backward)"}
-
-
-def check_trainable(cfg: ArchConfig):
-    """Raise NotImplementedError for a family the port cannot train yet:
-    MoE, zamba2, xlstm and whisper (ROADMAP item 13)."""
-    kind = ("whisper" if cfg.cross_attention else "moe" if cfg.n_experts
-            else cfg.block_kind)
-    if kind in _REFUSED:
-        raise NotImplementedError(
-            f"{cfg.name}: training {_REFUSED[kind]} is not ported yet "
-            f"(ROADMAP queue 1 item 13); the port trains {TRAINED}")
-
-
 def forward_hidden(cfg: ArchConfig, params, batch, *, remat=True):
-    """Final hidden states [B, S, d] of ``batch`` (``lm.py:697`` of the
-    JAX package).  Only the attention family's branch is here, the one
-    family the port trains (``check_trainable``); ROADMAP item 13 adds the
-    others with their training."""
-    check_trainable(cfg)
-    return attn_forward(cfg, params, batch["tokens"], remat=remat)
+    """Final hidden states [B, S, d] of ``batch``, dispatched per family as
+    ``lm.py:697`` of the JAX package does: whisper encodes
+    ``batch["encoder_frames"]`` and decodes ``batch["tokens"]`` against
+    it; zamba2, xlstm and the attention family (dense or MoE) run their
+    forward on the tokens."""
+    tokens = batch["tokens"]
+    if cfg.cross_attention:
+        enc = whisper_encode(cfg, params, batch["encoder_frames"],
+                             remat=remat)
+        return whisper_decode_forward(cfg, params, tokens, enc, remat=remat)
+    if cfg.block_kind == "mamba_hybrid":
+        return zamba2_forward(cfg, params, tokens, remat=remat)
+    if cfg.block_kind == "xlstm":
+        return xlstm_forward(cfg, params, tokens, remat=remat)
+    return attn_forward(cfg, params, tokens, remat=remat)
 
 
 def _xent_chunk(h, y, head, softcap: float):
@@ -726,8 +779,7 @@ def chunked_xent(cfg: ArchConfig, params, hidden, labels, *, chunk=512):
 
 def train_loss(cfg: ArchConfig, params, batch, *, remat=True):
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
-    [B, S]; ``lm.py:710``); NotImplementedError for the families the port
-    does not train yet (``check_trainable``)."""
+    [B, S], whisper's ``encoder_frames`` [B, Se, d]; ``lm.py:710``)."""
     h = forward_hidden(cfg, params, batch, remat=remat)
     return chunked_xent(cfg, params, h, batch["labels"])
 

@@ -8,7 +8,9 @@ plain chunked version ``kernels.ssd_scan.ssd_scan_ref`` on the CPU; the
 JAX package calls the jnp ``ssd_chunked`` there).  ``ssd_decode_step``
 has no kernel in either package.  The layer's pre-norm and its gated RMS
 norm run through ``ops.rmsnorm``: fp32 statistics and scale, then one
-cast, the inline jnp norm's arithmetic.
+cast, the inline jnp norm's arithmetic.  In training the scan is
+differentiated by its hand-written backward (``kernels/ssd_scan.py``
+``SSDScan``; the backward kernels on the card).
 """
 from __future__ import annotations
 

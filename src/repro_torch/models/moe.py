@@ -12,6 +12,14 @@ order of every step follows the JAX function, so a dropped slot is the
 same slot in both packages; ties in the router pick the lower expert
 index first, as ``jax.lax.top_k`` does.
 
+Training: the grouped matmuls are autograd Functions with a hand-written
+backward kernel (``kernels/moe_gmm.py``).  The two gathers of the
+dispatch and the combine are ``SlotGather`` where grad mode is on: the
+backward of each is the inverse gather (a token's k slots summed in k
+order), so a step's gradients are the same bits every time (PyTorch's own
+backward of an index is a scatter-add, whose order on the card is not
+fixed).
+
 Tensor-parallel and expert-parallel MoE (``tp_axis``) are not ported.
 """
 from __future__ import annotations
@@ -80,6 +88,37 @@ def _route(p, x, top_k: int, norm_topk: bool):
     return probs, gate_vals, expert_ids
 
 
+class SlotGather(torch.autograd.Function):
+    """``where(mask, src[idx], 0)`` over rows of src [R, d], whose
+    backward is the inverse gather: the output's gradient, flattened to
+    rows, picked by ``back_idx`` [R * fold] where ``back_mask``, and summed
+    over each row's ``fold`` picks in order (deterministic: no
+    scatter-add)."""
+
+    @staticmethod
+    def forward(ctx, src, idx, mask, back_idx, back_mask, fold):
+        ctx.save_for_backward(back_idx, back_mask)
+        ctx.fold = fold
+        return torch.where(mask[..., None], src[idx], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        back_idx, back_mask = ctx.saved_tensors
+        d = g.shape[-1]
+        picked = torch.where(back_mask.reshape(-1, 1),
+                             g.reshape(-1, d)[back_idx.reshape(-1)], 0)
+        return (picked.reshape(-1, ctx.fold, d).sum(1), None, None, None,
+                None, None)
+
+
+def _gather(src, idx, mask, back_idx, back_mask, fold):
+    """``where(mask, src[idx], 0)``; through ``SlotGather`` where grad mode
+    is on and src requires grad."""
+    if torch.is_grad_enabled() and src.requires_grad:
+        return SlotGather.apply(src, idx, mask, back_idx, back_mask, fold)
+    return torch.where(mask[..., None], src[idx], 0)
+
+
 def _shared_expert(p, x, act):
     """The shared expert's MLP in x's type, times its fp32 sigmoid gate."""
     dt = x.dtype
@@ -111,15 +150,20 @@ def moe_apply(p, x, *, top_k: int, norm_topk: bool,
     flat_expert = expert_ids.reshape(-1)  # [T*k]
     order = torch.sort(flat_expert, stable=True).indices
     se = flat_expert[order]
-    st = order // top_k  # token of each sorted slot
     experts = torch.arange(E, device=dev)
     first = torch.searchsorted(se, experts, side="left")  # [E]
     last = torch.searchsorted(se, experts, side="right")
     slots = torch.arange(C, device=dev)
     src = first[:, None] + slots[None, :]  # [E, C] sorted-slot index
     valid = slots[None, :] < (last - first)[:, None]
-    tok = st[src.clamp(0, T * top_k - 1)]  # [E, C] token index
-    xe = torch.where(valid[..., None], x[tok], 0)  # [E, C, d]
+    slot_of = order[src.clamp(0, T * top_k - 1)]  # [E, C] flat slot
+    tok = slot_of // top_k  # [E, C] token index
+    inv = torch.empty_like(order)  # flat slot -> position in sorted order
+    inv[order] = torch.arange(order.numel(), device=dev)
+    c_of = inv - first[flat_expert]  # rank within the expert's run
+    kept = c_of < C  # capacity drop
+    rows = flat_expert * C + c_of.clamp(0, C - 1)  # [T*k] expert row
+    xe = _gather(x, tok, valid, rows, kept, top_k)  # [E, C, d]
 
     # ---- the three grouped expert contractions (the CUDA kernel)
     dt = x.dtype
@@ -128,13 +172,8 @@ def moe_apply(p, x, *, top_k: int, norm_topk: bool,
     ye = ops.grouped_matmul(act(g) * u, p["w_down"].to(dt))
 
     # ---- combine: each (token, k) slot gathers its expert's output
-    inv = torch.empty_like(order)  # flat slot -> position in sorted order
-    inv[order] = torch.arange(order.numel(), device=dev)
-    c_of = inv - first[flat_expert]  # rank within the expert's run
-    kept = c_of < C  # capacity drop
-    rows = flat_expert * C + c_of.clamp(0, C - 1)
-    vals = ye.reshape(E * C, d)[rows]
-    vals = torch.where(kept[:, None], vals, 0).reshape(T, top_k, d)
+    vals = _gather(ye.reshape(E * C, d), rows, kept, slot_of, valid,
+                   1).reshape(T, top_k, d)
     y = torch.einsum("tkd,tk->td", vals.float(),
                      gate_vals * kept.reshape(T, top_k))
     if "shared_gate" in p:

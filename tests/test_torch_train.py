@@ -61,7 +61,9 @@ except ImportError:  # JAX (the reference) is not installed
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, reduced
 from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm as mg
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as sk
 from repro_torch.launch.train import train
 from repro_torch.models import counting, lm
 from repro_torch.models.api import build_model
@@ -71,8 +73,6 @@ from repro_torch.weights import from_jax_params
 
 ATTN_ARCHS = ["qwen2-0.5b", "llama3.2-3b", "gemma3-1b", "codeqwen1.5-7b",
               "chameleon-34b"]
-REFUSED = ["granite-moe-1b-a400m", "qwen2-moe-a2.7b", "zamba2-2.7b",
-           "xlstm-1.3b", "whisper-large-v3"]
 GRAD_REL = 1e-5  # of each leaf's largest |g|
 PARAM_ATOL, ADAM_REL = 1e-6, 1e-5  # the Adam-aware bound's terms
 
@@ -412,17 +412,39 @@ def test_functions_gradcheck_float64(what):
 
 def test_serving_forward_builds_no_graph():
     """Without grad (serving) the wrappers build no graph and write no
-    lse; with an input that requires grad they go through the Function."""
+    lse; with an input that requires grad they go through the Function.
+    The same for the grouped matmul and the SSD scan, and for a reduced
+    MoE and zamba2 forward whose weights require grad."""
     q, k, v, _ = (_t(a) for a in _flash_inputs(1, 8, 8, 2, 1, 16, seed=1))
+    x, w = torch.randn(2, 3, 16), torch.randn(2, 16, 4, requires_grad=True)
+    scan = (torch.randn(1, 8, 2, 4), torch.rand(1, 8, 2) + 0.1,
+            -torch.ones(2, requires_grad=True), torch.randn(1, 8, 4),
+            torch.randn(1, 8, 4))
     assert fa.flash_attention(q, k, v).grad_fn is None
+    assert mg.grouped_matmul(x, w.detach()).grad_fn is None
     with torch.no_grad():
         assert fa.flash_attention(q, k, v.requires_grad_()).grad_fn is None
         assert rn.rmsnorm(q, torch.ones(16, requires_grad=True)).grad_fn \
             is None
+        assert mg.grouped_matmul(x, w).grad_fn is None
+        assert sk.ssd_scan(*scan, chunk=4)[0].grad_fn is None
     assert isinstance(fa.flash_attention(q, k, v).grad_fn,
                       fa.FlashAttention._backward_cls)
     assert isinstance(rn.rmsnorm(q, torch.ones(16, requires_grad=True))
                       .grad_fn, rn.RMSNorm._backward_cls)
+    assert isinstance(mg.grouped_matmul(x, w).grad_fn,
+                      mg.GroupedMatmul._backward_cls)
+    assert isinstance(sk.ssd_scan(*scan, chunk=4)[0].grad_fn,
+                      sk.SSDScan._backward_cls)
+    tokens = torch.randint(0, 512, (1, 16))
+    for arch, forward in (("granite-moe-1b-a400m", lm.attn_forward),
+                          ("zamba2-2.7b", lm.zamba2_forward)):
+        cfg = reduced(get_config(arch))
+        params = opt.tree_map(lambda p: p.requires_grad_(),
+                              build_model(cfg).init(0, device="cpu"))
+        with torch.no_grad():
+            assert forward(cfg, params, tokens).grad_fn is None
+        assert forward(cfg, params, tokens).grad_fn is not None
 
 
 # ------------------------------------------------------- loss and gradients
@@ -553,16 +575,6 @@ def test_launch_train_resume_is_bitwise(tmp_path):
                zip(opt.leaves(resumed), opt.leaves(params)))
     step, tree = ck.load_checkpoint(fresh)
     assert step == 8 and int(tree["opt"]["step"]) == 8
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_untrained_families_refuse(arch):
-    model = build_model(reduced(get_config(arch)))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        model.make_train_step()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        model.train_loss({}, {"tokens": torch.zeros(1, 4, dtype=torch.long),
-                              "labels": torch.zeros(1, 4, dtype=torch.long)})
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "whisper-large-v3"])
