@@ -32,11 +32,14 @@ exits non-zero without printing a result:
      at D <= 128, nor in ``flash_decode.cu``'s split passes
      (``split_decode.cuh``), nor in flash attention's CUDA-core
      instantiations (every D up to 448), nor in ``rmsnorm.cu``, nor in
-     the SSD scan's chunked passes, nor in the flash-attention backward,
-     whose passes' shared memory at every head dim it prints beside the
-     RMSNorm backward's plan, nor in the grouped-matmul backward (HMMA
-     instructions in its SASS) or the SSD-scan backward, whose passes'
-     shared memory and scratch at zamba2's width it prints);
+     the SSD scan's chunked passes, nor in the flash-attention backward
+     (HMMA instructions in its SASS: the bf16 kernels' tensor-core
+     products), whose passes' shared memory at every head dim in bf16 and
+     fp32 and whose key-pass split plan (``bwd_plan``) at its phase-4
+     shapes it prints beside the RMSNorm backward's plan, nor in the
+     grouped-matmul backward (HMMA instructions in its SASS) or the
+     SSD-scan backward, whose passes' shared memory and scratch at
+     zamba2's width it prints);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (decode also
@@ -127,7 +130,10 @@ exits non-zero without printing a result:
      ``torch.bmm`` calls of dx and dw, the SSD-scan backward at zamba2's B
      4 x S 1024 (also by device time) and S 256, which no PyTorch call
      computes, and the flash backward at zamba2's D 80 and whisper's
-     encoder shape against SDPA's backward),
+     encoder shape against SDPA's backward; then the bf16 flash backward
+     at each of those shapes by device time beside the CUDA-core
+     kernels it replaced (``flash_bwd_parent``), run in turn
+     (parent, kernel, kernel, parent), with SDPA's backward),
      beside the least time the card could take,
      and the kernel held to its plain version there;
   5. the text path: qwen2-0.5b at full width, cut to its first
@@ -1165,13 +1171,26 @@ def phase_build():
     spilled = [f"{name} ({n} bytes)" for name, D, n in spills if n]
     check(not spilled, "flash_attention_bwd.cu: register spills: "
           + ", ".join(spilled))
-    print("[build]   flash attention backward (bf16 and fp32 q, fp32 "
-          "CUDA-core products): dynamic shared memory a CTA " + "; ".join(
-              f"D {D}: key pass {kv}, query pass {qp} bytes"
-              for D in flash_attention.BWD_HEAD_DIMS
-              for kv, qp in [flash_attention.bwd_smem_bytes(D)])
-          + (f"; {len(spills)} kernels, none spills" if spills
-             else "; already built, ptxas not rerun"))
+    hmma = hmma_count(infos["flash_attention_bwd"]["path"])
+    check(hmma is None or hmma > 0, "flash_attention_bwd.cu: no HMMA "
+          "(tensor-core) instruction in its SASS")
+    for dt, kind in ((torch.bfloat16, "bf16 tensor-core"),
+                     (torch.float32, "fp32 CUDA-core")):
+        print(f"[build]   flash attention backward ({kind} kernels): "
+              "dynamic shared memory a CTA " + "; ".join(
+                  f"D {D}: key pass {kv}, query pass {qp} bytes"
+                  for D in flash_attention.BWD_HEAD_DIMS
+                  for kv, qp in [flash_attention.bwd_smem_bytes(D, dt)]))
+    print("[build]   flash attention backward: "
+          + (f"{len(spills)} kernels, none spills" if spills
+             else "already built, ptxas not rerun")
+          + "; bf16 key-pass plan (splits, CTAs of "
+          f"{flash_attention.BWD_KEYS} keys): " + "; ".join(
+              f"{label} {splits}, "
+              f"{-(-S // flash_attention.BWD_KEYS) * Hkv * B * splits}"
+              for label, B, S, _, H, Hkv, D, _, _ in FLASH_BWD_ROWS
+              for splits in [flash_attention.bwd_plan(B, S, S, H, Hkv,
+                                                      D)]))
     print("[build]   grouped matmul: " + "; ".join(
         f"{str(dt)[6:]} C {C}: {moe_gmm.variant(dt, C)}"
         for dt in (torch.bfloat16, torch.float32) for C in (8, 16, 24, 320)))
@@ -4006,6 +4025,18 @@ FLASH_BWD_FAMILY_CASES = [
     ("whisper encoder, B 4, S 1500", 4, 1500, 1500, 20, 20, 64, False),
     ("whisper cross, B 4, 448 x 1500", 4, 448, 1500, 20, 20, 64, False),
     ("whisper decoder, B 4, S 448", 4, 448, 448, 20, 20, 64, True)]
+# row 11's bf16 shapes in phase 4 (label, B, Sq, Sk, H, Hkv, D, causal,
+# window): qwen2-0.5b's training shape, whisper-large-v3's encoder,
+# zamba2-2.7b's shared block and gemma3-1b's global and local layers
+FLASH_BWD_ROWS = [
+    ("qwen2-0.5b training, B 8, S 1024", 8, 1024, 1024, 14, 2, 64, True, 0),
+    ("whisper encoder, B 4, S 1500", 4, 1500, 1500, 20, 20, 64, False, 0),
+    ("zamba2 shared block, B 4, S 1024", 4, 1024, 1024, 32, 32, 80, True,
+     0),
+    ("gemma3-1b global layer, B 2, S 1024", 2, 1024, 1024, 4, 1, 256, True,
+     0),
+    ("gemma3-1b local layer, B 2, S 1024", 2, 1024, 1024, 4, 1, 256, True,
+     512)]
 TRAIN_PARITY = ("qwen2-0.5b", "gemma3-1b", "granite-moe-1b-a400m",
                 "qwen2-moe-a2.7b", "zamba2-2.7b", "xlstm-1.3b",
                 "whisper-large-v3")  # reduced, fp32
@@ -4271,21 +4302,7 @@ def phase_train_timing(smi: str) -> dict:
         want = flash_attention.flash_attention_bwd_ref(*args, **kw)
         err = hold_bwd(f"flash backward, {label}", got, want, dt)
         del got, want
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        mask = None
-        if window:
-            pos = torch.arange(S, device="cuda")
-            mask = (pos[None] <= pos[:, None]) & \
-                (pos[:, None] - pos[None] < window)
-        ot = F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-            enable_gqa=True)
-        dot = do.transpose(1, 2).contiguous()
-
-        def library(i=0, ot=ot, qt=qt, kt=kt, vt=vt, dot=dot):
-            torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
-
+        library = sdpa_backward(q, k, v, do, True, window)
         pairs = B * visible_pairs(S, S, True, window, None)
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
             + lse.numel() * 4
@@ -4304,7 +4321,7 @@ def phase_train_timing(smi: str) -> dict:
                 print(f"[timing] flash_attention forward ({label}) "
                       f"{'with' if with_lse else 'without'} lse: {ms:.4f} ms "
                       f"({smi})")
-        del args, q, k, v, o, lse, do, qt, kt, vt, ot
+        del args, q, k, v, o, lse, do, library
     for label, shape in (("qwen2-0.5b training", (8192, 896)),
                          ("gemma3-1b training", (8192, 1152)),
                          ("gemma3-1b qk-norm", (32768, 256))):
@@ -4405,14 +4422,7 @@ def time_family_backwards(smi: str) -> dict:
                        flash_attention.flash_attention_bwd_ref(*args, **kw),
                        dt)
         del got
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-        dot = do.transpose(1, 2).contiguous()
-
-        def library(i=0, ot=ot, qt=qt, kt=kt, vt=vt, dot=dot):
-            torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
-
+        library = sdpa_backward(q, k, v, do, causal, 0)
         pairs = B * visible_pairs(Sq, Sk, causal, 0, None)
         _time_bwd("flash_attention_bwd", f"{label}, heads {H}/{Hkv}, D {D}",
                   lambda i=0: flash_attention.flash_attention_bwd(*args,
@@ -4422,9 +4432,98 @@ def time_family_backwards(smi: str) -> dict:
                   (4 * q.numel() + 4 * k.numel()) * q.element_size()
                   + lse.numel() * 4, 5 * 2 * pairs * H * D, dt, smi, err,
                   device=False)
-        del args, q, k, v, o, lse, do, qt, kt, vt, ot
+        del args, q, k, v, o, lse, do, library
         torch.cuda.empty_cache()
+    compare_flash_bwd_parent(smi)
     return out
+
+
+def sdpa_backward(q, k, v, do, causal, window):
+    """One PyTorch call's backward at the flash backward's shape, its
+    yardstick (the port never calls it): ``torch.autograd.grad`` of
+    ``F.scaled_dot_product_attention`` on [B, H, S, D] copies
+    (``enable_gqa`` where H > Hkv; a window, Sq = Sk, as a boolean mask)."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    mask = None
+    if window:
+        pos = torch.arange(q.shape[1], device=q.device)
+        mask = (pos[None] <= pos[:, None]) & \
+            (pos[:, None] - pos[None] < window)
+    ot = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=q.shape[2] != k.shape[2])
+    dot = do.transpose(1, 2).contiguous()
+
+    def library(i=0):
+        torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    return library
+
+
+def flash_bwd_parent(q, k, v, o, lse, do, *, causal=True, window=0,
+                     q_offset=None):
+    """The bf16 flash backward's first version, the CUDA-core kernels the
+    tensor-core kernels replaced (``flash_attention_bwd_launch_cuda_cores``
+    in the same library): phase 4's yardstick, which the port never
+    calls."""
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rows = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    err = flash_attention._bwd_lib().flash_attention_bwd_launch_cuda_cores(
+        flash_attention.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq,
+        Sk, H, Hkv, D, int(causal), int(window),
+        int(flash_attention._offset(q, k, causal, q_offset)), D ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"the parent's flash backward: error {err}")
+    return dq, dk, dv
+
+
+def compare_flash_bwd_parent(smi: str):
+    """Phase 4's row-11 comparison: at each of FLASH_BWD_ROWS in bf16, the
+    parent's kernels (``flash_bwd_parent``) and the tensor-core kernels,
+    both first held to the plain backward within BWD_TOL, then by device
+    time (``device_ms``) in turn, parent, kernel, kernel, parent, beside
+    SDPA's backward's device time and the bound (5 products of the visible
+    pairs at the bf16 peak, or q, k, v, o, do, lse read and dq, dk, dv
+    written once)."""
+    dt = torch.bfloat16
+    for label, B, Sq, Sk, H, Hkv, D, causal, window in FLASH_BWD_ROWS:
+        args, kw = flash_bwd_inputs(B, Sq, Sk, H, Hkv, D, dt, window, None,
+                                    causal=causal)
+        q, k, v, o, lse, do = args
+        want = flash_attention.flash_attention_bwd_ref(*args, **kw)
+        for fn in (flash_bwd_parent, flash_attention.flash_attention_bwd):
+            hold_bwd(f"{fn.__name__}, {label}", fn(*args, **kw), want, dt)
+        del want
+
+        def kernel(i=0):
+            flash_attention.flash_attention_bwd(*args, **kw)
+
+        def parent(i=0):
+            flash_bwd_parent(*args, **kw)
+
+        ms = [device_ms(fn, 10) for fn in (parent, kernel, kernel, parent)]
+        lib_ms = device_ms(sdpa_backward(q, k, v, do, causal, window), 10)
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+            + lse.numel() * 4
+        nops = 5 * 2 * B * visible_pairs(Sq, Sk, causal, window, None) * H * D
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS_PER_S[dt]) * 1e3
+        old, new = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        print(f"[timing] flash_attention_bwd, row 11, {label} (heads "
+              f"{H}/{Hkv}, D {D}{f', window {window}' if window else ''}, "
+              f"splits {flash_attention.bwd_plan(B, Sq, Sk, H, Hkv, D)}), "
+              f"device time in turn: parent {ms[0]:.4f} ms, kernel "
+              f"{ms[1]:.4f} ms, kernel {ms[2]:.4f} ms, parent {ms[3]:.4f} "
+              f"ms ({old / new:.2f}x faster); SDPA backward {lib_ms:.4f} ms "
+              f"(the kernel {new / lib_ms:.2f}x it); bound {bound:.5f} ms, "
+              f"the kernel {bound / new:.2%} of it, the parent "
+              f"{bound / old:.2%} ({smi})")
+        del args, q, k, v, o, lse, do
+        torch.cuda.empty_cache()
 
 
 # the wrappers of the training path, each counting its forward launches
@@ -4629,7 +4728,9 @@ def phase_train(smi: str) -> dict:
 
 # each training wrapper's kernels as the profiler names them, and kernels
 # a counted call (bf16 at the training shapes: flash attention's tensor-core
-# kernel, the grouped matmul's monolithic tile, unsplit)
+# kernel, the grouped matmul's monolithic tile, unsplit; the flash
+# backward's three tensor-core passes, its key pass unsplit at every
+# trained shape: bwd_plan gives 1)
 KERNEL_MATCH = {"flash_attention": (("flash_attention_tc", "flash_fp32"), 1),
                 "flash_attention_bwd": (("flash_bwd_",), 3),
                 "rmsnorm": (("rmsnorm_kernel",), 1),

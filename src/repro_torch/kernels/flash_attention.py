@@ -61,6 +61,9 @@ MAX_SMEM_BYTES = 227 * 1024  # per-block dynamic shared memory on Hopper
 # cc::BN) and the most CTAs of a cluster that share a query tile's keys
 CC_ROWS, CC_KEYS, MAX_SPLITS = 32, 64, 8
 SMS = 132  # streaming multiprocessors of an H100 SXM (the plan fills them)
+# the bf16 backward's key pass (csrc/flash_attention_bwd.cu, tcb::Tc): keys
+# a CTA, and the most shares its (query head, query tile) walk is cut into
+BWD_KEYS, MAX_BWD_SPLITS = 64, 16
 
 
 def _offset(q, k, causal, q_offset):
@@ -195,6 +198,32 @@ def plan(B: int, Sq: int, Sk: int, H: int) -> int:
     return splits
 
 
+def bwd_rows(D: int) -> int:
+    """Query rows a step of the bf16 backward's key pass takes at head dim
+    D (``tcb::Tc<D>::KM``): 32 at D 128 and 256, where a warp's s, dp, dk
+    and dv must fit its registers, else 64."""
+    return 32 if D >= 128 else 64
+
+
+@functools.lru_cache(maxsize=1024)  # shapes vary with prompts
+def bwd_plan(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int) -> int:
+    """Splits of the bf16 backward's key pass, from the shapes alone: the
+    shares into which the walk of a key tile over its G query heads and
+    query tiles is cut, one CTA each, their fp32 partial dk and dv summed
+    in split order by a fourth kernel.  Doubled while the grid stays
+    within the card's ``SMS`` and each share keeps a step of the walk, up
+    to ``MAX_BWD_SPLITS``: gemma3-1b's training shape (B 2, S 1024, 4/1
+    heads of 256: 32 key-tile CTAs) 4 splits, 128 CTAs; qwen2-0.5b's (B 8,
+    14/2 heads: 256 CTAs) and whisper's (B 4, 20 kv heads) 1."""
+    base = -(-Sk // BWD_KEYS) * Hkv * B
+    walk = (H // Hkv) * -(-Sq // bwd_rows(D))
+    splits = 1
+    while (2 * splits <= min(walk, MAX_BWD_SPLITS)
+           and 2 * splits * base <= SMS):
+        splits *= 2
+    return splits
+
+
 def smem_bytes(D: int, dtype=torch.bfloat16) -> int:
     """Dynamic shared memory one CTA of the kernel that runs for ``dtype``
     and head dim D takes (from the built library)."""
@@ -295,27 +324,34 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
 def _bwd_lib():
     lib = build.load("flash_attention_bwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_bwd_launch.argtypes = (
-        [i32] + [ptr] * 10 + [i32] * 9 + [ctypes.c_float, ptr])
-    lib.flash_attention_bwd_launch.restype = i32
+    args = [i32] + [ptr] * 10 + [i32] * 9 + [ctypes.c_float]
+    lib.flash_attention_bwd_launch_split.argtypes = args + [i32, ptr, ptr]
+    lib.flash_attention_bwd_launch_split.restype = i32
+    # the first version's CUDA-core kernels for either dtype: the yardstick
+    # chip_smoke.py times beside the bf16 tensor-core kernels
+    lib.flash_attention_bwd_launch_cuda_cores.argtypes = args + [ptr]
+    lib.flash_attention_bwd_launch_cuda_cores.restype = i32
     lib.flash_attention_bwd_smem_bytes.argtypes = [i32, i32]
     lib.flash_attention_bwd_smem_bytes.restype = i32
     return lib
 
 
-def bwd_smem_bytes(D: int) -> tuple:
+def bwd_smem_bytes(D: int, dtype=torch.bfloat16) -> tuple:
     """Dynamic shared memory a CTA of the backward's key pass and query
-    pass takes at head dim D (from the built library)."""
-    lib = _bwd_lib()
-    return (lib.flash_attention_bwd_smem_bytes(0, D),
-            lib.flash_attention_bwd_smem_bytes(1, D))
+    pass takes at head dim D for ``dtype`` (bf16: the tensor-core kernels;
+    fp32: the CUDA-core kernels), from the built library."""
+    lib, base = _bwd_lib(), 2 * DTYPES[dtype]
+    return (lib.flash_attention_bwd_smem_bytes(base, D),
+            lib.flash_attention_bwd_smem_bytes(base + 1, D))
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, q_offset: int | None = None):
     """(dq, dk, dv) in q's type from the forward's inputs, output o and
     ``lse`` and the output's gradient ``do``: the plain version on the
-    CPU, the backward kernel on the card (or raises)."""
+    CPU, the backward kernel on the card (or raises): bf16 on the tensor
+    cores with the key pass split by ``bwd_plan``, fp32 on the CUDA
+    cores."""
     if on_cpu("flash attention backward", q, k, v, o, lse, do):
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, q_offset=q_offset)
@@ -337,14 +373,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     rows = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    splits = (bwd_plan(B, Sq, Sk, H, Hkv, D) if q.dtype == torch.bfloat16
+              else 1)
+    part = (torch.empty(2 * splits * k.numel(), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_lib().flash_attention_bwd_launch(
+        err = _bwd_lib().flash_attention_bwd_launch_split(
             DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), rows.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Hkv,
             D, int(bool(causal)), int(window),
-            int(_offset(q, k, causal, q_offset)), D ** -0.5, stream)
+            int(_offset(q, k, causal, q_offset)), D ** -0.5, splits,
+            None if part is None else part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: "
                            f"error {err}")
@@ -376,4 +417,5 @@ class FlashAttention(torch.autograd.Function):
 
 
 flash_attention.launches = 0  # forward kernel launches
-flash_attention.bwd_launches = 0  # backward calls (three kernels each)
+flash_attention.bwd_launches = 0  # backward calls (three kernels each, four
+# where bwd_plan splits the bf16 key pass)

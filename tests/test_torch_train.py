@@ -601,6 +601,12 @@ GPU_FLASH_CASES = [
     (2, 70, 70, 4, 2, 16, True, 0, None),
     (2, 40, 150, 4, 2, 32, True, 0, 100),
     (1, 33, 65, 4, 4, 64, False, 0, None),
+    # gemma3-1b's heads, whose bf16 key pass bwd_plan splits (4 and 16
+    # ways), local (window 512) and global
+    (2, 1024, 1024, 4, 1, 256, True, 512, None),
+    (1, 512, 512, 4, 1, 256, True, 0, None),
+    # one query tile shorter than a tile at D 256, windowed, at q_offset
+    (1, 20, 300, 4, 1, 256, True, 64, 280),
 ]
 
 
@@ -688,6 +694,30 @@ def test_backward_kernels_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 1024, 1024, 4, 1, 256, 512, 4),
+                                  (8, 1024, 1024, 14, 2, 64, 0, 1)])
+def test_flash_backward_bit_equal_without_sync(cuda, case):
+    """Two bf16 calls (gemma3-1b's heads, the key pass split 4 ways;
+    qwen2-0.5b's training shape, one split) give the same bits, with no
+    host sync (sync debug mode "error")."""
+    B, S, _, H, Hkv, D, window, splits = case
+    q, k, v, do = (_t(a, torch.bfloat16, cuda)
+                   for a in _flash_inputs(B, S, S, H, Hkv, D, seed=D))
+    o, lse = fa.flash_attention_fwd(q, k, v, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert fa.bwd_plan(B, S, S, H, Hkv, D) == splits
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

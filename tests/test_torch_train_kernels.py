@@ -312,10 +312,13 @@ def test_ssd_scan_backward_kernel(cuda, case, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", [(1, 300, 300, 4, 4, 80, True),
                                   (1, 200, 200, 4, 4, 64, False),
-                                  (1, 100, 300, 4, 4, 64, False)])
+                                  (1, 100, 300, 4, 4, 64, False),
+                                  (2, 256, 256, 8, 1, 80, True),
+                                  (1, 64, 1500, 2, 1, 64, False)])
 def test_flash_backward_kernel_new_shapes(cuda, case, dtype):
     """The flash backward kernel at D 80 and whisper's non-causal shapes
-    (Sk past the 64-key tile) against the plain backward."""
+    (Sk past the 64-key tile) against the plain backward; the last two
+    split the bf16 key pass (16 and 2 ways, ``bwd_plan``)."""
     B, Sq, Sk, H, Hkv, D, causal = case
     tdt = getattr(torch, dtype)
     rng = np.random.default_rng(D)
