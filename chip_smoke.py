@@ -1061,15 +1061,16 @@ def cuda_tool(name: str) -> "str | None":
     return tool if Path(tool).exists() else None
 
 
-def hmma_count(path) -> "int | None":
-    """HMMA (tensor-core) instructions in a built library's SASS, or None
-    where ``cuobjdump`` is not installed."""
+def hmma_count(path, op: str = "HMMA") -> "int | None":
+    """HMMA (``mma.sync``) or, with op "HGMMA", ``wgmma`` tensor-core
+    instructions in a built library's SASS, or None where ``cuobjdump`` is
+    not installed."""
     tool = cuda_tool("cuobjdump")
     if tool is None:
         return None
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
-    return sass.count("HMMA")
+    return sass.count(op)
 
 
 def kernel_names(mangled: list) -> list:
@@ -1261,16 +1262,47 @@ def phase_build():
         print(f"[build]   {name}: " + (
             f"{len(spills)} kernels, none spills" if spills
             else "already built, ptxas not rerun"))
-    hmma = hmma_count(infos["moe_gmm_bwd"]["path"])
-    check(hmma is None or hmma > 0,
-          "moe_gmm_bwd.cu: no HMMA (tensor-core) instruction in its SASS")
-    smem = scan_kernel.bwd_smem_bytes(64, 64)
-    print("[build]   ssd scan backward (fp32 CUDA-core products, blocks of "
+    path = infos["moe_gmm_bwd"]["path"]
+    hgmma, hmma = hmma_count(path, "HGMMA"), hmma_count(path)
+    check(hgmma is None or hgmma > 0, "moe_gmm_bwd.cu: no HGMMA (wgmma) "
+          "instruction in its SASS")
+    check(hmma is None or hmma > 0, "moe_gmm_bwd.cu: no HMMA (mma.sync) "
+          "instruction in its SASS (the unaligned rows' tiles)")
+    print(f"[build]   grouped matmul backward: {hgmma} HGMMA (wgmma) and "
+          f"{hmma} HMMA (mma.sync) instructions in its SASS; " + "; ".join(
+              f"{str(dt)[6:]} K {K}, N {N}{'' if al else ', unaligned base'}"
+              f": {moe_gmm.bwd_variant(dt, K, N, al)}"
+              for dt, K, N, al in ((torch.bfloat16, 1024, 512, True),
+                                   (torch.bfloat16, 70, 90, True),
+                                   (torch.bfloat16, 1024, 512, False),
+                                   (torch.float32, 1024, 512, True))))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print("[build]   grouped matmul backward, persistent schedule "
+          f"({moe_gmm.BWD_TILE[0]} x {moe_gmm.BWD_TILE[1]} tiles, steps of "
+          f"{moe_gmm.BWD_STEP}; dw tiles, then dx tiles): " + "; ".join(
+              f"{label} {len(tiles)} tiles ({n_dw} dw of {tiles[0].steps} "
+              f"steps), {moe_gmm.bwd_grid(E, C, K, N, sms)} CTAs"
+              for label, E, C, K, N in GMM_BWD_CASES[:3]
+              for tiles in [moe_gmm.bwd_tiles(E, C, K, N)]
+              for n_dw in [sum(t.out == "dw" for t in tiles)]))
+    hmma = hmma_count(infos["ssd_scan_bwd"]["path"])
+    check(hmma is None or hmma > 0, "ssd_scan_bwd.cu: no HMMA (tensor-core) "
+          "instruction in its SASS (the bf16 passes 1 and 3)")
+    print(f"[build]   ssd scan backward: {hmma} HMMA instructions in its "
+          "SASS; " + "; ".join(
+              f"{str(dt)[6:]} x, p {p}, n {n}: "
+              f"{scan_kernel.bwd_variant(dt, p, n)}"
+              for dt, p, n in ((torch.bfloat16, 64, 64),
+                               (torch.bfloat16, 80, 64),
+                               (torch.float32, 64, 64))))
+    print("[build]   ssd scan backward (blocks of "
           f"{scan_kernel.bwd_block(256)} tokens at chunk 256) at zamba2's p "
-          "64, n 64: dynamic "
-          "shared memory a CTA " + ", ".join(
-              f"{k} {v}" for k, v in smem.items()) + " bytes; scratch at "
-          f"B 4 x S 1024, 80 heads: "
+          "64, n 64: dynamic shared memory a CTA " + "; ".join(
+              f"{str(dt)[6:]} " + ", ".join(
+                  f"{k} {v}" for k, v in
+                  scan_kernel.bwd_smem_bytes(64, 64, dt).items())
+              for dt in (torch.bfloat16, torch.float32)) + " bytes; scratch "
+          "at B 4 x S 1024, 80 heads: "
           f"{scan_kernel.bwd_scratch_bytes(4, 1024, 80, 64, 64, 256)} "
           "bytes")
     hmma = hmma_count(infos["paged_verify"]["path"])
@@ -4003,11 +4035,14 @@ FLASH_BWD_CASES = [
 RMS_BWD_ROWS, RMS_BWD_WIDTHS = (1, 64, 8192), (896, 1152, 2048, 3072, 256)
 # the grouped-matmul backward (label, E, C, K, N): granite-moe-1b-a400m's
 # training capacity at B 8 x S 1024 (C 2560; gate/up and down),
-# qwen2-moe-a2.7b's expert shape at C 688, and a small C
+# qwen2-moe-a2.7b's expert shape at C 688, a small C, and rows that TMA
+# cannot describe (K 1020, N 510: not multiples of 16 bytes), which run
+# the mma.sync tiles
 GMM_BWD_CASES = [("granite-moe training gate/up", 32, 2560, 1024, 512),
                  ("granite-moe training down", 32, 2560, 512, 1024),
                  ("qwen2-moe expert shape", 60, 688, 2048, 1408),
-                 ("small C", 16, 8, 1024, 512)]
+                 ("small C", 16, 8, 1024, 512),
+                 ("rows not 16-byte aligned", 8, 320, 1020, 510)]
 # the SSD-scan backward (label, b, S, h, p, n, chunk, final-state
 # gradient): zamba2-2.7b's width at B 4 x S 256 and S 1024, and a ragged
 # last block with a final-state gradient
@@ -4178,7 +4213,8 @@ def compare_family_backwards() -> dict:
         x, w, dy = (torch.randn(s, device=dev, dtype=dt)
                     for s in ((E, C, K), (E, K, N), (E, C, N)))
         err = _hold_twice(
-            f"grouped matmul backward, {label} (E {E}, C {C}, K {K}, N {N})",
+            f"grouped matmul backward, {label} (E {E}, C {C}, K {K}, N {N}; "
+            f"{moe_gmm.bwd_variant(dt, K, N)})",
             lambda: moe_gmm.grouped_matmul_bwd(x, w, dy),
             lambda: moe_gmm.grouped_matmul_bwd_ref(x, w, dy), dt)
         worst["grouped_matmul_bwd"] = max(worst["grouped_matmul_bwd"], err)
@@ -4188,7 +4224,7 @@ def compare_family_backwards() -> dict:
         args = scan_bwd_inputs(b, S, h, p, n, dt, final)
         err = _hold_twice(
             f"ssd scan backward, {label} (b {b}, S {S}, {h} heads of {p}, "
-            f"state {n}, chunk {Q})",
+            f"state {n}, chunk {Q}; {scan_kernel.bwd_variant(dt, p, n)})",
             lambda: scan_kernel.ssd_scan_bwd(*args, chunk=Q),
             lambda: scan_kernel.ssd_scan_bwd_ref(*args, chunk=Q), dt)
         worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"], err)
@@ -4434,8 +4470,140 @@ def time_family_backwards(smi: str) -> dict:
                   device=False)
         del args, q, k, v, o, lse, do, library
         torch.cuda.empty_cache()
+    compare_gmm_bwd_parent(smi)
+    compare_scan_bwd_parent(smi)
     compare_flash_bwd_parent(smi)
     return out
+
+
+def gmm_bwd_parent(x, w, dy):
+    """The bf16 grouped-matmul backward's first version, the mma.sync tiles
+    the wgmma kernel replaced (``grouped_matmul_bwd_launch_mma_sync`` in
+    the same library, two kernels): phase 4's yardstick, which the port
+    never calls."""
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    E, C, K = x.shape
+    N = w.shape[2]
+    err = moe_gmm._bwd_lib().grouped_matmul_bwd_launch_mma_sync(
+        x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), E, C, K, N, moe_gmm._rows_aligned(x),
+        moe_gmm._rows_aligned(w), moe_gmm._rows_aligned(dy),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"the parent's grouped-matmul backward: error {err}")
+    return dx, dw
+
+
+def scan_bwd_parent(x, dt, a_neg, B, C, dy, dfinal=None, *, chunk):
+    """The bf16 SSD-scan backward's first version, the four CUDA-core passes
+    (``ssd_scan_bwd_launch_cuda_cores`` in the same library): phase 4's
+    yardstick, which the port never calls."""
+    b, S, h, p = x.shape
+    n = B.shape[-1]
+    Q = scan_kernel.chunk_length(S, chunk)
+    out = [torch.empty_like(t) for t in (x, dt, a_neg, B, C)]
+    scratch = torch.empty(scan_kernel.bwd_scratch_bytes(b, S, h, p, n, Q)
+                          // 4, dtype=torch.float32, device=x.device)
+    err = scan_kernel._bwd_lib().ssd_scan_bwd_launch_cuda_cores(
+        x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), B.data_ptr(),
+        C.data_ptr(), None, dy.data_ptr(),
+        None if dfinal is None else dfinal.data_ptr(),
+        *(t.data_ptr() for t in out), scratch.data_ptr(), b, S, h, p, n, Q,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"the parent's SSD-scan backward: error {err}")
+    return tuple(out)
+
+
+def _in_turn(label, kernel, parent, bound, library, smi):
+    """Device time (``device_ms``) of the parent and the kernel in turn,
+    parent, kernel, kernel, parent, beside ``library`` (one PyTorch call's
+    device time, or None) and the bound; prints one line and the kernel's
+    split by kernel; returns (kernel, parent) ms, each the mean of its
+    two readings."""
+    split: dict = {}
+    ms = [device_ms(fn, 10, split if fn is kernel else None)
+          for fn in (parent, kernel, kernel, parent)]
+    old, new = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+    lib = "" if library is None else (
+        f"; two torch.bmm {library:.4f} ms (the kernel {new / library:.2f}x "
+        "it)")
+    print(f"[timing] {label}, device time in turn: parent {ms[0]:.4f} ms, "
+          f"kernel {ms[1]:.4f} ms, kernel {ms[2]:.4f} ms, parent "
+          f"{ms[3]:.4f} ms ({old / new:.2f}x faster){lib}; bound "
+          f"{bound:.5f} ms, the kernel {bound / new:.2%} of it, the parent "
+          f"{bound / old:.2%} ({smi})")
+    print(f"[timing]   {label}, the kernel by kernel: " + "; ".join(
+        f"{_short(key)} {v:.4f} ms" for key, v in split.items()))
+    return new, old
+
+
+def compare_gmm_bwd_parent(smi: str):
+    """Phase 4's row-13 comparison: at each of the first three
+    GMM_BWD_CASES in bf16 (granite-moe's gate/up and down at C 2560,
+    qwen2-moe's expert shape), the parent's mma.sync tiles
+    (``gmm_bwd_parent``) and the wgmma kernel, both first held to the
+    plain backward within BWD_TOL, then by device time in turn beside the
+    two ``torch.bmm`` calls that compute dx and dw and the bound (4 E C K
+    N operations at the bf16 peak)."""
+    dt = torch.bfloat16
+    for label, E, C, K, N in GMM_BWD_CASES[:3]:
+        x, w, dy = (torch.randn(s, device="cuda", dtype=dt)
+                    for s in ((E, C, K), (E, K, N), (E, C, N)))
+        want = moe_gmm.grouped_matmul_bwd_ref(x, w, dy)
+        for fn in (gmm_bwd_parent, moe_gmm.grouped_matmul_bwd):
+            hold_bwd(f"{fn.__name__}, {label}", fn(x, w, dy), want, dt)
+        del want
+
+        def kernel(i=0):
+            moe_gmm.grouped_matmul_bwd(x, w, dy)
+
+        def parent(i=0):
+            gmm_bwd_parent(x, w, dy)
+
+        def bmm(i=0):
+            torch.bmm(dy, w.transpose(1, 2))
+            torch.bmm(x.transpose(1, 2), dy)
+
+        _in_turn(f"grouped_matmul_bwd, row 13, {label} (E {E}, C {C}, K {K},"
+                 f" N {N}, bf16; {moe_gmm.bwd_variant(dt, K, N)})", kernel,
+                 parent, 4 * E * C * K * N / PEAK_OPS_PER_S[dt] * 1e3,
+                 device_ms(bmm, 10), smi)
+        del x, w, dy
+        torch.cuda.empty_cache()
+
+
+def compare_scan_bwd_parent(smi: str):
+    """Phase 4's row-14 comparison: zamba2-2.7b's B 4 x S 1024 and S 256
+    (80 heads of 64, state 64, chunk 256, bf16 x), the parent's CUDA-core
+    passes (``scan_bwd_parent``) and the tensor-core passes, both first
+    held to the plain backward within BWD_TOL, then by device time in turn
+    beside the bound (``scan_bwd_ops`` at the bf16 peak, or the bytes); no
+    single PyTorch call computes it."""
+    dt = torch.bfloat16
+    for label, b, S, h, p, n, Q, final in (SCAN_BWD_CASES[1],
+                                           SCAN_BWD_CASES[0]):
+        args = scan_bwd_inputs(b, S, h, p, n, dt, final)
+        want = scan_kernel.ssd_scan_bwd_ref(*args, chunk=Q)
+        hold_bwd(f"the parent's SSD backward, {label}",
+                 scan_bwd_parent(*args, chunk=Q), want, dt)
+        hold_bwd(f"ssd_scan_bwd, {label}",
+                 scan_kernel.ssd_scan_bwd(*args, chunk=Q), want, dt)
+        del want
+
+        def kernel(i=0):
+            scan_kernel.ssd_scan_bwd(*args, chunk=Q)
+
+        def parent(i=0):
+            scan_bwd_parent(*args, chunk=Q)
+
+        nbytes = b * S * (h * p * (2 + 4 + 2) + h * (4 + 4) + 4 * n * 2)
+        bound = max(nbytes / HBM_BYTES_PER_S, scan_bwd_ops(b, S, h, p, n, Q)
+                    / PEAK_OPS_PER_S[dt]) * 1e3
+        _in_turn(f"ssd_scan_bwd, row 14, {label} ({h} heads of {p}, state "
+                 f"{n}, chunk {Q}, bf16 x; "
+                 f"{scan_kernel.bwd_variant(dt, p, n)})", kernel, parent,
+                 bound, None, smi)
+        del args
+        torch.cuda.empty_cache()
 
 
 def sdpa_backward(q, k, v, do, causal, window):
@@ -4730,13 +4898,15 @@ def phase_train(smi: str) -> dict:
 # a counted call (bf16 at the training shapes: flash attention's tensor-core
 # kernel, the grouped matmul's monolithic tile, unsplit; the flash
 # backward's three tensor-core passes, its key pass unsplit at every
-# trained shape: bwd_plan gives 1)
+# trained shape: bwd_plan gives 1; the grouped-matmul backward's one
+# persistent wgmma kernel, every trained shape's rows 16-byte aligned; the
+# SSD-scan backward's four passes)
 KERNEL_MATCH = {"flash_attention": (("flash_attention_tc", "flash_fp32"), 1),
                 "flash_attention_bwd": (("flash_bwd_",), 3),
                 "rmsnorm": (("rmsnorm_kernel",), 1),
                 "rmsnorm_bwd": (("rmsnorm_bwd",), 2),
                 "grouped_matmul": (("gmm_tiles", "gmm_small_c"), 1),
-                "grouped_matmul_bwd": (("gmm_bwd_",), 2),
+                "grouped_matmul_bwd": (("gmm_bwd_",), 1),
                 "ssd_scan": (("ssd_block_states", "ssd_state_passing",
                               "ssd_block_outputs"), 3),
                 "ssd_scan_bwd": (("ssd_bwd_",), 4)}

@@ -19,16 +19,21 @@ attribute (a plain integer).
 Training: where grad mode is on and x or w requires grad,
 ``grouped_matmul`` is the apply of ``GroupedMatmul``, a
 ``torch.autograd.Function`` whose backward is ``grouped_matmul_bwd``: the
-backward kernel ``csrc/moe_gmm_bwd.cu`` on CUDA tensors (counted in
+backward kernels ``csrc/moe_gmm_bwd.cu`` on CUDA tensors (counted in
 ``grouped_matmul.bwd_launches``), ``grouped_matmul_bwd_ref`` on CPU
 tensors.  It replaces XLA's autodiff of the JAX package's expert einsums
 (``repro/models/moe.py:128-146``): dx = dy w^T and dw = x^T dy per
 expert, in the inputs' type.  Elsewhere (serving, ``no_grad``) nothing
-is saved and no graph is built.
+is saved and no graph is built.  Which backward kernel runs is chosen by
+the dtype and by whether TMA can describe every operand's rows
+(``bwd_variant``): bf16 with 16-byte-aligned rows runs one persistent
+``wgmma`` kernel fed by TMA over the tiles of ``bwd_tiles`` (dw's, then
+dx's); other bf16 rows the ``mma.sync`` tiles; fp32 the CUDA cores.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -155,17 +160,76 @@ def grouped_matmul_fwd(x, w):
 def _bwd_lib():
     lib = build.load("moe_gmm_bwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.grouped_matmul_bwd_launch.argtypes = ([i32] + [ptr] * 5 + [i32] * 7
+    lib.grouped_matmul_bwd_launch.argtypes = ([i32] + [ptr] * 5 + [i32] * 8
                                               + [ptr])
     lib.grouped_matmul_bwd_launch.restype = i32
+    lib.grouped_matmul_bwd_launch_mma_sync.argtypes = ([ptr] * 5 + [i32] * 7
+                                                       + [ptr])
+    lib.grouped_matmul_bwd_launch_mma_sync.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# the persistent kernel's output tile [rows, columns] and reduction step
+BWD_TILE, BWD_STEP = (128, 256), 64
+
+
+def bwd_variant(dtype, K: int, N: int, aligned: bool = True) -> str:
+    """The backward kernel that runs for ``dtype`` and rows of K and N
+    elements (``aligned``: the three operands' bases on 16-byte
+    boundaries, as every fresh allocation is): TMA describes a bf16 row
+    whose stride is a multiple of 16 bytes."""
+    if dtype == torch.float32:
+        return "fp32 CUDA cores (two kernels)"
+    if aligned and K % 8 == 0 and N % 8 == 0:
+        return "wgmma + TMA, persistent (one kernel)"
+    return "mma.sync tiles (rows not 16-byte aligned; two kernels)"
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdTile:
+    """One output tile of the persistent kernel: ``out`` ("dw" or "dx")
+    of ``expert``, rows ``row`` .., columns ``col`` .., summed in
+    ``steps`` reduction steps of BWD_STEP."""
+    out: str
+    expert: int
+    row: int
+    col: int
+    steps: int
+
+
+def bwd_tiles(E: int, C: int, K: int, N: int) -> list:
+    """The persistent kernel's tile list in its order (``Sched`` in
+    ``csrc/moe_gmm_bwd.cu``): every dw tile ([K, N] per expert, rows
+    before columns, C / 64 steps), expert by expert, then every dx tile
+    ([C, K], N / 64 steps).  CTA i of ``bwd_grid`` takes tiles i, i +
+    grid, ..."""
+    tm, tn = BWD_TILE
+    out = []
+    for name, rows, cols, red in (("dw", K, N, C), ("dx", C, K, N)):
+        for e in range(E):
+            for r in range(0, rows, tm):
+                for c in range(0, cols, tn):
+                    out.append(BwdTile(name, e, r, c, -(-red // BWD_STEP)))
+    return out
+
+
+def bwd_grid(E: int, C: int, K: int, N: int, sms: int) -> int:
+    """The persistent kernel's CTAs: one an SM, at most one a tile."""
+    tm, tn = BWD_TILE
+    tiles = E * (-(-K // tm) * -(-N // tn) + -(-C // tm) * -(-K // tn))
+    return min(tiles, sms)
 
 
 def grouped_matmul_bwd(x, w, dy):
     """(dx [E, C, K], dw [E, K, N]) in the inputs' type from the forward's
     operands and the output's gradient ``dy`` [E, C, N] (x's type): the
     plain version on the CPU, the backward kernels on the card (or
-    raises)."""
+    raises; ``bwd_variant`` names the kernel)."""
     if on_cpu("grouped_matmul backward", x, w, dy):
         return grouped_matmul_bwd_ref(x, w, dy)
     _check(x, w)
@@ -186,7 +250,8 @@ def grouped_matmul_bwd(x, w, dy):
         err = _bwd_lib().grouped_matmul_bwd_launch(
             DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), dy.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), E, C, K, N, _rows_aligned(x),
-            _rows_aligned(w), _rows_aligned(dy), stream)
+            _rows_aligned(w), _rows_aligned(dy), _sms(x.device.index),
+            stream)
     if err != 0:
         raise RuntimeError(f"grouped_matmul backward kernel launch failed: "
                            f"error {err}")
@@ -210,4 +275,4 @@ class GroupedMatmul(torch.autograd.Function):
 
 
 grouped_matmul.launches = 0  # forward kernel launches
-grouped_matmul.bwd_launches = 0  # backward calls (two kernels each)
+grouped_matmul.bwd_launches = 0  # backward calls (one or two kernels)

@@ -34,11 +34,15 @@ whose backward is ``ssd_scan_bwd``: the backward kernels
 ``csrc/ssd_scan_bwd.cu`` on CUDA tensors (counted in
 ``ssd_scan.bwd_launches``), ``ssd_scan_bwd_ref`` on CPU tensors.  It
 replaces XLA's autodiff of the JAX package's ``ssd_chunked``
-(``repro/models/mamba2.py:51``).  The Function saves the forward's inputs
-and nothing else: the backward recomputes the states it needs, and the
-forward runs the serving kernels with their own scratch, unchanged.  The
-initial state is not differentiated (no training path passes one,
-ROADMAP item 18): a gradient asked through it raises NotImplementedError.
+(``repro/models/mamba2.py:51``).  bf16 x with p and n up to 64 runs the
+block terms and block gradients on the tensor cores, each fp32 factor
+split into bf16 hi + lo against the exact bf16 operand; fp32 x, and bf16
+past 64, the CUDA-core passes (``bwd_variant``).  The Function saves the
+forward's inputs and nothing else: the backward recomputes the states it
+needs, and the forward runs the serving kernels with their own scratch,
+unchanged.  The initial state is not differentiated (no training path
+passes one, ROADMAP item 18): a gradient asked through it raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -405,8 +409,13 @@ def _bwd_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ssd_scan_bwd_launch.argtypes = [i32] + [ptr] * 14 + [i32] * 6 + [ptr]
     lib.ssd_scan_bwd_launch.restype = i32
-    lib.ssd_scan_bwd_smem_bytes.argtypes = [i32] * 3
+    lib.ssd_scan_bwd_launch_cuda_cores.argtypes = [ptr] * 14 + [i32] * 6 \
+        + [ptr]
+    lib.ssd_scan_bwd_launch_cuda_cores.restype = i32
+    lib.ssd_scan_bwd_smem_bytes.argtypes = [i32] * 4
     lib.ssd_scan_bwd_smem_bytes.restype = i32
+    lib.ssd_scan_bwd_tensor_cores.argtypes = [i32] * 2
+    lib.ssd_scan_bwd_tensor_cores.restype = i32
     lib.ssd_scan_bwd_scratch_bytes.argtypes = [i32] * 6
     lib.ssd_scan_bwd_scratch_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_bwd_block.argtypes = []
@@ -414,7 +423,28 @@ def _bwd_lib():
     if lib.ssd_scan_bwd_block() != BLOCK:
         raise RuntimeError("ssd_scan backward: the library's block differs "
                            "from the plan's")
+    if lib.ssd_scan_bwd_tensor_cores(BWD_TC_MAX, BWD_TC_MAX) != 1 or \
+            lib.ssd_scan_bwd_tensor_cores(BWD_TC_MAX + 1, 16) != 0:
+        raise RuntimeError("ssd_scan backward: the library's tensor-core "
+                           "limit differs from bwd_variant's")
     return lib
+
+
+BWD_TC_MAX = 64  # p and n (rounded up to 16) the tensor-core passes take
+
+
+def bwd_variant(dtype, p: int, n: int) -> str:
+    """The backward kernels that run for x's ``dtype``, head dim p and
+    state n: bf16 with p and n (rounded up to 16) at most BWD_TC_MAX runs
+    passes 1 and 3 on the tensor cores; other bf16 shapes and fp32 the
+    CUDA-core passes."""
+    tc = -(-p // 16) * 16 <= BWD_TC_MAX and -(-n // 16) * 16 <= BWD_TC_MAX
+    if dtype == torch.bfloat16 and tc:
+        return ("tensor cores (mma.sync; fp32 factors as bf16 hi + lo), "
+                "four passes")
+    if dtype == torch.bfloat16:
+        return "fp32 CUDA cores, four passes (p or n past 64)"
+    return "fp32 CUDA cores, four passes"
 
 
 def bwd_block(Q: int) -> int:
@@ -434,12 +464,13 @@ def bwd_scratch_bytes(b: int, S: int, h: int, p: int, n: int,
     return 4 * (2 * b * nb * h * p * n + 2 * b * nb * h + 2 * b * S * h * n)
 
 
-def bwd_smem_bytes(p: int, n: int) -> dict:
+def bwd_smem_bytes(p: int, n: int, dtype=torch.bfloat16) -> dict:
     """Dynamic shared memory one CTA of the backward's block-terms pass and
-    block-gradients pass takes (from the built library)."""
-    lib = _bwd_lib()
-    return {"block terms": lib.ssd_scan_bwd_smem_bytes(1, p, n),
-            "block gradients": lib.ssd_scan_bwd_smem_bytes(3, p, n)}
+    block-gradients pass takes for x's ``dtype`` (from the built
+    library)."""
+    lib, code = _bwd_lib(), DTYPES[dtype]
+    return {"block terms": lib.ssd_scan_bwd_smem_bytes(code, 1, p, n),
+            "block gradients": lib.ssd_scan_bwd_smem_bytes(code, 3, p, n)}
 
 
 def ssd_scan_bwd(x, dt, a_neg, B, C, dy, dfinal=None, *, chunk: int = 256,
@@ -447,9 +478,10 @@ def ssd_scan_bwd(x, dt, a_neg, B, C, dy, dfinal=None, *, chunk: int = 256,
     """(dx in x's type, ddt [b,S,h] fp32, da_neg [h] fp32, dB, dC in B's
     type) from the forward's inputs, y's gradient ``dy`` [b,S,h,p] fp32 and
     the final state's ``dfinal`` [b,h,p,n] fp32 (None: zeros): the plain
-    version on the CPU, the backward kernels on the card (or raises).  The
-    kernels cut the sequence into blocks of ``bwd_block(Q)`` tokens (the
-    same function as the plain version's chunks of Q)."""
+    version on the CPU, the backward kernels on the card (or raises;
+    ``bwd_variant`` names them).  The kernels cut the sequence into blocks
+    of ``bwd_block(Q)`` tokens (the same function as the plain version's
+    chunks of Q)."""
     b, S, h, p = x.shape
     Q = chunk_length(S, chunk)
     tensors = (x, dt, a_neg, B, C, dy) + tuple(
@@ -466,7 +498,7 @@ def ssd_scan_bwd(x, dt, a_neg, B, C, dy, dfinal=None, *, chunk: int = 256,
                              f"{tuple(t.shape)} must be fp32 {shape} and "
                              "contiguous")
     lib = _bwd_lib()
-    smem = max(bwd_smem_bytes(p, n).values())
+    smem = max(bwd_smem_bytes(p, n, x.dtype).values())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"ssd_scan backward: p {p}, n {n} need {smem} "
                          f"bytes of shared memory, over {MAX_SMEM_BYTES}")
