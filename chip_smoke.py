@@ -36,7 +36,9 @@ exits non-zero without printing a result:
      (HMMA instructions in its SASS: the bf16 kernels' tensor-core
      products), whose passes' shared memory at every head dim in bf16 and
      fp32 and whose key-pass split plan (``bwd_plan``) at its phase-4
-     shapes it prints beside the RMSNorm backward's plan, nor in the
+     shapes it prints, nor in the RMSNorm backward (its kernel,
+     ``bwd_variant``, and its plan, ``bwd_plan``, at row 12's trained
+     shapes and one row, bf16 and fp32), nor in the
      grouped-matmul backward (HMMA instructions in its SASS) or the
      SSD-scan backward, whose passes' shared memory and scratch at
      zamba2's width it prints);
@@ -86,8 +88,10 @@ exits non-zero without printing a result:
      llama3.2-3b's (24/8 of 128), gemma3-1b's local (window 512) and
      global layers (4/1 of 256), a ragged S, a suffix at a q_offset and
      the reduced configs' D 16, with the forward's lse against the plain
-     version's; the RMSNorm backward at rows 1-8192 for widths 896, 1152,
-     2048, 3072 and 256, zero-centred or not; the new families'
+     version's; the RMSNorm backward at rows 1-8192 for widths 896, 1024,
+     1152, 2048, 2560, 3072, 4096, 5120 and 256 and at rows that no grid
+     divides (8191 x 896 in registers, 333 x 16392 in the first version),
+     zero-centred or not; the new families'
      backwards (``compare_family_backwards``): the grouped-matmul
      backward at granite-moe-1b-a400m's training capacity (C 2560, gate/up
      and down), qwen2-moe-a2.7b's expert shape and a small C, the SSD-scan
@@ -122,8 +126,9 @@ exits non-zero without printing a result:
      time and by pass, which no single PyTorch call computes; the
      flash-attention backward at qwen2-0.5b's training shape (B 8, S 1024;
      also by device time) and gemma3-1b's layers against SDPA's backward,
-     the RMSNorm backward at [8192, 896] (also by device time), [8192,
-     1152] and [32768, 256] against ``F.rms_norm``'s, and the forward
+     the RMSNorm backward at row 12's eight trained shapes
+     (``RMS_BWD_SHAPES``, also by device time) against ``F.rms_norm``'s
+     backward, and the forward
      kernel without and with its lse; the grouped-matmul forward at
      granite-moe's training C 2560; the grouped-matmul backward at C 2560
      (also by device time) and qwen2-moe's shape against the two
@@ -133,7 +138,9 @@ exits non-zero without printing a result:
      encoder shape against SDPA's backward; then the bf16 flash backward
      at each of those shapes by device time beside the CUDA-core
      kernels it replaced (``flash_bwd_parent``), run in turn
-     (parent, kernel, kernel, parent), with SDPA's backward),
+     (parent, kernel, kernel, parent), with SDPA's backward, and the
+     RMSNorm backward at [8192, 896] and [4096, 5120] beside its first
+     version (``rms_bwd_parent``) in turn, with ``F.rms_norm``'s),
      beside the least time the card could take,
      and the kernel held to its plain version there;
   5. the text path: qwen2-0.5b at full width, cut to its first
@@ -286,7 +293,8 @@ exits non-zero without printing a result:
      gradients twice bit-equal, every leaf's gradient finite and nonzero
      (but whisper's key biases, exactly zero), step p50, tokens a second,
      MFU, peak memory, and one step under ``torch.profiler`` with each
-     wrapper's counted kernels beside the profiler's;
+     wrapper's counted kernels beside the profiler's (the RMSNorm
+     backward's device time in each family's step among them);
  12. one JSON line for the kernels (each with its device time and the
      library call's at its phase-4 shape beside the contract's keys, and
      the launches of phase 9f's and phase 11's runs by path; the four
@@ -1163,11 +1171,23 @@ def phase_build():
     print("[build]   rmsnorm: " + (
         f"{len(spills)} instantiations, none spills" if spills
         else "already built, ptxas not rerun"))
-    print("[build]   rmsnorm backward plan (CTAs, warps a CTA; one warp a "
-          "row): " + "; ".join(f"[{rows}, {d}] {rms_kernel.bwd_plan(rows, d)}"
-                              for rows, d in ((8192, 896), (8192, 1152),
-                                              (32768, 256), (8192, 3072),
-                                              (1, 896))))
+    for dt in (torch.bfloat16, torch.float32):
+        print(f"[build]   rmsnorm backward, {str(dt)[6:]} (plan: CTAs, "
+              "threads a row, rows a CTA at once, vectors a thread): "
+              + "; ".join(f"{label} [{rows}, {d}] "
+                          f"{tuple(rms_kernel.bwd_plan(rows, d, dt))}"
+                          for label, rows, d in RMS_BWD_SHAPES
+                          + [("one row", 1, 896)])
+              + "; every one " + rms_kernel.bwd_variant(1, 896, dt)
+              + "; past 8 vectors x 256 threads a row (16392 bf16): "
+              + rms_kernel.bwd_variant(1, 16392, dt))
+    bwd = [(name, n) for name, _, n in spills if "rmsnorm_bwd" in name]
+    check(bool(bwd) or not spills, "rmsnorm.cu: no backward kernel in "
+          "ptxas's output")
+    print("[build]   rmsnorm backward: " + (
+        f"{len(bwd)} instantiations (rows kernel, dscale kernel, first "
+        "version), none spills" if bwd else "already built, ptxas not "
+        "rerun"))
     spills = ptxas_spills(infos["flash_attention_bwd"]["ptxas"])
     spilled = [f"{name} ({n} bytes)" for name, D, n in spills if n]
     check(not spilled, "flash_attention_bwd.cu: register spills: "
@@ -4030,9 +4050,23 @@ FLASH_BWD_CASES = [
     ("reduced configs' D 16", 2, 64, 64, 4, 2, 16, 0, None),
     ("reduced gemma3-1b window 32", 2, 64, 64, 4, 1, 16, 32, None),
 ]
-# RMSNorm backward: rows x (qwen2-0.5b 896, gemma3-1b 1152, 2048,
+# RMSNorm backward: rows x (qwen2-0.5b 896, granite-moe-1b-a400m 1024,
+# gemma3-1b 1152, xlstm-1.3b 2048 and 4096, zamba2-2.7b 2560 and 5120,
 # llama3.2-3b 3072, gemma3-1b's qk-norm 256)
-RMS_BWD_ROWS, RMS_BWD_WIDTHS = (1, 64, 8192), (896, 1152, 2048, 3072, 256)
+RMS_BWD_ROWS = (1, 64, 8192)
+RMS_BWD_WIDTHS = (896, 1024, 1152, 2048, 2560, 3072, 4096, 5120, 256)
+# and rows that no grid divides, one case a kernel (bwd_variant): the
+# register design at qwen2-0.5b's width, the first version past 8 vectors
+# x 256 threads a row
+RMS_BWD_RAGGED = ((8191, 896), (333, 16392))
+# row 12's shapes in phase 4 (label, rows, d), bf16: the trained norms at
+# B 8 x S 1024 (qwen2-0.5b, granite-moe-1b-a400m, gemma3-1b and its qk-norm
+# rows), zamba2-2.7b's at B 4 x S 1024 (the Mamba2 norms; the shared
+# block's ln1 over cat([x, x0])) and xlstm-1.3b's at B 4 x S 512
+RMS_BWD_SHAPES = [("qwen2-0.5b", 8192, 896), ("granite-moe", 8192, 1024),
+                  ("gemma3-1b", 8192, 1152), ("gemma3-1b qk-norm", 32768, 256),
+                  ("zamba2", 4096, 2560), ("zamba2 cat", 4096, 5120),
+                  ("xlstm d_in", 2048, 4096), ("xlstm", 2048, 2048)]
 # the grouped-matmul backward (label, E, C, K, N): granite-moe-1b-a400m's
 # training capacity at B 8 x S 1024 (C 2560; gate/up and down),
 # qwen2-moe-a2.7b's expert shape at C 688, a small C, and rows that TMA
@@ -4160,9 +4194,11 @@ def phase_train_compare() -> dict:
               "bit-equal")
         del args, got, again, want
     errs = []
-    for rows, d, zc, dt in itertools.product(
-            RMS_BWD_ROWS, RMS_BWD_WIDTHS, (False, True),
-            (torch.bfloat16, torch.float32)):
+    cases = list(itertools.product(RMS_BWD_ROWS, RMS_BWD_WIDTHS))
+    for rows, d, zc, dt in [
+            (rows, d, zc, dt) for rows, d in cases + list(RMS_BWD_RAGGED)
+            for zc in (False, True)
+            for dt in (torch.bfloat16, torch.float32)]:
         x = torch.randn(rows, d, device="cuda", dtype=dt)
         dy = torch.randn(rows, d, device="cuda", dtype=dt)
         s = (1 + 0.5 * torch.randn(d, device="cuda")).to(dt)
@@ -4176,9 +4212,12 @@ def phase_train_compare() -> dict:
         worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], err)
         errs.append(max(rel_err(a, w) for a, w in zip(got, want)))
     print(f"[compare] rmsnorm backward: {len(errs)} cases (rows "
-          f"{RMS_BWD_ROWS}, d {RMS_BWD_WIDTHS}, zero-centred or not, bf16 "
-          f"and fp32), dx and dscale within {max(errs):.2e} of the largest "
-          "magnitude; two calls bit-equal")
+          f"{RMS_BWD_ROWS}, d {RMS_BWD_WIDTHS}, and [rows, d] "
+          f"{RMS_BWD_RAGGED}, whose rows no grid divides: "
+          + ", ".join(rms_kernel.bwd_variant(r, d, torch.bfloat16)
+                      for r, d in RMS_BWD_RAGGED)
+          + "; zero-centred or not, bf16 and fp32), dx and dscale within "
+          f"{max(errs):.2e} of the largest magnitude; two calls bit-equal")
     for name, err in compare_family_backwards().items():
         worst[name] = max(worst.get(name, 0.0), err)
     return worst
@@ -4358,29 +4397,21 @@ def phase_train_timing(smi: str) -> dict:
                       f"{'with' if with_lse else 'without'} lse: {ms:.4f} ms "
                       f"({smi})")
         del args, q, k, v, o, lse, do, library
-    for label, shape in (("qwen2-0.5b training", (8192, 896)),
-                         ("gemma3-1b training", (8192, 1152)),
-                         ("gemma3-1b qk-norm", (32768, 256))):
+    for label, rows, d in RMS_BWD_SHAPES:
         dt = torch.bfloat16
-        x = torch.randn(shape, device="cuda", dtype=dt)
-        dy = torch.randn(shape, device="cuda", dtype=dt)
-        s = (1 + 0.5 * torch.randn(shape[-1], device="cuda")).to(dt)
+        x, s, dy = rms_bwd_inputs(rows, d, dt)
         got = rms_kernel.rmsnorm_bwd(x, s, dy)
         err = hold_bwd(f"rmsnorm backward, {label}", got,
                        rms_kernel.rmsnorm_bwd_ref(x, s, dy), dt)
-        xl, sl = x.clone().requires_grad_(), s.clone().requires_grad_()
-        yl = F.rms_norm(xl, (shape[-1],), weight=sl, eps=1e-6)
-
-        def library(i=0, yl=yl, xl=xl, sl=sl, dy=dy):
-            torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True)
-
         row = _time_bwd(
-            "rmsnorm_bwd", f"{label} {list(shape)} bf16",
+            "rmsnorm_bwd", f"{label} [{rows}, {d}] bf16, plan "
+            f"{tuple(rms_kernel.bwd_plan(rows, d, dt))}",
             lambda i=0: rms_kernel.rmsnorm_bwd(x, s, dy),
-            lambda i=0: rms_kernel.rmsnorm_bwd_ref(x, s, dy), library,
-            3 * x.numel() * x.element_size() + 2 * s.numel() * 2,
-            10 * x.numel(), dt, smi, err, device=shape == (8192, 896))
+            lambda i=0: rms_kernel.rmsnorm_bwd_ref(x, s, dy),
+            rms_norm_backward(x, s, dy), rms_bwd_bytes(x, s),
+            10 * x.numel(), dt, smi, err, device=True)
         out.setdefault("rmsnorm_bwd", row)
+        del x, s, dy, got
     out.update(time_family_backwards(smi))
     return out
 
@@ -4473,6 +4504,8 @@ def time_family_backwards(smi: str) -> dict:
     compare_gmm_bwd_parent(smi)
     compare_scan_bwd_parent(smi)
     compare_flash_bwd_parent(smi)
+    with timed("timing: rmsnorm backward against its parent"):
+        compare_rmsnorm_bwd_parent(smi)
     return out
 
 
@@ -4513,18 +4546,19 @@ def scan_bwd_parent(x, dt, a_neg, B, C, dy, dfinal=None, *, chunk):
     return tuple(out)
 
 
-def _in_turn(label, kernel, parent, bound, library, smi):
+def _in_turn(label, kernel, parent, bound, library, smi,
+             library_name="two torch.bmm"):
     """Device time (``device_ms``) of the parent and the kernel in turn,
     parent, kernel, kernel, parent, beside ``library`` (one PyTorch call's
-    device time, or None) and the bound; prints one line and the kernel's
-    split by kernel; returns (kernel, parent) ms, each the mean of its
-    two readings."""
+    device time, or None; ``library_name`` names it) and the bound; prints
+    one line and the kernel's split by kernel; returns (kernel, parent)
+    ms, each the mean of its two readings."""
     split: dict = {}
     ms = [device_ms(fn, 10, split if fn is kernel else None)
           for fn in (parent, kernel, kernel, parent)]
     old, new = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
     lib = "" if library is None else (
-        f"; two torch.bmm {library:.4f} ms (the kernel {new / library:.2f}x "
+        f"; {library_name} {library:.4f} ms (the kernel {new / library:.2f}x "
         "it)")
     print(f"[timing] {label}, device time in turn: parent {ms[0]:.4f} ms, "
           f"kernel {ms[1]:.4f} ms, kernel {ms[2]:.4f} ms, parent "
@@ -4534,6 +4568,77 @@ def _in_turn(label, kernel, parent, bound, library, smi):
     print(f"[timing]   {label}, the kernel by kernel: " + "; ".join(
         f"{_short(key)} {v:.4f} ms" for key, v in split.items()))
     return new, old
+
+
+def rms_bwd_inputs(rows, d, dt):
+    """x, the scale (1 + 0.5 N(0, 1)) and dy on the card, in ``dt``."""
+    x = torch.randn(rows, d, device="cuda", dtype=dt)
+    dy = torch.randn(rows, d, device="cuda", dtype=dt)
+    return x, (1 + 0.5 * torch.randn(d, device="cuda")).to(dt), dy
+
+
+def rms_bwd_bytes(x, s) -> int:
+    """The RMSNorm backward's bytes: x and dy read, dx written, the scale
+    read and dscale written, once each."""
+    return 3 * x.numel() * x.element_size() + 2 * s.numel() * s.element_size()
+
+
+def rms_norm_backward(x, s, dy):
+    """One PyTorch call's backward at the RMSNorm backward's shape, its
+    yardstick (the port never calls it): ``torch.autograd.grad`` of
+    ``F.rms_norm`` (the same eps) for x and the weight."""
+    xl, sl = x.clone().requires_grad_(), s.clone().requires_grad_()
+    yl = F.rms_norm(xl, (x.shape[-1],), weight=sl, eps=1e-6)
+
+    def library(i=0):
+        torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True)
+
+    return library
+
+
+def rms_bwd_parent(x, s, dy, zero_centered=False):
+    """The RMSNorm backward's first version at any width (one warp a row,
+    two walks; ``rmsnorm_bwd_launch_first`` in the same library, with
+    ``first_plan``): phase 4's yardstick, which the port's main path never
+    calls."""
+    dx, ds = torch.empty_like(x), torch.empty_like(s)
+    rows, d = x.shape
+    err = rms_kernel._bwd_first(x, s, dy, dx, ds,
+                                rms_kernel.first_plan(rows, d, x.dtype),
+                                1e-6, zero_centered)
+    check(err == 0, f"the parent's RMSNorm backward: error {err}")
+    return dx, ds
+
+
+def compare_rmsnorm_bwd_parent(smi: str):
+    """Phase 4's row-12 comparison: at qwen2-0.5b's [8192, 896] and
+    zamba2-2.7b's [4096, 5120] in bf16, the first version
+    (``rms_bwd_parent``) and the kernel, both first held to the plain
+    backward within BWD_TOL, then by device time in turn beside
+    ``F.rms_norm``'s backward's device time and the bound (``rms_bwd_bytes``
+    at 3.35 TB/s)."""
+    dt = torch.bfloat16
+    for label, rows, d in (RMS_BWD_SHAPES[0], RMS_BWD_SHAPES[5]):
+        x, s, dy = rms_bwd_inputs(rows, d, dt)
+        want = rms_kernel.rmsnorm_bwd_ref(x, s, dy)
+        for fn in (rms_bwd_parent, rms_kernel.rmsnorm_bwd):
+            hold_bwd(f"{fn.__name__}, {label}", fn(x, s, dy), want, dt)
+        del want
+
+        def kernel(i=0):
+            rms_kernel.rmsnorm_bwd(x, s, dy)
+
+        def parent(i=0):
+            rms_bwd_parent(x, s, dy)
+
+        _in_turn(f"rmsnorm_bwd, row 12, {label} [{rows}, {d}] (bf16; "
+                 f"{rms_kernel.bwd_variant(rows, d, dt)}, plan "
+                 f"{tuple(rms_kernel.bwd_plan(rows, d, dt))})", kernel,
+                 parent, rms_bwd_bytes(x, s) / HBM_BYTES_PER_S * 1e3,
+                 device_ms(rms_norm_backward(x, s, dy), 10), smi,
+                 library_name="F.rms_norm's backward")
+        del x, s, dy
+        torch.cuda.empty_cache()
 
 
 def compare_gmm_bwd_parent(smi: str):
@@ -4898,9 +5003,10 @@ def phase_train(smi: str) -> dict:
 # a counted call (bf16 at the training shapes: flash attention's tensor-core
 # kernel, the grouped matmul's monolithic tile, unsplit; the flash
 # backward's three tensor-core passes, its key pass unsplit at every
-# trained shape: bwd_plan gives 1; the grouped-matmul backward's one
-# persistent wgmma kernel, every trained shape's rows 16-byte aligned; the
-# SSD-scan backward's four passes)
+# trained shape: bwd_plan gives 1; the RMSNorm backward's rows kernel and
+# its dscale kernel, every trained width held in registers; the
+# grouped-matmul backward's one persistent wgmma kernel, every trained
+# shape's rows 16-byte aligned; the SSD-scan backward's four passes)
 KERNEL_MATCH = {"flash_attention": (("flash_attention_tc", "flash_fp32"), 1),
                 "flash_attention_bwd": (("flash_bwd_",), 3),
                 "rmsnorm": (("rmsnorm_kernel",), 1),

@@ -19,15 +19,19 @@ attribute (a plain integer).
 
 Training: where grad mode is on and x or the scale requires grad,
 ``rmsnorm`` is the apply of ``RMSNorm``, a ``torch.autograd.Function``
-whose backward is ``rmsnorm_bwd``: the backward kernel on CUDA tensors
-(counted in ``rmsnorm.bwd_launches``), ``rmsnorm_bwd_ref`` on CPU
-tensors.  It replaces XLA's autodiff of the JAX package's ``lm._norm``
-and ``_head_rms``: dx in x's type, dscale in the scale's.
+whose backward is ``rmsnorm_bwd``: the backward kernels on CUDA tensors
+(counted in ``rmsnorm.bwd_launches``, one a call), ``rmsnorm_bwd_ref`` on
+CPU tensors.  It replaces XLA's autodiff of the JAX package's
+``lm._norm`` and ``_head_rms``: dx in x's type, dscale in the scale's.
+``bwd_variant`` names the backward kernel for a shape (rows held in
+registers, or the first version past 8 vectors x 256 threads a row) and
+``bwd_plan`` its launch, both from the shapes alone.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import typing
 
 import torch
 
@@ -110,24 +114,86 @@ def _lib():
                                    + [ctypes.c_float] + [i32] * 3 + [ptr])
     lib.rmsnorm_launch.restype = i32
     lib.rmsnorm_bwd_launch.argtypes = ([i32, i32] + [ptr] * 6 + [i32] * 2
-                                       + [ctypes.c_float] + [i32] * 3
+                                       + [ctypes.c_float] + [i32] * 5
                                        + [ptr])
     lib.rmsnorm_bwd_launch.restype = i32
+    lib.rmsnorm_bwd_launch_first.argtypes = ([i32, i32] + [ptr] * 6
+                                             + [i32] * 2 + [ctypes.c_float]
+                                             + [i32] * 3 + [ptr])
+    lib.rmsnorm_bwd_launch_first.restype = i32
     return lib
 
 
-BWD_SMEM_BYTES = 96 * 1024  # the backward's [warps + 1, d] fp32 at most
+BWD_THREADS = 256  # threads a CTA of the backward (csrc kBwdThreads)
+BWD_TWO_CTAS_NV = 4  # vectors a thread at most for two CTAs an SM
+BWD_MIN_GROUPS = 4  # row groups a CTA walks, where rows allow
+BWD_SMEM_BYTES = 96 * 1024  # the first version's [warps + 1, d] fp32 at most
+BWD_REGISTERS = ("rows in registers, one pass through a cp.async ring, "
+                 "dscale by a second kernel")
+BWD_FIRST = ("first version: one warp a row, two walks, dscale by a second "
+             "kernel")
+
+
+class BwdPlan(typing.NamedTuple):
+    """The backward's launch, from the shapes alone: ``grid`` CTAs (and
+    as many rows of dscale partials), ``tpr`` threads a row, ``in_flight``
+    rows a CTA holds at once (a row group), ``vectors`` 16-byte vectors a
+    thread holds (the first version: walks)."""
+    grid: int
+    tpr: int
+    in_flight: int
+    vectors: int
+
+
+def _row_vectors(d: int, dtype) -> int:
+    return d * (torch.finfo(dtype).bits // 8) // 16
+
+
+def bwd_variant(rows: int, d: int, dtype) -> str:
+    """The backward kernel for ``rows`` rows of d values of ``dtype``, by
+    width: rows of at most ``VECTORS[-1] x BWD_THREADS`` 16-byte vectors
+    (16384 bf16, 8192 fp32 values) are held in registers; wider rows take
+    the first version."""
+    if _row_vectors(d, dtype) <= VECTORS[-1] * BWD_THREADS:
+        return BWD_REGISTERS
+    return BWD_FIRST
 
 
 @functools.lru_cache(maxsize=1024)
-def bwd_plan(rows: int, d: int) -> tuple:
-    """(blocks, warps) of the backward, from the shapes alone: one warp a
-    row, up to 8 warps a CTA while their [warps + 1, d] fp32 accumulators
-    fit in ``BWD_SMEM_BYTES``, and at most two CTAs an SM (each warp then
-    walks rows / (blocks x warps) rows; fewer CTAs, fewer dscale
-    partials)."""
+def bwd_plan(rows: int, d: int, dtype) -> BwdPlan:
+    """The backward's launch for ``rows`` rows of d values of ``dtype``.
+    Registers: the fewest threads a row (a power of two) that leave a
+    thread at most ``BWD_TWO_CTAS_NV`` vectors up to 64 threads a row and
+    at most 2 past it (or 256 threads and up to 8), doubled while a CTA
+    would walk fewer than ``BWD_MIN_GROUPS`` row groups (a shallow walk
+    leaves its loads unoverlapped); 256 / tpr rows a CTA at once; two CTAs
+    an SM (one past ``BWD_TWO_CTAS_NV`` vectors, for the registers), no
+    more CTAs than row groups; each CTA then takes a contiguous range of
+    rows / grid rows.  The first version: ``first_plan``."""
+    nvec = _row_vectors(d, dtype)
+    if bwd_variant(rows, d, dtype) == BWD_FIRST:
+        return first_plan(rows, d, dtype)
+    tpr = next(t for t in (1 << k for k in range(9))
+               if -(-nvec // t) <= (BWD_TWO_CTAS_NV if t <= 64 else 2)
+               or t == BWD_THREADS)
+    per_sm = 2 if -(-nvec // tpr) <= BWD_TWO_CTAS_NV else 1
+    while tpr < BWD_THREADS and -(-rows // (per_sm * SMS)) < \
+            BWD_MIN_GROUPS * (BWD_THREADS // tpr):
+        tpr *= 2  # a CTA walks at least BWD_MIN_GROUPS row groups
+    nv = next(v for v in VECTORS if v * tpr >= nvec)
+    in_flight = BWD_THREADS // tpr
+    return BwdPlan(max(1, min(per_sm * SMS, -(-rows // in_flight))), tpr,
+                   in_flight, nv)
+
+
+def first_plan(rows: int, d: int, dtype) -> BwdPlan:
+    """The first version's launch: one warp a row, up to 8 warps a CTA
+    while their [warps + 1, d] fp32 accumulators fit in
+    ``BWD_SMEM_BYTES``, at most two CTAs an SM (each warp walks rows /
+    (grid x warps) rows, ``vectors`` 16-byte vectors a lane a row)."""
     warps = max(1, min(MAX_THREADS // 32, BWD_SMEM_BYTES // (4 * d) - 1))
-    return max(1, min(-(-rows // warps), 2 * SMS)), warps
+    return BwdPlan(max(1, min(-(-rows // warps), 2 * SMS)), 32, warps,
+                   -(-_row_vectors(d, dtype) // 32))
 
 
 def _check(x, scale, out):
@@ -185,7 +251,9 @@ def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-6,
                 zero_centered: bool = False):
     """(dx in x's type, dscale in the scale's) from the forward's inputs
     and the output's gradient ``dy`` (x's type and shape): the plain
-    version on the CPU, the backward kernels on the card (or raises)."""
+    version on the CPU, on the card the backward kernels ``bwd_variant``
+    names (two launches: the rows, then dscale from the CTAs' partials),
+    or raises."""
     if on_cpu("rmsnorm backward", x, scale, dy):
         return rmsnorm_bwd_ref(x, scale, dy, eps=eps,
                                zero_centered=zero_centered)
@@ -201,20 +269,40 @@ def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-6,
     dscale = torch.empty_like(scale)
     if rows == 0:
         return dx, dscale.zero_()
-    blocks, warps = bwd_plan(rows, d)
-    partial = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().rmsnorm_bwd_launch(
-            DTYPES[x.dtype], DTYPES[scale.dtype], x.data_ptr(),
-            scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            partial.data_ptr(), dscale.data_ptr(), rows, d, float(eps),
-            int(bool(zero_centered)), blocks, warps, stream)
+    plan = bwd_plan(rows, d, x.dtype)
+    if bwd_variant(rows, d, x.dtype) == BWD_FIRST:
+        err = _bwd_first(x, scale, dy, dx, dscale, plan, eps, zero_centered)
+    else:
+        partial = torch.empty(plan.grid, d, dtype=torch.float32,
+                              device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _lib().rmsnorm_bwd_launch(
+                DTYPES[x.dtype], DTYPES[scale.dtype], x.data_ptr(),
+                scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                partial.data_ptr(), dscale.data_ptr(), rows, d, float(eps),
+                int(bool(zero_centered)), *plan, stream)
     if err != 0:
         raise RuntimeError(f"rmsnorm backward kernel launch failed: error "
                            f"{err}")
     rmsnorm.bwd_launches += 1
     return dx, dscale
+
+
+def _bwd_first(x, scale, dy, dx, dscale, plan: BwdPlan, eps: float,
+               zero_centered: bool) -> int:
+    """The first version's two kernels with ``plan.grid`` CTAs of
+    ``plan.in_flight`` warps (one warp a row) into dx and dscale; returns
+    the C launch's error code."""
+    d = x.shape[-1]
+    partial = torch.empty(plan.grid, d, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        return _lib().rmsnorm_bwd_launch_first(
+            DTYPES[x.dtype], DTYPES[scale.dtype], x.data_ptr(),
+            scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), dscale.data_ptr(), x.numel() // d, d,
+            float(eps), int(bool(zero_centered)), plan.grid, plan.in_flight,
+            torch.cuda.current_stream().cuda_stream)
 
 
 class RMSNorm(torch.autograd.Function):
