@@ -8,7 +8,10 @@
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
-  1. device: the card's name and ``nvidia-smi`` name and power limit;
+  1. device: the card's name and ``nvidia-smi`` name and power limit
+     (then the dry run's sweep starts in the background; the script waits
+     for it after phases 2, 3 and 10, before phase 4, the first that
+     times anything);
   2. build: compiles ``kernels/csrc/paged_decode.cu``, ``paged_verify.cu``,
      ``flash_attention.cu``, ``rmsnorm.cu``, ``flash_decode.cu``,
      ``moe_gmm.cu``, ``ssd_scan.cu``, ``flash_attention_bwd.cu``,
@@ -44,11 +47,13 @@ exits non-zero without printing a result:
      zamba2's width it prints);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
-     at qwen2-0.5b, gemma3-1b and llama3.2-3b head layouts (decode also
-     at the edges of its split kernel: a ragged last split, one slot at
-     1024 keys, G 16, D 16, slots at pos 0, free slots among live ones;
-     verify also at the CPU tests' cases, T = 4 and T = 64, and a table
-     whose last split is ragged); flash attention at the CPU
+     at qwen2-0.5b, gemma3-1b, llama3.2-3b and chameleon-34b head layouts
+     (decode also at the edges of its split kernel: a ragged last split,
+     one slot at 1024 keys, G 16, D 16, slots at pos 0, free slots among
+     live ones, and launch.serve's chameleon-34b tick; verify also at the
+     CPU tests' cases, T = 4 and T = 64, a table whose last split is
+     ragged and launch.serve's chameleon-34b prefill chunk); flash
+     attention at the CPU
      tests' cases, the draft's causal prefill at qwen2-0.5b's heads (S 16
      to 1024), gemma3-1b's windowed layers, llama3.2-3b's heads, the
      encoder's non-causal D 448 and zamba2-2.7b's shared attention (32
@@ -60,7 +65,8 @@ exits non-zero without printing a result:
      them, the decoder's causal 64 tokens); the fused
      RMSNorm at a decode tick, a prefill chunk, the CPU tests' shapes and
      every width the port normalizes (896, 1024, 1152, 256, 3072, 2560,
-     5120, xlstm-1.3b's 2048 and 4096) at rows 1, 8, 64, 768 and 1024,
+     5120, xlstm-1.3b's 2048 and 4096, chameleon-34b's 8192 and its
+     qk-norm's 128) at rows 1, 8, 64, 768 and 1024,
      bf16 and fp32 x and scale,
      zero-centred or not; flash decode over bf16, fp32 and int8 caches
      with bf16 and fp32 queries at the CPU tests' cases, qwen2-0.5b's
@@ -72,7 +78,13 @@ exits non-zero without printing a result:
      self-attention cache, ragged), and at the edges of its split kernel
      (a ragged last split, a
      split whose only visible key is its last, one slot at 1024 keys, G 16
-     at D 64 and D 80, free slots among live ones with holes); free slots (no visible key) of paged decode, verify
+     at D 64 and D 80, free slots among live ones with holes); the
+     launch/ paths' long rows (bf16, engine-like ragged contexts): flash
+     decode at qwen2-0.5b decode_32k's B 128 x 32,768 keys and at
+     long_500k's 524,288 keys for zamba2-2.7b (32 splits of
+     MAX_SPLIT_KEYS) and gemma3-1b's global and windowed layers, and
+     flash attention at prefill_32k's B 32 x S 32,768, held in query
+     chunks of its first and last sequences; free slots (no visible key) of paged decode, verify
      and flash decode, bf16 and int8, held to the plain version's uniform
      softmax; the grouped matmul in bf16 and fp32 at the CPU tests' cases
      and at granite-moe-1b-a400m's and qwen2-moe-a2.7b's expert shapes
@@ -249,7 +261,27 @@ exits non-zero without printing a result:
      second and peak memory; one
      prefill and one decode tick of each under ``torch.profiler`` (busy,
      idle share, top kernels), beside xlstm's mC state bytes;
-  10. reduced qwen2-0.5b, gemma3-1b, granite-moe-1b-a400m and
+  9g. ``launch/`` (``phase_launch_serve``, ``phase_dryrun``): the code
+     path of ``python -m repro_torch.launch.serve --full --requests 12
+     --fail-server 1`` (qwen2-0.5b, llama3.2-3b and chameleon-34b at full
+     width and depth on the card, 76 GB of bf16 weights, the device memory
+     left after each engine): the drain, every dispatch to a healthy
+     server served with its 8 tokens, paged decode and verify launched
+     the engines' decode steps and prefill chunks times their layers;
+     each server's TTFT and ITL p50/p95, completion, dispatches and
+     paged-KV stats.  Then the one-card dry run: its sweep over every
+     (arch x shape) cell on ``meta`` (one background process of
+     ``DRYRUN_JOBS`` workers, from before phase 2 until before phase 4),
+     printed as a table (status, fits, bytes, bound), every cell ok or
+     skipped as ``shape_applicable`` says; each cell reckoned to fit run
+     on the card (``dryrun.execute_fitting``: random caches, ragged
+     positions) with each kernel's first call held to its plain version,
+     its measured peak beside the reckoned arguments plus temp, its step
+     time (median, least and largest of the timed calls after a warm-up)
+     beside the bound, its outputs finite and each kernel launched as
+     often as the trace called its wrapper;
+  10. (run after phase 3, beside the sweep) reduced qwen2-0.5b,
+     gemma3-1b, granite-moe-1b-a400m and
      qwen2-moe-a2.7b in fp32, and granite-moe with capacity_factor 0.3
      and 16 slots (experts overflow beside free slots), text and
      multimodal requests: the engine on the CPU (plain versions) and on
@@ -273,8 +305,8 @@ exits non-zero without printing a result:
      CPU's, and the parameters after 3 AdamW steps within the Adam-aware
      bound, and so for reduced granite-moe-1b-a400m, qwen2-moe-a2.7b,
      zamba2-2.7b and xlstm-1.3b (scan_chunk 16) and whisper-large-v3;
-     and (``hold_no_backward``) no serving phase launched a backward
-     kernel;
+     and, after phase 9g, (``hold_no_backward``) no serving phase
+     launched a backward kernel;
  11. training (``phase_train``): ``launch.train.train`` on qwen2-0.5b at
      full width and depth (24 layers, 494 M parameters drawn on the card,
      bf16 with an fp32 AdamW master, SyntheticLM batches of 8 x 1024
@@ -297,7 +329,7 @@ exits non-zero without printing a result:
      backward's device time in each family's step among them);
  12. one JSON line for the kernels (each with its device time and the
      library call's at its phase-4 shape beside the contract's keys, and
-     the launches of phase 9f's and phase 11's runs by path; the four
+     the launches of phase 9f's, 9g's and phase 11's runs by path; the four
      backward kernels with phase 11's launches), then the result line.
 
 Needs a CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
@@ -311,6 +343,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -324,8 +357,9 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import (ShapeConfig, get_config,  # noqa: E402
-                                 reduced)
+from repro_torch.configs import (ARCH_IDS, SHAPES,  # noqa: E402
+                                 ShapeConfig, get_config, reduced,
+                                 shape_applicable)
 from repro_torch.core import encoders  # noqa: E402
 from repro_torch.core.baselines import (all_cloud_policy,  # noqa: E402
                                         evaluate_heuristics, greedy_policy)
@@ -355,6 +389,7 @@ from repro_torch.kernels.paged_verify import (  # noqa: E402
 from repro_torch.kernels.quant import quantize_kv  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_ref  # noqa: E402
+from repro_torch.launch import dryrun, serve  # noqa: E402
 from repro_torch.launch.train import train as launch_train  # noqa: E402
 from repro_torch.models import counting, lm  # noqa: E402
 from repro_torch.models import mm_encoder as enc  # noqa: E402
@@ -554,7 +589,7 @@ ENC_SEED = 17
 AUDIO_FRAMES = 24
 # the model layouts the kernels are held at: (arch, H, Hkv, D, window)
 WIDTHS = [("qwen2-0.5b", 14, 2, 64, 0), ("gemma3-1b", 4, 1, 256, 512),
-          ("llama3.2-3b", 24, 8, 128, 0)]
+          ("llama3.2-3b", 24, 8, 128, 0), ("chameleon-34b", 64, 8, 128, 0)]
 # paged decode's split kernel at its edges (phase 3): (label, B, H, Hkv, D,
 # NB, window, contexts, free slots), page 16: the last split ragged (1040
 # keys in 17 splits of 64), one slot of a lightly loaded server, G 16, the
@@ -567,7 +602,10 @@ DECODE_EDGES = [
     ("D 16", 3, 4, 2, 16, 9, 0, [144, 50, 1], ()),
     ("pos 0", 4, 14, 2, 64, 64, 0, [1, 800, 1, 64], ()),
     ("free slots among live", 8, 14, 2, 64, 64, 0,
-     [60, 150, 290, 400, 520, 640, 760, 1000], (1, 4, 6))]
+     [60, 150, 290, 400, 520, 640, 760, 1000], (1, 4, 6)),
+    # launch.serve's cloud engine: chameleon-34b (64 heads, 8 kv heads of
+    # 128), max_batch 2, max_seq 96 (6 pages)
+    ("chameleon-34b fleet tick", 2, 64, 8, 128, 6, 0, [96, 23], ())]
 # the profiled window of the main path: engine steps SKIP .. SKIP + STEPS
 PROFILE_SKIP, PROFILE_STEPS = 30, 10
 # flash attention held to its plain version: (B, Sq, Sk, H, Hkv, D, causal,
@@ -637,6 +675,10 @@ RMS_SHAPES += [(1, 896), (1024, 896), (8, 1024), (64, 1024), (8, 1152),
 # and FFN norms, the final norm) and d_in 4096 (the mLSTM's out norm) at a
 # decode tick of 8 slots and a 768-token prompt
 RMS_SHAPES += [(8, 2048), (8, 4096), (768, 2048), (768, 4096)]
+# ... and chameleon-34b's in launch.serve's fleet: d 8192 at a tick of one
+# and of two slots and a 16-token prompt, and its qk-norm (64 heads of
+# 128) over a 16-token prompt
+RMS_SHAPES += [(1, 8192), (2, 8192), (16, 8192), (16, 64, 128)]
 # flash decode held to its plain version: (B, S, H, Hkv, D, window,
 # engine[, dense_case keywords]), test_kernels.py::test_flash_decode's
 # cases (full caches), then caches as the engines leave them (``engine``:
@@ -675,6 +717,18 @@ FLASH_DECODE_PLANS = [
     ("gemma3-1b local layers", 8, 4, 1, 256, 1024),
     ("whisper-large-v3 cross-attention", 8, 20, 20, 64, 1500),
     ("whisper-large-v3 self-attention", 8, 20, 20, 64, 448)]
+# the launch/ paths' shapes (phase 3).  Flash decode with bf16 caches and
+# q, engine-like ragged contexts (dense_case): the dry run's executed
+# decode cells, qwen2-0.5b decode_32k (B 128, 32,768 keys), and at
+# long_500k (B 1, 524,288 keys) zamba2-2.7b's shared attention (32 heads
+# of 80, MAX_SPLIT_KEYS splits) and gemma3-1b's global and windowed
+# layers (4 heads of 256, one kv head): (B, S, H, Hkv, D, window)
+LONG_DECODE_CASES = [(128, 32768, 14, 2, 64, 0), (1, 524288, 32, 32, 80, 0),
+                     (1, 524288, 4, 1, 256, 0), (1, 524288, 4, 1, 256, 512)]
+# flash attention in bf16 at qwen2-0.5b prefill_32k's shape (B 32 x S
+# 32,768, causal), held in query chunks (hold_flash_chunked):
+# (B, S, H, Hkv, D)
+LONG_FLASH_CASES = [(32, 32768, 14, 2, 64)]
 # phase 10's engine variants: (label, engine keywords, speculative)
 VARIANTS = {"bf16": ({}, False), "bf16 spec": ({}, True),
             "int8": (dict(kv_dtype="int8"), False),
@@ -971,6 +1025,34 @@ def hold(name, out, args, kw, rows, where, dead=None) -> tuple:
     check(within(a, want, TOL[name]), f"{name} {where}: max |err| {err} vs "
           f"the plain version, over tolerance {TOL[name]}")
     return err32, err
+
+
+def hold_flash_chunked(out, args, kw, where, batches=None,
+                       chunk: int = 2048) -> tuple:
+    """``hold`` for a flash-attention output too long for one plain call
+    (32,768 positions: a head's scores alone are 4 GB in fp32): each
+    chunk of ``chunk`` query rows of the sequences ``batches`` (default
+    the first and the last) against the keys it can see, its offset
+    passed as ``q_offset``; returns the largest errors."""
+    q, k, v = args
+    kw = {key: val for key, val in kw.items() if key != "return_lse"}
+    out = out[0] if isinstance(out, tuple) else out
+    B, Sq = q.shape[:2]
+    Sk = k.shape[1]
+    causal = kw.get("causal", True)
+    off = kw.get("q_offset")
+    off = (Sk - Sq if causal else 0) if off is None else off
+    worst = (0.0, 0.0)
+    for b in batches or sorted({0, B - 1}):
+        for i0 in range(0, Sq, chunk):
+            i1 = min(i0 + chunk, Sq)
+            kend = min(Sk, off + i1) if causal else Sk
+            errs = hold("flash_attention", out[b:b + 1, i0:i1],
+                        (q[b:b + 1, i0:i1], k[b:b + 1, :kend],
+                         v[b:b + 1, :kend]), {**kw, "q_offset": off + i0},
+                        slice(None), f"{where}, sequence {b} rows {i0}-{i1}")
+            worst = tuple(map(max, worst, errs))
+    return worst
 
 
 def quantized(k, v):
@@ -1434,13 +1516,14 @@ def phase_compare(rng) -> dict:
               f"fp32 plain: " + ", ".join(errs))
     # verify: the CPU tests' cases (tests/test_torch_speculative.py CASES:
     # B, last context, H, Hkv, D, page, T, window), a 65-page table (its
-    # last split ragged), then the three model layouts at the speculative
-    # T = 4 (B 8; gemma3-1b's window skips whole splits) and a 64-token
-    # chunk (B 2)
+    # last split ragged), launch.serve's chameleon-34b prefill chunk of a
+    # 16-token prompt (max_seq 96), then the model layouts at the
+    # speculative T = 4 (B 8; gemma3-1b's window skips whole splits) and a
+    # 64-token chunk (B 2)
     cases = [(2, 96, 8, 2, 64, 16, 4, 0), (1, 64, 4, 4, 32, 8, 3, 24),
              (2, 72, 8, 1, 64, 8, 5, 0), (2, 128, 14, 2, 64, 16, 4, 0),
              (1, 160, 14, 2, 64, 16, 64, 0), (2, 96, 4, 1, 256, 16, 6, 40),
-             (2, 1040, 14, 2, 64, 16, 4, 0)]
+             (2, 1040, 14, 2, 64, 16, 4, 0), (2, 96, 64, 8, 128, 16, 16, 0)]
     for arch, H, Hkv, D, window in WIDTHS:
         cases += [(8, 2048, H, Hkv, D, 16, 4, window),
                   (2, 1024, H, Hkv, D, 16, 64, window)]
@@ -1546,6 +1629,39 @@ def phase_compare(rng) -> dict:
               f"plain version"
               f"{f', {len(dead)} slots with no key too' if dead else ''}; "
               f"max |err| vs fp32 plain: " + ", ".join(errs))
+    for B, S, H, Hkv, D, window in LONG_DECODE_CASES:
+        q, k, v, cpos, pos, rows = dense_case(rng, B, S, H, Hkv, D, True)
+        args = (q.bfloat16(), k.bfloat16(), v.bfloat16(), cpos, pos)
+        del k, v
+        dead = [b for b in range(B) if b not in rows]
+        out = ops.flash_decode(*args, window=window)
+        err32, err = hold("flash_decode", out, args, dict(window=window),
+                          rows, f"B={B} S={S} H={H} D={D} window={window}",
+                          dead or None)
+        worst["flash_decode"] = max(worst["flash_decode"], err)
+        split = flash_decode.plan(B, H // Hkv, Hkv, S, D)
+        print(f"[compare] flash decode B={B} S={S} H={H} Hkv={Hkv} D={D} "
+              f"window={window}, engine-like cache, bf16 cache and q "
+              f"({split.splits} splits of {split.split_keys} keys): agrees "
+              f"with the plain version"
+              f"{f', {len(dead)} slots with no key too' if dead else ''}; "
+              f"max |err| vs fp32 plain {err32:.3g}")
+        del q, args, out
+    for B, S, H, Hkv, D in LONG_FLASH_CASES:
+        q, k, v = (torch.randn(B, S, h, D, device=dev, dtype=torch.bfloat16)
+                   for h in (H, Hkv, Hkv))
+        kw = dict(causal=True, window=0)
+        out = ops.flash_attention(q, k, v, **kw)
+        err32, err = hold_flash_chunked(out, (q, k, v), kw,
+                                        f"B={B} S={S} H={H} D={D}")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        print(f"[compare] flash attention B={B} S={S} H={H} Hkv={Hkv} D={D} "
+              f"causal, bf16: sequences 0 and {B - 1} agree with the plain "
+              f"version in query chunks of 2048; max |err| vs fp32 plain "
+              f"{err32:.3g}")
+        del q, k, v, out
+    gc.collect()
+    torch.cuda.empty_cache()
     worst["grouped_matmul"] = compare_gmm()
     worst["ssd_scan"] = compare_scan(rng)
     return worst
@@ -4026,6 +4142,193 @@ def phase_learning(smi: str):
     check(not launched, f"the learning pipeline launched {launched}")
 
 
+# ------------------------------------------------------------ launch/
+
+# ``python -m repro_torch.launch.serve``'s command line as this phase runs
+# it: the JAX driver's fleet at published width and depth, edge-1 failed
+SERVE_ARGV = ["--full", "--requests", "12", "--fail-server", "1"]
+# the one-card dry run's sweep: one ``python -m repro_torch.launch.dryrun``
+# process off the card, with this many workers (an extrapolated xlstm
+# cell's two traces are two jobs), started before phase 2 and waited for
+# before phase 4, the first timed phase
+DRYRUN_JOBS = 6
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "smoke_dryrun"
+DRYRUN_TIMEOUT_S = 600
+
+
+def zero_launches():
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def phase_launch_serve(smi: str) -> dict:
+    """``repro_torch.launch.serve``'s main at full width (``SERVE_ARGV``):
+    qwen2-0.5b, llama3.2-3b and chameleon-34b engines (bf16 paged pools,
+    chunked admission, max_batch 2, max_seq 96) on one card behind the
+    QLMIO router, 12 tasks with edge-1 failed.  Checks: the drain (in
+    ``main``), every dispatch to a healthy server served with its 8
+    tokens, the paged-decode launches the engines' decode steps times
+    their layers, the paged-verify launches their prefill chunks times
+    their layers, RMSNorm launched; prints each server's TTFT and ITL
+    p50/p95, completion, dispatches and paged-KV stats.  Returns the
+    launches of the run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_launches()
+    t0 = time.perf_counter()
+    servers, router = serve.main(SERVE_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    fail = int(SERVE_ARGV[SERVE_ARGV.index("--fail-server") + 1])
+    dispatched = np.bincount([r["server"] for r in router.log],
+                             minlength=len(servers))
+    decode = verify = 0
+    for i, s in enumerate(servers):
+        st = s.engine.stats()
+        lat = st["latency"]
+        ok = sum(r["ok"] for r in router.log if r["server"] == i)
+        done = s.engine.finished
+        check(all(len(r.output) == 8 for r in done),
+              f"{s.name}: a request left short of its 8 tokens")
+        if i != fail:
+            check(ok == dispatched[i], f"{s.name}: {dispatched[i] - ok} of "
+                  f"{dispatched[i]} dispatches failed on a healthy server")
+        decode += st["decode_steps"] * s.cfg.n_layers
+        verify += st["prefill_chunks"] * s.cfg.n_layers
+        print(f"[serve] {s.name}: {s.cfg.n_layers} layers of d "
+              f"{s.cfg.d_model}; {dispatched[i]} dispatches, {ok} ok, "
+              f"{len(done)} requests served (hedge losers included); "
+              f"TTFT p50 {lat['ttft_p50_s'] * 1e3:.2f} ms p95 "
+              f"{lat['ttft_p95_s'] * 1e3:.2f} ms, ITL p50 "
+              f"{lat['itl_p50_s'] * 1e3:.2f} ms p95 "
+              f"{lat['itl_p95_s'] * 1e3:.2f} ms; completion "
+              f"{ok}/{dispatched[i]}; paged KV "
+              f"{st['kv_cache_bytes'] / 1e6:.1f} MB, "
+              f"{st['decode_steps']} decode steps, {st['prefill_chunks']} "
+              f"prefill chunks; {smi}")
+    check(launches["paged_decode"] == decode > 0,
+          f"paged decode launched {launches['paged_decode']} times, the "
+          f"engines' decode steps x layers are {decode}")
+    check(launches["paged_verify"] == verify > 0,
+          f"paged verify launched {launches['paged_verify']} times, the "
+          f"engines' prefill chunks x layers are {verify}")
+    check(launches["rmsnorm"] > 0, "RMSNorm never launched")
+    print(f"[serve] fleet: {len(router.log)} tasks in {wall:.1f} s "
+          f"(weights drawn on the card included); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    del servers, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if v}
+
+
+def start_dryrun_sweep():
+    """Start the whole one-card dry-run sweep on ``meta`` in the
+    background: one ``python -m repro_torch.launch.dryrun --all`` process
+    with ``DRYRUN_JOBS`` workers, kept off the card; returns (process, out
+    file, log file)."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out, log = DRYRUN_DIR / "sweep.json", DRYRUN_DIR / "sweep.log"
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+            "--jobs", str(DRYRUN_JOBS), "--out", str(out)]
+    with open(log, "w") as f:
+        proc = subprocess.Popen(argv, stdout=f, stderr=subprocess.STDOUT,
+                                env=env)
+    return proc, out, log
+
+
+def stop_dryrun_sweep(sweep):
+    proc = sweep[0]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def wait_dryrun_sweep(sweep, t_start: float) -> list:
+    """Wait for the sweep (``start_dryrun_sweep``) to end, before the first
+    timed phase; prints its own time (its done line) and how long this
+    script waited; returns its records."""
+    proc, out, log = sweep
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (t0 - t_start)))
+    except subprocess.TimeoutExpired:
+        stop_dryrun_sweep(sweep)
+        check(False, f"the dry-run sweep outlived {DRYRUN_TIMEOUT_S} s")
+    text = log.read_text()
+    check(rc == 0, f"the dry-run sweep exited {rc}:\n" + text[-3000:])
+    done = [ln for ln in text.splitlines() if ln.startswith("[dryrun] done")]
+    print(f"{done[-1]} ({DRYRUN_JOBS} workers, in the background from "
+          f"before phase 2); waited {time.perf_counter() - t0:.1f} s for "
+          "it before phase 4")
+    return json.loads(out.read_text())
+
+
+def hold_first_calls(calls: dict, where: str):
+    """Holds each kernel's first call in an executed dry-run cell
+    (``dryrun.FirstCalls``: one layer's attention and norm, as the kernel
+    saw them) to its plain version as phase 3 does; flash attention over
+    32,768 positions in query chunks of the first and last sequence
+    (``hold_flash_chunked``)."""
+    errs = []
+    for name, (args, kw, out) in calls.items():
+        kernel = dryrun.COUNTERS[name][0]
+        if kernel == "flash_attention":
+            err32, _ = hold_flash_chunked(out, args, kw, where)
+        else:
+            err32, _ = hold(kernel, out, args, kw, slice(None),
+                            f"{where}, first call")
+        errs.append(f"{kernel} {list(args[0].shape)} {err32:.3g}")
+    print(f"[dryrun] {where}: each kernel's first call agrees with the "
+          "plain version; max |err| vs fp32 plain: " + ", ".join(errs))
+
+
+def phase_dryrun(records: list, smi: str) -> dict:
+    """The sweep's table (``wait_dryrun_sweep``'s records): each (arch x
+    shape) cell's status, fits, argument and temp bytes and roofline
+    bound; every cell ok or skipped as ``shape_applicable`` says.  Then
+    ``dryrun.execute_fitting`` runs each cell reckoned to fit on the card
+    (random caches, ragged positions; a warm-up call, then timed calls):
+    each kernel's first call held to its plain version
+    (``hold_first_calls``), its measured peak beside its reckoned
+    arguments plus temp (within ``dryrun.PEAK_TOLERANCE`` or printed as a
+    finding), its step time (median and spread) beside the bound, finite
+    outputs, and each kernel launched in the warm-up call as often as the
+    trace called its wrapper.  Returns the launches of each executed
+    cell, by kernel."""
+    check(len(records) == len(ARCH_IDS) * len(SHAPES),
+          f"the sweep recorded {len(records)} cells")
+    for rec in records:
+        ok, _ = shape_applicable(get_config(rec["arch"]), SHAPES[rec["shape"]])
+        check(rec["status"] == ("ok" if ok else "skipped"),
+              f"{rec['arch']} x {rec['shape']}: {rec['status']} "
+              f"{rec.get('error', '')}")
+        print(dryrun.line(rec))
+    check(any(r["arch"] == "qwen2-0.5b" and r["shape"] == "decode_32k"
+              and r["fits"] for r in records),
+          "qwen2-0.5b x decode_32k does not fit")
+    launched = {}
+    for got in dryrun.execute_fitting(records, hold=hold_first_calls):
+        where = f"{got['arch']} x {got['shape']}"
+        print(f"{dryrun.executed_line(got)}; {smi}")
+        check(got["launches_match"], f"{where}: launches {got['launches']},"
+              f" the trace called {got['trace_calls']}")
+        check(got["finite"], f"{where}: non-finite outputs")
+        launched[f"dryrun {where}"] = {dryrun.COUNTERS[k][0]: v
+                                       for k, v in got["launches"].items()}
+    return launched
+
+
 # ------------------------------------------------------------- training
 
 TRAIN_ARCH = "qwen2-0.5b"
@@ -4078,12 +4381,15 @@ GMM_BWD_CASES = [("granite-moe training gate/up", 32, 2560, 1024, 512),
                  ("small C", 16, 8, 1024, 512),
                  ("rows not 16-byte aligned", 8, 320, 1020, 510)]
 # the SSD-scan backward (label, b, S, h, p, n, chunk, final-state
-# gradient): zamba2-2.7b's width at B 4 x S 256 and S 1024, and a ragged
-# last block with a final-state gradient
+# gradient): zamba2-2.7b's width at B 4 x S 256 and S 1024, a ragged
+# last block with a final-state gradient, and p 40, n 24 over 100 tokens
+# (fp32 da_neg held to 1e-5 there too)
 SCAN_BWD_CASES = [("zamba2 B 4 x S 256", 4, 256, 80, 64, 64, 256, False),
                   ("zamba2 B 4 x S 1024", 4, 1024, 80, 64, 64, 256, False),
                   ("ragged S 200, final-state gradient", 2, 200, 8, 64, 64,
-                   200, True)]
+                   200, True),
+                  ("p 40, n 24, S 100, final-state gradient", 2, 100, 3, 40,
+                   24, 100, True)]
 # the flash backward at the new families' shapes (label, B, Sq, Sk, H,
 # Hkv, D, causal): zamba2-2.7b's shared block (D 80), whisper-large-v3's
 # encoder (1500 frames, non-causal), cross-attention (448 queries against
@@ -5330,6 +5636,18 @@ def main():
               "no result)")
         return
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
+    sweep = start_dryrun_sweep()
+    try:
+        run(smi, t_start, sweep)
+    finally:
+        stop_dryrun_sweep(sweep)
+
+
+def run(smi: str, t_start: float, sweep):
+    """Every phase after the device's, the dry-run sweep (started by
+    ``main``) running in the background until the untimed phases (build,
+    comparisons, reduced parity) are done; prints the kernels' line and
+    the result line."""
     with timed("build"):
         phase_build()
     rng = np.random.default_rng(0)
@@ -5338,6 +5656,15 @@ def main():
         worst = phase_compare(rng)
         with timed("compare: backward kernels"):
             worst.update(phase_train_compare())
+    # phase 10's parity runs check tokens and gradients and time nothing:
+    # they run here, beside the sweep
+    with timed("reduced parity"):
+        phase_reduced_parity()
+        hybrid_parity()
+        with timed("reduced parity: training"):
+            train_parity()
+    with timed("dry run: the rest of the sweep"):
+        dryrun_records = wait_dryrun_sweep(sweep, t_start)
     with timed("timing"):
         timing = phase_timing(rng, smi)
         timing.update(phase_timing_new(smi))
@@ -5375,17 +5702,16 @@ def main():
             family_launches[arch] = phase(smi)
             gc.collect()
             torch.cuda.empty_cache()
+    with timed("launch.serve fleet"):
+        serve_launches = phase_launch_serve(smi)
+    with timed("dry run"):
+        dryrun_launches = phase_dryrun(dryrun_records, smi)
     with timed("continuum"):
         phase_continuum(smi)
         phase_migration(smi)
     with timed("learning pipeline"):
         phase_learning(smi)
-    with timed("reduced parity"):
-        phase_reduced_parity()
-        hybrid_parity()
-        hold_no_backward()
-        with timed("reduced parity: training"):
-            train_parity()
+    hold_no_backward()
     with timed("training"):
         trained = phase_train(smi)
         with timed("training: the new families"):
@@ -5432,6 +5758,12 @@ def main():
             "launches_by_path": {arch: c[name]
                                  for arch, c in family_launches.items()
                                  if c[name]}})
+        # the launch/ paths: launch.serve's fleet and the dry run's
+        # executed cells
+        for path, c in ([("launch.serve fleet", serve_launches)]
+                        + list(dryrun_launches.items())):
+            if c.get(name):
+                kernels[-1]["launches_by_path"][path] = c[name]
         # phase 11's forward launches, by trained config
         for arch, c in [(TRAIN_ARCH, trained)] + list(families.items()):
             if c.get(name):

@@ -42,7 +42,7 @@ import functools
 
 import torch
 
-from repro_torch.device import on_cpu
+from repro_torch.device import kernel_wrapper, on_cpu
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -283,6 +283,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                q_offset=q_offset)
 
 
+@kernel_wrapper
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         q_offset: int | None = None, return_lse: bool = False):
     """The forward alone (no graph): the plain version on the CPU, the
@@ -345,6 +346,7 @@ def bwd_smem_bytes(D: int, dtype=torch.bfloat16) -> tuple:
             lib.flash_attention_bwd_smem_bytes(base + 1, D))
 
 
+@kernel_wrapper
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, q_offset: int | None = None):
     """(dq, dk, dv) in q's type from the forward's inputs, output o and

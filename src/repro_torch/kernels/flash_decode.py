@@ -33,7 +33,7 @@ import functools
 
 import torch
 
-from repro_torch.device import on_cpu
+from repro_torch.device import kernel_wrapper, on_cpu
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_decode import (MAX_SMEM_BYTES, SMS, Plan,
                                               device_sms, key_tile,
@@ -232,6 +232,7 @@ def _launch(q, k_cache, v_cache, k_scales, v_scales, cache_positions, pos,
     return out
 
 
+@kernel_wrapper
 def flash_decode(q, k_cache, v_cache, cache_positions, pos, *, window=0,
                  block_k=512):
     """q [B,H,D] fp32/bf16; k_cache/v_cache [B,S,Hkv,D] bf16 or fp32;
@@ -247,6 +248,7 @@ def flash_decode(q, k_cache, v_cache, cache_positions, pos, *, window=0,
     return out
 
 
+@kernel_wrapper
 def flash_decode_quant(q, k_cache, v_cache, k_scales, v_scales,
                        cache_positions, pos, *, window=0, block_k=512):
     """``flash_decode`` over int8 caches with fp32 row scales

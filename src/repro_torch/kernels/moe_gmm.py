@@ -38,7 +38,7 @@ import functools
 
 import torch
 
-from repro_torch.device import on_cpu
+from repro_torch.device import kernel_wrapper, on_cpu
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # x, w and the output
@@ -126,6 +126,7 @@ def grouped_matmul(x, w):
     return grouped_matmul_fwd(x, w)
 
 
+@kernel_wrapper
 def grouped_matmul_fwd(x, w):
     """The forward alone (no graph): the plain version on the CPU, the
     kernel on the card."""
@@ -225,6 +226,7 @@ def bwd_grid(E: int, C: int, K: int, N: int, sms: int) -> int:
     return min(tiles, sms)
 
 
+@kernel_wrapper
 def grouped_matmul_bwd(x, w, dy):
     """(dx [E, C, K], dw [E, K, N]) in the inputs' type from the forward's
     operands and the output's gradient ``dy`` [E, C, N] (x's type): the

@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch.device import on_cpu
+from repro_torch.device import kernel_wrapper, on_cpu
 from repro_torch.kernels import build
 from repro_torch.models.attention import (paged_decode_attention,
                                           paged_decode_attention_quant)
@@ -44,6 +44,10 @@ PAGE_DTYPES = {torch.bfloat16: 0, torch.int8: 1}  # the serving pools
 SMS = 132  # streaming multiprocessors of an H100 SXM (the plans' default)
 # splits a pass-2 CTA merges at most: beyond it the splits grow instead
 MAX_SPLITS = 32
+# keys a split may stage the map of (64 KB of a CTA's shared memory):
+# rows longer than this take more splits than the SMs alone ask for, as
+# zamba2-2.7b's 524,288-key cache does (B 1, 32 kv heads)
+MAX_SPLIT_KEYS = 16384
 
 
 def key_tile(D: int) -> int:
@@ -56,10 +60,11 @@ def split_rule(S: int, units: int, D: int, sms: int = SMS) -> tuple:
     """(keys a split, splits) for a table of S keys read by ``units``
     independent CTA rows (slot x kv head, times the row tiles of paged
     verify): splits of whole ``key_tile(D)`` tiles, about two CTAs per SM
-    over all units, at most ``MAX_SPLITS`` splits (the last may be
-    ragged).  The one rule of the paged decode and verify plans."""
+    over all units, and at least enough that a split holds at most
+    ``MAX_SPLIT_KEYS`` keys, at most ``MAX_SPLITS`` splits (the last may
+    be ragged).  The one rule of the paged decode and verify plans."""
     kt = key_tile(D)
-    want = max(1, -(-2 * sms // units))
+    want = max(1, -(-2 * sms // units), -(-S // MAX_SPLIT_KEYS))
     split_keys = max(-(-S // want), -(-S // MAX_SPLITS))
     split_keys = -(-split_keys // kt) * kt
     return split_keys, -(-S // split_keys)
@@ -311,6 +316,7 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
     return out
 
 
+@kernel_wrapper
 def paged_decode(q, k_pages, v_pages, block_tables, pos, *, window=0):
     """q [B,H,D] fp32/bf16; k_pages/v_pages [P,bs,Hkv,D] bf16 (the plain
     version on the CPU also takes fp32); block_tables [B,NB] int32
@@ -326,6 +332,7 @@ def paged_decode(q, k_pages, v_pages, block_tables, pos, *, window=0):
     return out
 
 
+@kernel_wrapper
 def paged_decode_quant(q, k_pages, v_pages, k_scales, v_scales,
                        block_tables, pos, *, window=0):
     """``paged_decode`` over int8 pages with fp32 row scales

@@ -32,7 +32,7 @@ import functools
 
 import torch
 
-from repro_torch.device import on_cpu
+from repro_torch.device import kernel_wrapper, on_cpu
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_decode import (  # noqa: F401
     MAX_SMEM_BYTES, MAX_SPLITS, PAGE_DTYPES, Q_DTYPES, SMS, check_paged_args,
@@ -214,6 +214,7 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
     return out
 
 
+@kernel_wrapper
 def paged_verify(q, k_pages, v_pages, block_tables, pos, *, window=0):
     """q [B,T,H,D] fp32/bf16, query t of slot b at ``pos[b] + t``;
     k_pages/v_pages [P,bs,Hkv,D] bf16 (the plain version on the CPU also
@@ -230,6 +231,7 @@ def paged_verify(q, k_pages, v_pages, block_tables, pos, *, window=0):
     return out
 
 
+@kernel_wrapper
 def paged_verify_quant(q, k_pages, v_pages, k_scales, v_scales,
                        block_tables, pos, *, window=0):
     """``paged_verify`` over int8 pages with fp32 row scales

@@ -35,7 +35,7 @@ import typing
 
 import torch
 
-from repro_torch.device import on_cpu
+from repro_torch.device import kernel_wrapper, on_cpu
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # x and scale types
@@ -223,6 +223,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
     return rmsnorm_fwd(x, scale, eps=eps, zero_centered=zero_centered)
 
 
+@kernel_wrapper
 def rmsnorm_fwd(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
     """The forward alone (no graph): the plain version on the CPU, the
     kernel on the card."""
@@ -247,6 +248,7 @@ def rmsnorm_fwd(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
     return out
 
 
+@kernel_wrapper
 def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-6,
                 zero_centered: bool = False):
     """(dx in x's type, dscale in the scale's) from the forward's inputs

@@ -52,7 +52,7 @@ import functools
 
 import torch
 
-from repro_torch.device import on_cpu
+from repro_torch.device import kernel_wrapper, on_cpu
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # x, B and C
@@ -368,6 +368,7 @@ def ssd_scan(x, dt, a_neg, B, C, *, chunk: int = 256, init_state=None):
                         init_state=init_state)
 
 
+@kernel_wrapper
 def ssd_scan_fwd(x, dt, a_neg, B, C, *, chunk: int = 256, init_state=None):
     """The forward alone (no graph): the plain version on the CPU, the
     kernels on the card."""
@@ -473,6 +474,7 @@ def bwd_smem_bytes(p: int, n: int, dtype=torch.bfloat16) -> dict:
             "block gradients": lib.ssd_scan_bwd_smem_bytes(code, 3, p, n)}
 
 
+@kernel_wrapper
 def ssd_scan_bwd(x, dt, a_neg, B, C, dy, dfinal=None, *, chunk: int = 256,
                  init_state=None):
     """(dx in x's type, ddt [b,S,h] fp32, da_neg [h] fp32, dB, dC in B's

@@ -73,7 +73,7 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import chunk_prefill_attention
 from repro_torch.nn.layers import apply_rope
-from repro_torch.nn.spec import init_params, tree_leaves
+from repro_torch.nn.spec import abstract_params, init_params, tree_leaves
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
                                          adamw_update, tree_map)
 
@@ -101,6 +101,11 @@ class Model:
     def init(self, seed: int = 0, param_dtype=torch.bfloat16, device=None):
         """Seeded parameters (``repro_torch.nn.spec.init_params``)."""
         return init_params(self.spec, seed, param_dtype, device)
+
+    def abstract(self, param_dtype=torch.bfloat16):
+        """The parameters as ``meta`` tensors (``nn.spec.abstract_params``),
+        for the dry run."""
+        return abstract_params(self.spec, param_dtype)
 
     # ------------------------------------------------------------- train
     def train_loss(self, params, batch, *, remat=True):

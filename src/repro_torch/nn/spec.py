@@ -118,6 +118,14 @@ def _materialize(spec: TensorSpec, seed: int, path: str, dtype,
     return out
 
 
+def abstract_params(spec_tree: Tree, dtype=torch.float32) -> Tree:
+    """``meta`` stand-ins of the parameters (shape and dtype, no storage),
+    for the dry run; JAX ``nn/spec.py:abstract_params``."""
+    return tree_map_specs(
+        lambda _, s: torch.empty(s.shape, dtype=s.dtype or dtype,
+                                 device="meta"), spec_tree)
+
+
 def init_params(spec_tree: Tree, seed: int = 0, dtype=torch.float32,
                 device=None) -> Tree:
     """Materialize seeded tensors on ``device`` (the card unless the

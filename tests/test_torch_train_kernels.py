@@ -136,7 +136,8 @@ def _scan_inputs(b, S, h, p, n, seed):
 SCAN_CASES = [(2, 32, 3, 8, 4, 8, False, False),
               (2, 32, 3, 8, 4, 8, True, False),
               (1, 48, 2, 4, 8, 16, True, True),
-              (2, 20, 2, 8, 4, 20, False, False)]
+              (2, 20, 2, 8, 4, 20, False, False),
+              (2, 100, 3, 40, 24, 100, True, False)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
