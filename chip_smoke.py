@@ -280,6 +280,33 @@ exits non-zero without printing a result:
      time (median, least and largest of the timed calls after a warm-up)
      beside the bound, its outputs finite and each kernel launched as
      often as the trace called its wrapper;
+  9h. tensor-parallel serving (``phase_tp``): first, at the TP 2 and 4
+     shard shapes, each kernel of the path (paged decode and verify, bf16
+     and int8 pools, at llama3.2-3b's decode tick, speculative verify and
+     prefill chunk; flash attention bf16 and fp32 at its prompt; the
+     qk-norm RMSNorm at chameleon-34b's 64 heads; the grouped matmul at
+     granite-moe-1b-a400m's expert-parallel and expert-ff shapes) on
+     rank r's heads, experts or columns under the global width's plan
+     equals rank r's slice of the unsharded call exactly (whether the
+     shard's own plan would is printed); whether cuBLAS's product of a
+     shard's columns equals the unsharded product's columns, bf16 and
+     fp32, at the projections' shard shapes (printed, not held).  Then
+     ``distributed.tp.spawn`` groups of 2 and 4 ranks on the one card
+     (gloo, every gather staged through host memory) serve llama3.2-3b at
+     full width and depth (4 requests of 48-128 tokens, 16 new each; bf16
+     chunked, monolithic, int8, a self-draft (the target's own weights)
+     at spec_k 3),
+     granite-moe-1b-a400m at full width (expert parallel) and, in fp32 at
+     reduced size, the expert-ff fallback (6 experts, TP 4) and
+     replicated attention (1 kv head, TP 2); every rank's tokens the
+     same, the fp32 ones the unsharded engine's exactly, the bf16 ones
+     too or, from a first divergence on, each sharded token within the
+     bf16 tolerance of the top logit of the unsharded model teacher-forced
+     with the sharded tokens (the steps and gaps printed); a request
+     evacuated at TP 4 resumes on an unsharded engine with the
+     uninterrupted stream;
+     each run's kernels launched; the backend, each rank's peak memory,
+     the gathers and tokens/s per width printed;
   10. (run after phase 3, beside the sweep) reduced qwen2-0.5b,
      gemma3-1b, granite-moe-1b-a400m and
      qwen2-moe-a2.7b in fp32, and granite-moe with capacity_factor 0.3
@@ -371,6 +398,7 @@ from repro_torch.core.qlmio import QLMIO, QLMIOConfig  # noqa: E402
 from repro_torch.data.lm_data import LMDataConfig, SyntheticLM  # noqa: E402
 from repro_torch.data.taskgen import (CATEGORIES, make_taskset,  # noqa: E402
                                       splits)
+from repro_torch.distributed import runs, tp  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, moe_gmm  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
@@ -4283,6 +4311,9 @@ def hold_first_calls(calls: dict, where: str):
     errs = []
     for name, (args, kw, out) in calls.items():
         kernel = dryrun.COUNTERS[name][0]
+        # a plan_* argument cuts the kernel's launch (a tensor-parallel
+        # rank's global width), not the function: the plain version has none
+        kw = {k: v for k, v in kw.items() if not k.startswith("plan_")}
         if kernel == "flash_attention":
             err32, _ = hold_flash_chunked(out, args, kw, where)
         else:
@@ -5589,6 +5620,391 @@ def train_parity():
               f"bound (largest |diff| {moved:.3g})")
 
 
+# ------------------------------------- phase 9h: tensor-parallel serving
+
+TP_ARCH = "llama3.2-3b"
+TP_WIDTHS = (2, 4)
+TP_NEW_TOKENS = 16
+TP_SEED = 7
+# the ranks share the one card: NCCL refuses two ranks on one device and
+# gloo gathers host tensors only, so the group is gloo with every gather
+# staged through host memory (the group's own argument, printed)
+TP_BACKEND = "gloo"
+TP_HOST_STAGED = True
+TP_RUNS = {"bf16 chunked": {}, "monolithic": {"prefill_chunk": 0},
+           "int8": {"kv_dtype": "int8"},
+           "speculative": {"draft": "self", "spec_k": SPEC_K}}
+TP_MIGRATE_AFTER = 4
+TP_DEVICE = "cuda"
+TP_FP32_PROMPTS = [[1, 2, 3, 4, 5, 6, 7, 8, 9], [9, 8, 7, 6, 5]]
+# the projections whose columns a rank holds: (name, K, N) of
+# llama3.2-3b's and granite-moe-1b-a400m's attention and llama's mlp
+TP_PROJECTIONS = [("llama wq/wo", 3072, 3072), ("llama wk/wv", 3072, 1024),
+                  ("llama w_gate/w_up", 3072, 8192),
+                  ("llama w_down", 8192, 3072),
+                  ("granite wq/wo", 1024, 1024),
+                  ("granite wk/wv", 1024, 512)]
+TP_ROWS = (4, 16, 64, 128)  # a decode tick, a verify pass, a chunk, a prompt
+# the reduced configs' projections (d 64, 4 heads of 16, d_ff 128, shared
+# ff 64) at their fp32 cases' rows: a decode tick of 2 slots, a chunk
+TP_REDUCED_PROJECTIONS = [("reduced wq/wo/shared", 64, 64),
+                          ("reduced w_gate/w_up", 64, 128),
+                          ("reduced w_down", 128, 64)]
+TP_REDUCED_ROWS = (2, 16)
+# a bf16 stream may part from the unsharded one at a near-tie: teacher-
+# forced with the sharded tokens, the unsharded model holds each of them
+# from there on within the bf16 kernels' tolerance of its top logit (TOL's
+# bf16 entries, test_kernels.py's _tol for bf16)
+TP_TIE_TOL = TOL["paged_decode"]
+
+
+def tp_prompts(vocab: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, n) for n in (48, 77, 101, 128)]
+
+
+def tp_cases(width: int) -> dict:
+    """What every rank of a ``width``-rank group serves (and the parent
+    unsharded): llama3.2-3b at full width and depth in each of TP_RUNS,
+    granite-moe-1b-a400m at full width, and in fp32 at reduced size the
+    expert-ff fallback (6 experts, TP 4) or replicated attention (1 kv
+    head, TP 2); at TP 4 also request 0 of llama's prompts, evacuated
+    after TP_MIGRATE_AFTER tokens."""
+    seeded = dict(weights={"seed": TP_SEED, "dtype": "bfloat16"},
+                  device=TP_DEVICE, max_new_tokens=TP_NEW_TOKENS)
+    llama, granite = get_config(TP_ARCH), get_config(MOE_ARCH)
+    # the bf16 chunked runs' tokens/s are printed: those warm up first
+    cases = {f"{TP_ARCH} {run}": dict(
+        seeded, cfg=llama, prompts=tp_prompts(llama.vocab, 5),
+        engine=dict(max_batch=4, max_seq=160, **kw),
+        warm=run == "bf16 chunked")
+        for run, kw in TP_RUNS.items()}
+    cases[f"{MOE_ARCH} bf16 chunked"] = dict(
+        seeded, cfg=granite, prompts=tp_prompts(granite.vocab, 6),
+        engine=dict(max_batch=4, max_seq=160), warm=True)
+    if width == 4:
+        name, cfg = "expert-ff fp32", dataclasses.replace(
+            reduced(get_config("qwen2-moe-a2.7b"), act_dtype="float32"),
+            n_experts=6)
+    else:
+        name, cfg = "replicated attention fp32", dataclasses.replace(
+            reduced(get_config(TP_ARCH), act_dtype="float32"), n_kv_heads=1)
+    cases[name] = dict(cfg=cfg, weights={"seed": 0, "dtype": "float32"},
+                       device=TP_DEVICE, max_new_tokens=8,
+                       prompts=TP_FP32_PROMPTS,
+                       engine=dict(max_batch=2, max_seq=64))
+    if width == 4:
+        run = cases[f"{TP_ARCH} bf16 chunked"]
+        cases["migrate"] = dict(run, prompts=run["prompts"][:1], warm=False,
+                                evacuate_after=TP_MIGRATE_AFTER)
+    return cases
+
+
+def _tp_slices(name: str, full, call, dim: int, n: int, worst: dict):
+    """Holds ``call(r, tp, plan)`` (rank r's kernel call: ``plan`` True
+    under the global width's plan) to rank r's slice of ``full`` along
+    ``dim`` (``n`` rows of it in all) exactly, at every width; prints
+    whether the shard's own plan gives the slice too."""
+    own = True
+    for width in TP_WIDTHS:
+        m = n // width
+        for r in range(width):
+            want = full.narrow(dim, r * m, m)
+            got = call(r, width, True)
+            check(torch.equal(got, want), f"TP {width} rank {r} {name}: the "
+                  "shard's call under the global plan is not its slice of "
+                  "the unsharded call")
+            own &= torch.equal(call(r, width, False), want)
+    worst[name] = own
+    print(f"[tp] {name}: every rank's call at TP {TP_WIDTHS} equals its "
+          f"slice of the unsharded call exactly; under the shard's own "
+          f"plan: {'equal too' if own else 'differs'}")
+
+
+def tp_kernel_slices() -> dict:
+    """Each kernel of the TP path at the shard shapes (phase 9h); returns
+    whether the shards' own plans would have matched, by kernel."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    rng = np.random.default_rng(31)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    def cut(t, dim, r, width, n):
+        m = n // width
+        return t.narrow(dim, r * m, m).contiguous()
+
+    own = {}
+    H, Hkv, D, bs, NB, B = 24, 8, 128, 16, 10, 4  # llama3.2-3b, max_seq 160
+    P = 1 + B * NB
+    k, v = rnd(P, bs, Hkv, D), rnd(P, bs, Hkv, D)
+    k8, ksc = quantize_kv(k)
+    v8, vsc = quantize_kv(v)
+    bt = torch.from_numpy(1 + rng.permutation(P - 1)[:B * NB].reshape(
+        B, NB).astype(np.int32)).cuda()
+    for kind, T, rows in (("decode", 0, B), ("verify", SPEC_K + 1, B),
+                          ("verify", 64, 1)):
+        q = rnd(*((rows, T, H, D) if T else (rows, H, D)))
+        pos = torch.from_numpy(rng.integers(48, 160 - max(T, 1), rows)
+                               .astype(np.int32)).cuda()
+        tables = bt[:rows].contiguous()
+        fn = ops.paged_decode if kind == "decode" else ops.paged_verify
+        fq = (ops.paged_decode_quant if kind == "decode"
+              else ops.paged_verify_quant)
+        hd = q.dim() - 2
+        for label, full, call in (
+                ("bf16", fn(q, k, v, tables, pos),
+                 lambda r, w, plan: fn(
+                     cut(q, hd, r, w, H), cut(k, 2, r, w, Hkv),
+                     cut(v, 2, r, w, Hkv), tables, pos,
+                     plan_kv_heads=Hkv if plan else None)),
+                ("int8", fq(q, k8, v8, ksc, vsc, tables, pos),
+                 lambda r, w, plan: fq(
+                     cut(q, hd, r, w, H), cut(k8, 2, r, w, Hkv),
+                     cut(v8, 2, r, w, Hkv), cut(ksc, 2, r, w, Hkv),
+                     cut(vsc, 2, r, w, Hkv), tables, pos,
+                     plan_kv_heads=Hkv if plan else None))):
+            _tp_slices(f"paged {kind} {label} B {rows} T {max(T, 1)}", full,
+                       call, hd, H, own)
+    for dt in (torch.bfloat16, torch.float32):
+        q, fk, fv = (rnd(1, 128, h, D, dtype=dt) for h in (H, Hkv, Hkv))
+        _tp_slices(f"flash attention {str(dt)[6:]} S 128",
+                   ops.flash_attention(q, fk, fv),
+                   lambda r, w, plan: ops.flash_attention(
+                       cut(q, 2, r, w, H), cut(fk, 2, r, w, Hkv),
+                       cut(fv, 2, r, w, Hkv), plan_heads=H if plan else None),
+                   2, H, own)
+    scale = rnd(128)
+    # chameleon-34b's qk-norm: a decode tick, a chunk, a 256-token prompt
+    for shape in ((4, 1, 64, 128), (1, 64, 64, 128), (1, 256, 64, 128)):
+        x = rnd(*shape)
+        rows = x.numel() // 128
+        _tp_slices(f"qk-norm RMSNorm {shape}", ops.rmsnorm(x, scale),
+                   lambda r, w, plan: ops.rmsnorm(
+                       cut(x, 2, r, w, 64), scale,
+                       plan_rows=rows if plan else None), 2, 64, own)
+    gcfg = get_config(MOE_ARCH)
+    E, d, ff = gcfg.n_experts, gcfg.d_model, gcfg.moe_ff
+    for C in (8, 24, 128):  # a decode tick's, a chunk's, a prompt's capacity
+        x, h = rnd(E, C, d), rnd(E, C, ff)
+        wg, wd = rnd(E, d, ff), rnd(E, ff, d)
+        for label, xs, w, N in (("gate/up", x, wg, ff), ("down", h, wd, d)):
+            _tp_slices(f"grouped matmul {label} C {C}, experts",
+                       ops.grouped_matmul(xs, w),
+                       lambda r, wd_, plan, xs=xs, w=w, N=N:
+                       ops.grouped_matmul(
+                           cut(xs, 0, r, wd_, E), cut(w, 0, r, wd_, E),
+                           plan_shape=(E, N) if plan else None), 0, E, own)
+            _tp_slices(f"grouped matmul {label} C {C}, expert ff",
+                       ops.grouped_matmul(xs, w),
+                       lambda r, wd_, plan, xs=xs, w=w, N=N:
+                       ops.grouped_matmul(
+                           xs, cut(w, 2, r, wd_, N),
+                           plan_shape=(E, N) if plan else None), 2, N, own)
+    return own
+
+
+def tp_cublas_slices() -> dict:
+    """Whether ``x @ w[:, cols]`` equals ``(x @ w)[:, cols]`` bitwise at
+    each projection's shard shapes (TP_PROJECTIONS x TP_ROWS x TP 2, 4),
+    bf16 and fp32 (TF32 off); printed, not held: cuBLAS picks its kernel
+    by shape, and the token checks say what a difference costs."""
+    g = torch.Generator(device="cuda").manual_seed(37)
+    out = {}
+    shapes = ([(p, TP_ROWS) for p in TP_PROJECTIONS]
+              + [(p, TP_REDUCED_ROWS) for p in TP_REDUCED_PROJECTIONS])
+    for dt in (torch.bfloat16, torch.float32):
+        same, differ = 0, []
+        for (name, K, N), rows in shapes:
+            w = torch.randn(K, N, generator=g, device="cuda").to(dt)
+            for M in rows:
+                x = torch.randn(M, K, generator=g, device="cuda").to(dt)
+                full = x @ w
+                for width in TP_WIDTHS:
+                    n = N // width
+                    ok = all(torch.equal(
+                        x @ w[:, r * n:(r + 1) * n].contiguous(),
+                        full[:, r * n:(r + 1) * n]) for r in range(width))
+                    same += ok
+                    if not ok:
+                        differ.append(f"{name} M {M} TP {width}")
+        out[str(dt)[6:]] = {"equal": same, "of": same + len(differ),
+                            "differ": differ}
+        print(f"[tp] cuBLAS column slices, {str(dt)[6:]}: {same} of "
+              f"{same + len(differ)} shard products bitwise equal to the "
+              f"unsharded product's columns"
+              + (f"; differ: {', '.join(differ)}" if differ else ""))
+    return out
+
+
+def forced_gaps(model, params, prompt, out, t) -> "tuple":
+    """The unsharded model teacher-forced with the sharded stream ``out``
+    (one monolithic forward over ``prompt`` + ``out``): at each step j
+    from ``t`` on, its top logit less its logit of ``out[j]``, and
+    |top|, as host tensors."""
+    toks = np.concatenate([np.asarray(prompt, np.int64),
+                           np.asarray(out[:-1], np.int64)])
+    with torch.no_grad():
+        h = lm.forward_hidden(model.cfg, params, {"tokens": torch.as_tensor(
+            toks, device=TP_DEVICE)[None]})
+        logits = lm.last_logits(model.cfg, params, h[0, len(prompt) - 1 + t:])
+    top = logits.max(-1).values
+    chosen = logits.gather(-1, torch.as_tensor(
+        np.asarray(out[t:], np.int64), device=TP_DEVICE)[:, None])[:, 0]
+    return (top - chosen).cpu(), top.abs().cpu()
+
+
+def hold_tp_tokens(label: str, prompts: list, base: list, got: list,
+                   exact: bool, model, params) -> int:
+    """Each request's tokens equal the unsharded engine's; where ``exact``
+    is False a request may part from it at a near-tie: from the first
+    step that differs to the last, the unsharded model teacher-forced
+    with the sharded tokens (``forced_gaps``) must hold each sharded
+    token within ``TP_TIE_TOL`` of its top logit.  Returns the requests
+    that diverged."""
+    tol = TP_TIE_TOL
+    n = 0
+    for i, (b, o) in enumerate(zip(base, got)):
+        if tuple(b) == tuple(o):
+            continue
+        t = next((j for j, (x, y) in enumerate(zip(b, o)) if x != y),
+                 min(len(b), len(o)))
+        check(not exact and t < min(len(b), len(o)) and len(b) == len(o),
+              f"{label}: request {i}'s tokens differ at step {t}: "
+              f"{tuple(o)} vs the unsharded {tuple(b)}")
+        gap, top = forced_gaps(model, params, prompts[i], o, t)
+        limit = tol["atol"] + tol["rtol"] * top
+        worst = int(torch.argmax(gap - limit))
+        print(f"[tp] {label}: request {i} first differs at step {t}; "
+              f"teacher-forced over steps {t}-{len(o) - 1}: "
+              f"{int((gap > 0).sum())} of {len(gap)} sharded tokens below "
+              f"the unsharded top, gaps "
+              f"{', '.join(f'{g:.4e}' for g in gap.tolist())} (bf16 "
+              f"tolerance {float(limit[worst]):.4e} at step {t + worst})")
+        check(bool((gap <= limit).all()), f"{label}: request {i}'s token "
+              f"at step {t + worst} is {float(gap[worst]):.4e} below the "
+              f"unsharded top, past the bf16 tolerance "
+              f"{float(limit[worst]):.4e}")
+        n += 1
+    return n
+
+
+# the kernels each TP run must launch (in rank 0)
+TP_NEEDS = {"bf16 chunked": ("paged_decode", "paged_verify", "rmsnorm"),
+            "monolithic": ("flash_attention", "paged_decode"),
+            "int8": ("paged_decode_quant", "paged_verify_quant"),
+            "speculative": ("paged_verify", "flash_decode",
+                            "flash_attention")}
+
+
+def phase_tp(smi: str) -> dict:
+    """Phase 9h; returns the TP paths' launches (rank 0's) by path, for
+    the kernels line."""
+    with timed("tensor-parallel: shard-slice checks"):
+        tp_kernel_slices()
+        tp_cublas_slices()
+    full = {}
+    for arch in (TP_ARCH, MOE_ARCH):
+        model = build_model(get_config(arch))
+        full[arch] = (model, model.init(TP_SEED, device=TP_DEVICE))
+    cases = {**tp_cases(2), **tp_cases(4)}
+    base = {}
+    with timed("tensor-parallel: the unsharded engine"):
+        for name, case in cases.items():
+            if name == "migrate":
+                continue
+            arch = next((a for a in full if name.startswith(a)), None)
+            base[name] = runs.serve(
+                case, params=full[arch][1] if arch else None)
+            gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tp] group: backend {TP_BACKEND}, {'/'.join(map(str, TP_WIDTHS))}"
+          f" ranks on one card ({smi}), every gather staged through host "
+          f"memory (host_staged={TP_HOST_STAGED}); the NCCL path (one card "
+          "a rank) is not run here")
+    rate = {1: {n: b["new_tokens"] / b["seconds"] for n, b in base.items()}}
+    launches = {}
+    for width in TP_WIDTHS:
+        t0 = time.perf_counter()
+        res = tp.spawn(runs.serve_cases, width, TP_BACKEND, tp_cases(width),
+                       host_staged=TP_HOST_STAGED)
+        print(f"[time] tensor-parallel: TP {width} group: "
+              f"{time.perf_counter() - t0:.1f} s")
+        rate[width] = {}
+        for name, got in res.items():
+            if name == "migrate":
+                continue
+            case = cases[name]
+            check(got["ranks_agree"], f"TP {width} {name}: the ranks emitted "
+                  "different tokens")
+            # the full-width bf16 runs; the reduced fp32 ones are exact
+            arch = next((a for a in full if name.startswith(a)), None)
+            exact = arch is None
+            model, params = full.get(arch, (None, None))
+            btoks = base[name]["tokens"]
+            hold_tp_tokens(f"TP {width} {name}", case["prompts"], btoks,
+                           got["tokens"], exact, model, params)
+            run = name.removeprefix(f"{arch} ") if arch else name
+            for k in TP_NEEDS.get(run, ()) + (
+                    ("grouped_matmul",) if arch == MOE_ARCH else ()):
+                check(got["launches"][k] > 0, f"TP {width} {name}: {k} was "
+                      "not launched")
+            rate[width][name] = got["new_tokens"] / got["seconds"]
+            print(f"[tp] TP {width} {name}: {got['tp_shards']}, pool "
+                  f"{got['pool_shape']}, {got['param_bytes'] / 1e9:.3f} GB "
+                  f"of weights a rank; {got['gathers']} gathers "
+                  f"({got['gather_bytes'] / 1e6:.1f} MB) on rank 0; "
+                  f"{rate[width][name]:.1f} tokens/s ({rate[1][name]:.1f} "
+                  "unsharded); peak memory by rank "
+                  + ", ".join(f"{(p or 0) / 2 ** 30:.2f}"
+                              for p in got["peaks"])
+                  + f" GiB ({smi})")
+        for arch, names in ((TP_ARCH, [n for n in res
+                                       if n.startswith(TP_ARCH)]),
+                            (MOE_ARCH, [f"{MOE_ARCH} bf16 chunked"])):
+            launches[f"{arch} TP {width} (rank 0)"] = {
+                k: sum(res[n]["launches"][k] for n in names)
+                for k in runs.KERNELS}
+        if "migrate" in res:
+            tp_migration(res["migrate"], cases["migrate"], *full[TP_ARCH])
+    print(f"[tp] llama3.2-3b bf16 chunked tokens/s by width: "
+          + ", ".join(f"TP {w} {rate[w][f'{TP_ARCH} bf16 chunked']:.1f}"
+                      for w in sorted(rate)) + f" ({smi})")
+    return launches
+
+
+def tp_migration(got: dict, case: dict, model, params):
+    """The request evacuated at TP 4 resumes on an unsharded engine: the
+    snapshot holds every kv head and the global geometry, and the stream
+    equals the uninterrupted unsharded one (a near-tie aside, as the
+    token checks allow)."""
+    snap, req = got["snapshot"], got["request"]
+    cfg = case["cfg"]
+    check(snap.geometry == (cfg.n_layers, cfg.n_kv_heads, cfg.hd) and
+          snap.leaves["k_pages"].shape[3] == cfg.n_kv_heads,
+          f"TP 4 snapshot geometry {snap.geometry}, leaves "
+          f"{tuple(snap.leaves['k_pages'].shape)}")
+    eng = runs.build_engine(dict(case, evacuate_after=None), params=params)
+    prompt = case["prompts"][0]
+    base = Request(0, np.asarray(prompt, np.int64),
+                   max_new_tokens=TP_NEW_TOKENS)
+    eng.submit(base)
+    eng.run_until_drained()
+    eng.reset_prefix_cache()
+    j = len(req.output)
+    check(TP_MIGRATE_AFTER <= j < TP_NEW_TOKENS, f"evacuated after {j}")
+    prefills = eng.stats()["prefill_chunks"]
+    eng.submit(req)
+    eng.run_until_drained()
+    check(eng.stats()["prefill_chunks"] == prefills,
+          "the resumed request ran a prefill pass")
+    hold_tp_tokens("migration TP 4 -> TP 1", [prompt], [base.output],
+                   [req.output], False, model, params)
+    print(f"[tp] migration: evacuated at TP 4 after {j} tokens, "
+          f"{snap.num_pages} pages of {snap.geometry}, resumed unsharded "
+          f"to {len(req.output)} tokens, no prefill pass")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5709,6 +6125,8 @@ def run(smi: str, t_start: float, sweep):
     with timed("continuum"):
         phase_continuum(smi)
         phase_migration(smi)
+    with timed("tensor-parallel serving"):
+        tp_launches = phase_tp(smi)
     with timed("learning pipeline"):
         phase_learning(smi)
     hold_no_backward()
@@ -5762,6 +6180,10 @@ def run(smi: str, t_start: float, sweep):
         # executed cells
         for path, c in ([("launch.serve fleet", serve_launches)]
                         + list(dryrun_launches.items())):
+            if c.get(name):
+                kernels[-1]["launches_by_path"][path] = c[name]
+        # phase 9h's TP paths, rank 0's launches
+        for path, c in tp_launches.items():
             if c.get(name):
                 kernels[-1]["launches_by_path"][path] = c[name]
         # phase 11's forward launches, by trained config

@@ -270,24 +270,32 @@ def _check(q, k, v, window):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int | None = None):
+                    q_offset: int | None = None,
+                    plan_heads: int | None = None):
     """q [B,Sq,H,D], k/v [B,Sk,Hkv,D], fp32 or bf16 (one type) ->
     [B,Sq,H,D] in q's type; mask and query offset as in
     ``flash_attention_ref``, scale ``D ** -0.5``.  Differentiable (through
     ``FlashAttention``) where grad mode is on and an input requires
-    grad."""
+    grad.  ``plan_heads``: see ``flash_attention_fwd``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if plan_heads not in (None, q.shape[2]):
+            raise ValueError("flash attention: a plan of other heads than "
+                             "q's is a serving (forward-only) call")
         return FlashAttention.apply(q, k, v, causal, window, q_offset)
     return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
+                               q_offset=q_offset, plan_heads=plan_heads)
 
 
 @kernel_wrapper
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_offset: int | None = None, return_lse: bool = False):
+                        q_offset: int | None = None, return_lse: bool = False,
+                        plan_heads: int | None = None):
     """The forward alone (no graph): the plain version on the CPU, the
-    kernel on the card; ``return_lse`` also returns the rows' logsumexp
+    kernel on the card.  ``plan_heads`` (default H): the head count the
+    CUDA-core instantiation's split plan is made for; a tensor-parallel
+    rank passes the global count, so that its heads split their keys as
+    the unsharded call does.  ``return_lse`` also returns the rows' logsumexp
     [B, H, Sq] fp32 (the kernel writes it only then)."""
     if on_cpu("flash attention", q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -306,7 +314,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"flash attention: head dim {D} needs {smem} bytes "
                          f"of shared memory, over {MAX_SMEM_BYTES}")
-    splits = plan(B, Sq, Sk, H) if uses_cuda_cores(D, q.dtype) else 1
+    splits = (plan(B, Sq, Sk, plan_heads or H)
+              if uses_cuda_cores(D, q.dtype) else 1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_launch_lse(

@@ -116,20 +116,27 @@ def _rows_aligned(t) -> int:
                and (t.shape[-1] * t.element_size()) % 16 == 0)
 
 
-def grouped_matmul(x, w):
+def grouped_matmul(x, w, *, plan_shape: tuple | None = None):
     """x [E, C, K], w [E, K, N], both fp32 or both bf16 -> [E, C, N] in
     x's type, accumulated in fp32.  Ragged C, K and N are masked in the
     kernel: no operand is padded or copied.  Differentiable (through
-    ``GroupedMatmul``) where grad mode is on and x or w requires grad."""
+    ``GroupedMatmul``) where grad mode is on and x or w requires grad.
+    ``plan_shape``: see ``grouped_matmul_fwd``."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if plan_shape not in (None, (x.shape[0], w.shape[2])):
+            raise ValueError("grouped_matmul: a plan of another (E, N) is "
+                             "a serving (forward-only) call")
         return GroupedMatmul.apply(x, w)
-    return grouped_matmul_fwd(x, w)
+    return grouped_matmul_fwd(x, w, plan_shape=plan_shape)
 
 
 @kernel_wrapper
-def grouped_matmul_fwd(x, w):
+def grouped_matmul_fwd(x, w, *, plan_shape: tuple | None = None):
     """The forward alone (no graph): the plain version on the CPU, the
-    kernel on the card."""
+    kernel on the card.  ``plan_shape`` (default (E, N)): the (experts,
+    columns) the K split is planned for; a tensor-parallel rank holding
+    E/tp experts or N/tp columns passes the global ones, so that its
+    products split K as the unsharded call does."""
     if on_cpu("grouped_matmul", x, w):
         return grouped_matmul_ref(x, w)
     _check(x, w)
@@ -139,7 +146,8 @@ def grouped_matmul_fwd(x, w):
     if out.numel() == 0:  # a launch of 0 CTAs is refused
         return out
     dtype = DTYPES[x.dtype]
-    splits = _splits(dtype, E, C, K, N, x.device.index)
+    Ep, Np = plan_shape or (E, N)
+    splits = _splits(dtype, Ep, C, K, Np, x.device.index)
     # the fp32 partials of a split K, summed in order by the kernel's
     # second pass
     work = (torch.empty((splits, E, C, N), dtype=torch.float32,

@@ -91,11 +91,13 @@ class Plan:
 
 @functools.cache
 def split_plan(B: int, G: int, Hkv: int, S: int, D: int,
-               sms: int = SMS) -> Plan:
+               sms: int = SMS, plan_kv_heads: int | None = None) -> Plan:
     """The split-KV decode plan for rows of S keys, from the shapes alone:
     ``split_rule`` over the B*Hkv (slot, kv head) pairs, as paged
-    verify's plan cuts its keys at T = 1."""
-    split_keys, splits = split_rule(S, B * Hkv, D, sms)
+    verify's plan cuts its keys at T = 1.  ``plan_kv_heads`` (a
+    tensor-parallel rank's global kv heads) cuts the keys as for that
+    many heads; the CTAs and scratch stay Hkv's."""
+    split_keys, splits = split_rule(S, B * (plan_kv_heads or Hkv), D, sms)
     ctas = B * Hkv * splits
     many = splits > 1
     return Plan(key_tile(D), split_keys, splits, ctas,
@@ -104,10 +106,10 @@ def split_plan(B: int, G: int, Hkv: int, S: int, D: int,
 
 
 def plan(B: int, G: int, Hkv: int, NB: int, bs: int, D: int,
-         sms: int = SMS) -> Plan:
+         sms: int = SMS, plan_kv_heads: int | None = None) -> Plan:
     """The launch plan of the bf16-q kernel: ``split_plan`` over the table's
     NB*bs keys."""
-    return split_plan(B, G, Hkv, NB * bs, D, sms)
+    return split_plan(B, G, Hkv, NB * bs, D, sms, plan_kv_heads)
 
 
 def split_scratch(p: Plan, device):
@@ -262,14 +264,15 @@ def check_paged_args(what, q_layout, q, k_pages, v_pages, block_tables, pos,
         raise ValueError(f"{what}: window {window} < 0")
 
 
-def _split_args(q, k_pages, block_tables):
+def _split_args(q, k_pages, block_tables, plan_kv_heads=None):
     """The bf16-q kernel's scratch pointers and plan arguments, and the
     scratch itself (kept alive by the caller until the launch)."""
     B, H, D = q.shape
     _, bs, Hkv, _ = k_pages.shape
     NB = block_tables.shape[1]
     G = H // Hkv
-    p = plan(B, G, Hkv, NB, bs, D, device_sms(q.device.index))
+    p = plan(B, G, Hkv, NB, bs, D, device_sms(q.device.index),
+             plan_kv_heads)
     smem = smem_bytes(G, D, bs, p.split_keys, p.splits, k_pages.dtype)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"paged decode: needs {smem} bytes of shared "
@@ -279,7 +282,7 @@ def _split_args(q, k_pages, block_tables):
 
 
 def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
-            window):
+            window, plan_kv_heads=None):
     B, H, D = q.shape
     _, bs, Hkv, _ = k_pages.shape
     NB = block_tables.shape[1]
@@ -294,7 +297,8 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
              block_tables.data_ptr(), pos.data_ptr())
     shape = (B, H, Hkv, D, bs, NB, int(window))
     if q.dtype == torch.bfloat16:
-        ptrs, cut, scratch = _split_args(q, k_pages, block_tables)
+        ptrs, cut, scratch = _split_args(q, k_pages, block_tables,
+                                         plan_kv_heads)
         fn = lib.paged_decode_launch
         args = pages + ptrs + (out.data_ptr(),) + shape + cut
     else:
@@ -317,24 +321,28 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
 
 
 @kernel_wrapper
-def paged_decode(q, k_pages, v_pages, block_tables, pos, *, window=0):
+def paged_decode(q, k_pages, v_pages, block_tables, pos, *, window=0,
+                 plan_kv_heads=None):
     """q [B,H,D] fp32/bf16; k_pages/v_pages [P,bs,Hkv,D] bf16 (the plain
     version on the CPU also takes fp32); block_tables [B,NB] int32
-    (-1 = unallocated); pos [B] int32.  Returns [B,H,D] in q's dtype."""
+    (-1 = unallocated); pos [B] int32.  Returns [B,H,D] in q's dtype.
+    ``plan_kv_heads`` (default Hkv): the kv heads the split plan is made
+    for; a tensor-parallel rank passes the global count, so that its
+    heads split their keys as the unsharded call does."""
     if on_cpu("paged decode", q, k_pages, v_pages, block_tables, pos):
         return paged_decode_ref(q, k_pages, v_pages, block_tables, pos,
                                 window=window)
     check_paged_args("paged decode", "B,H,D", q, k_pages, v_pages,
                      block_tables, pos, window, ())
     out = _launch(q, k_pages, v_pages, None, None, block_tables, pos,
-                  window)
+                  window, plan_kv_heads)
     paged_decode.launches += 1
     return out
 
 
 @kernel_wrapper
 def paged_decode_quant(q, k_pages, v_pages, k_scales, v_scales,
-                       block_tables, pos, *, window=0):
+                       block_tables, pos, *, window=0, plan_kv_heads=None):
     """``paged_decode`` over int8 pages with fp32 row scales
     k_scales/v_scales [P,bs,Hkv], dequantized right after the load."""
     if on_cpu("paged decode", q, k_pages, v_pages, k_scales, v_scales,
@@ -345,7 +353,7 @@ def paged_decode_quant(q, k_pages, v_pages, k_scales, v_scales,
     check_paged_args("paged decode", "B,H,D", q, k_pages, v_pages,
                      block_tables, pos, window, (k_scales, v_scales))
     out = _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables,
-                  pos, window)
+                  pos, window, plan_kv_heads)
     paged_decode_quant.launches += 1
     return out
 

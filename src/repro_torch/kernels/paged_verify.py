@@ -65,18 +65,21 @@ class Plan:
 
 @functools.cache
 def plan(B: int, T: int, G: int, Hkv: int, NB: int, bs: int, D: int,
-         sms: int = SMS) -> Plan:
+         sms: int = SMS, plan_kv_heads: int | None = None) -> Plan:
     """The launch plan from the shapes alone.  Rows: 16, 32 or 64 a tile
     (32 takes the speculative T*G = 28 without padding half of a 64-row
     tile); keys: ``split_rule`` over the (row tile, slot, kv head) units,
     so that passes 1 and 2 run about two CTAs per SM (a split a whole
     number of ``key_tile(D)``-key tiles, at most ``MAX_SPLITS``
-    splits)."""
+    splits).  ``plan_kv_heads`` (a tensor-parallel rank's global kv
+    heads) cuts the keys as for that many heads; the CTAs and scratch
+    stay Hkv's."""
     rows_total = T * G
     rows = 16 if rows_total <= 16 else 32 if rows_total <= 32 else 64
     tiles = -(-rows_total // rows)
     units = B * Hkv * tiles
-    split_keys, splits = split_rule(NB * bs, units, D, sms)
+    split_keys, splits = split_rule(NB * bs, B * (plan_kv_heads or Hkv)
+                                    * tiles, D, sms)
     ctas = units * splits
     return Plan(rows, tiles, key_tile(D), split_keys, splits, ctas,
                 2 * ctas * rows, ctas * rows * D if splits > 1 else 0)
@@ -154,13 +157,14 @@ def variant(dtype=torch.bfloat16) -> str:
     return _lib().paged_verify_variant(Q_DTYPES[dtype]).decode()
 
 
-def _split_args(q, k_pages, block_tables):
+def _split_args(q, k_pages, block_tables, plan_kv_heads=None):
     """The bf16-q kernel's scratch pointers and plan arguments, and the
     scratch itself (kept alive by the caller until the launch)."""
     B, T, H, D = q.shape
     _, bs, Hkv, _ = k_pages.shape
     NB = block_tables.shape[1]
-    p = plan(B, T, H // Hkv, Hkv, NB, bs, D, device_sms(q.device.index))
+    p = plan(B, T, H // Hkv, Hkv, NB, bs, D, device_sms(q.device.index),
+             plan_kv_heads)
     smem = smem_bytes(D, bs, p.rows, p.split_keys, p.splits, k_pages.dtype)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"paged verify: needs {smem} bytes of shared "
@@ -174,7 +178,7 @@ def _split_args(q, k_pages, block_tables):
 
 
 def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
-            window):
+            window, plan_kv_heads=None):
     B, T, H, D = q.shape
     _, bs, Hkv, _ = k_pages.shape
     NB = block_tables.shape[1]
@@ -191,7 +195,8 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
              block_tables.data_ptr(), pos.data_ptr())
     shape = (B, T, H, Hkv, D, bs, NB, int(window))
     if q.dtype == torch.bfloat16:
-        ptrs, cut, scratch = _split_args(q, k_pages, block_tables)
+        ptrs, cut, scratch = _split_args(q, k_pages, block_tables,
+                                         plan_kv_heads)
         fn = lib.paged_verify_launch
         args = pages + ptrs + (out.data_ptr(),) + shape + cut
     else:
@@ -215,25 +220,28 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
 
 
 @kernel_wrapper
-def paged_verify(q, k_pages, v_pages, block_tables, pos, *, window=0):
+def paged_verify(q, k_pages, v_pages, block_tables, pos, *, window=0,
+                 plan_kv_heads=None):
     """q [B,T,H,D] fp32/bf16, query t of slot b at ``pos[b] + t``;
     k_pages/v_pages [P,bs,Hkv,D] bf16 (the plain version on the CPU also
     takes fp32); block_tables [B,NB] int32 (-1 = unallocated); pos [B]
-    int32.  Returns [B,T,H,D] in q's dtype."""
+    int32.  Returns [B,T,H,D] in q's dtype.  ``plan_kv_heads`` (default
+    Hkv): the kv heads the split plan is made for (a tensor-parallel
+    rank's global count)."""
     if on_cpu("paged verify", q, k_pages, v_pages, block_tables, pos):
         return paged_verify_ref(q, k_pages, v_pages, block_tables, pos,
                                 window=window)
     check_paged_args("paged verify", "B,T,H,D", q, k_pages, v_pages,
                      block_tables, pos, window, ())
     out = _launch(q, k_pages, v_pages, None, None, block_tables, pos,
-                  window)
+                  window, plan_kv_heads)
     paged_verify.launches += 1
     return out
 
 
 @kernel_wrapper
 def paged_verify_quant(q, k_pages, v_pages, k_scales, v_scales,
-                       block_tables, pos, *, window=0):
+                       block_tables, pos, *, window=0, plan_kv_heads=None):
     """``paged_verify`` over int8 pages with fp32 row scales
     k_scales/v_scales [P,bs,Hkv]: the kernel applies k_scales to the
     scores and v_scales to the probabilities, the plain version
@@ -246,7 +254,7 @@ def paged_verify_quant(q, k_pages, v_pages, k_scales, v_scales,
     check_paged_args("paged verify", "B,T,H,D", q, k_pages, v_pages,
                      block_tables, pos, window, (k_scales, v_scales))
     out = _launch(q, k_pages, v_pages, k_scales, v_scales, block_tables,
-                  pos, window)
+                  pos, window, plan_kv_heads)
     paged_verify_quant.launches += 1
     return out
 

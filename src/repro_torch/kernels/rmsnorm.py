@@ -213,20 +213,30 @@ def _check(x, scale, out):
                          "aligned start")
 
 
-def rmsnorm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
+def rmsnorm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False,
+            plan_rows: int | None = None):
     """x [..., d] fp32/bf16, scale [d] fp32/bf16 -> [..., d] in x's type.
     On the card a row must fill whole 16-byte vectors (d a multiple of 8
     in bf16, of 4 in fp32).  Differentiable (through ``RMSNorm``) where
-    grad mode is on and x or the scale requires grad."""
+    grad mode is on and x or the scale requires grad.  ``plan_rows``: see
+    ``rmsnorm_fwd``."""
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        if plan_rows is not None:
+            raise ValueError("rmsnorm: a plan of other rows than x's is a "
+                             "serving (forward-only) call")
         return RMSNorm.apply(x, scale, eps, zero_centered)
-    return rmsnorm_fwd(x, scale, eps=eps, zero_centered=zero_centered)
+    return rmsnorm_fwd(x, scale, eps=eps, zero_centered=zero_centered,
+                       plan_rows=plan_rows)
 
 
 @kernel_wrapper
-def rmsnorm_fwd(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
+def rmsnorm_fwd(x, scale, *, eps: float = 1e-6, zero_centered: bool = False,
+                plan_rows: int | None = None):
     """The forward alone (no graph): the plain version on the CPU, the
-    kernel on the card."""
+    kernel on the card.  ``plan_rows`` (default x's rows): the row count
+    the launch plan is made for; a tensor-parallel rank's per-head norm
+    passes the rows of all the heads, so that a row is cut over threads
+    as the unsharded call cuts it."""
     if on_cpu("rmsnorm", x, scale):
         return rmsnorm_ref(x, scale, eps=eps, zero_centered=zero_centered)
     out = torch.empty_like(x)
@@ -235,7 +245,7 @@ def rmsnorm_fwd(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
     rows = x.numel() // d if d else 0
     if rows == 0:  # nothing to normalize: a launch of 0 CTAs is refused
         return out
-    nv, tpr = plan(rows, d, x.dtype)
+    nv, tpr = plan(plan_rows or rows, d, x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().rmsnorm_launch(

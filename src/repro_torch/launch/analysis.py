@@ -28,7 +28,10 @@ every aten op it issues is counted:
                    counted, only its outputs): the torch meaning of XLA's
                    ``temp_size_in_bytes``.
 
-Collective bytes are 0: the dry run covers one card (``mesh.py``).
+Collective bytes are 0 on one card.  On a mesh (``dryrun.py --mesh``) the
+dry run reckons per-device arguments only: eager torch has no GSPMD
+partitioner to lower a cell's program per device, so its temp and
+collective bytes are not known there.
 
 ``hlo_analysis.py``'s HLO-text parser (``parse_hlo``,
 ``_multiplicities``, the fusion refinements) and ``reanalyze.py`` read

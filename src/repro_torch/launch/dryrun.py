@@ -19,15 +19,24 @@ them under ``analysis.Counter``, which records:
   * ``fits``      -- arguments plus temp within ``mesh.HBM_BYTES`` (None
                      where the temp is only a lower bound and within it).
 
-The JAX dry run lowers each cell onto the 16x16 and 2x16x16 TPU meshes;
-those need tensor parallelism (ROADMAP item 12), so ``mesh`` is
-``"1xH100"`` here.  The trace touches no device, so the sweep runs on the
-CPU:
+The JAX dry run lowers each cell onto the 16x16 and 2x16x16 TPU meshes.
+Eager torch has no GSPMD partitioner to lower a cell per device, so a
+mesh (``--mesh production``, ``multipod`` or ``edge``: the H100 meshes of
+``mesh.py``) gets ``mesh_cell``'s reckoning instead of a trace: each
+device's argument bytes (the bf16 parameters by ``ShardingPlan.params``,
+the ZeRO-1 AdamW state by ``opt_state``, the batch by ``batch`` and the
+decode cache by ``cache``), with ``fits`` False where they alone exceed
+the card's memory and None where they fit, since the temp and collective
+bytes stay null (the record says why).  The one-card records keep
+``mesh = "1xH100"``.  The trace touches no device, so the sweep runs on
+the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
       --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --jobs 6 \\
       --out build/dryrun.json
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+      --mesh production --out build/dryrun_mesh.json
 
 (``--jobs``: worker processes; an extrapolated cell's two traces are two
 jobs.)  ``--execute`` then runs each cell the sweep reckons to fit on the
@@ -57,11 +66,20 @@ from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_applicable
 from repro_torch.device import observe_kernels, resolve
+from repro_torch.distributed.sharding import make_plan, placement_bytes
 from repro_torch.kernels import ops
 from repro_torch.launch.analysis import Counter, Roofline
-from repro_torch.launch.mesh import HBM_BYTES, MESH
+from repro_torch.launch.mesh import (HBM_BYTES, MESH, make_edge_mesh,
+                                     make_production_mesh)
 from repro_torch.models.api import build_model
+from repro_torch.nn.spec import tree_leaves as dict_leaves
 from repro_torch.train.optimizer import adamw_init
+
+MESHES = {"production": lambda: make_production_mesh(),
+          "multipod": lambda: make_production_mesh(multi_pod=True),
+          "edge": lambda: make_edge_mesh()}
+NO_GSPMD = ("eager torch has no GSPMD partitioner to lower the cell per "
+            "device: temp and collective bytes are not reckoned on a mesh")
 
 def tree_bytes(tree) -> int:
     """Bytes of the storages of a tree's tensors (dicts, tuples and the
@@ -198,6 +216,62 @@ def count_at(arch: str, shape_name: str, seq_len: int | None):
     return n, time.perf_counter() - t0
 
 
+def mesh_arguments(cfg, shape, mesh) -> dict:
+    """Each device's argument bytes of ``shape``'s entry point on
+    ``mesh`` by ``make_plan``'s placements: the bf16 parameters, and for
+    a train cell the AdamW state (int32 step; fp32 m, v and master under
+    ZeRO-1), the batch, and for a decode cell the dense cache."""
+    model = build_model(cfg)
+    plan = make_plan(cfg, mesh)
+    spec = model.spec
+    specs = dict_leaves(spec)
+
+    def total(shapes_dtypes, placements) -> int:
+        return sum(placement_bytes(sh, dt, pl, mesh)
+                   for (sh, dt), pl in zip(shapes_dtypes, placements))
+
+    out = {"params": total([(s.shape, torch.bfloat16) for s in specs],
+                           dict_leaves(plan.params(spec)))}
+    if shape.kind == "train":
+        opt = plan.opt_state(spec)
+        out["opt_state"] = 4 + 3 * total(
+            [(s.shape, torch.float32) for s in specs], dict_leaves(opt.m))
+    batch = model.input_specs(shape)
+    out["batch"] = total([(t.shape, t.dtype) for t in dict_leaves(batch)],
+                         dict_leaves(plan.batch(batch)))
+    if shape.kind == "decode":
+        cache = model.abstract_cache(shape.global_batch, shape.seq_len)
+        out["cache"] = total([(t.shape, t.dtype) for t in cache.values()],
+                             list(plan.cache(cfg, cache).values()))
+    return out
+
+
+def mesh_cell(arch: str, shape_name: str, mesh, cfg=None) -> dict:
+    """One cell's record on ``mesh`` (``mesh_arguments``): per-device
+    argument bytes, ``fits`` False where they exceed the card's memory
+    and None where they fit (the temp is not known), temp and collective
+    bytes null (``NO_GSPMD``)."""
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape_name]
+    rec = {"arch": arch, "shape": shape_name, "mesh": str(mesh),
+           "kind": shape.kind}
+    ok, reason = shape_applicable(cfg, shape)
+    if not ok:
+        return {**rec, "status": "skipped", "reason": reason}
+    try:
+        parts = mesh_arguments(cfg, shape, mesh)
+    except Exception as e:  # noqa: BLE001 -- recorded, as the JAX dry run
+        return _error(rec, e)
+    args = sum(parts.values())
+    return {**rec, "status": "ok", "devices": mesh.size,
+            "arguments_by_part": parts,
+            "memory": {"argument_size_in_bytes": args,
+                       "output_size_in_bytes": None,
+                       "temp_size_in_bytes": None},
+            "collective_bytes": None, "null_because": NO_GSPMD,
+            "fits": False if args > HBM_BYTES else None}
+
+
 def _parallel(cells: list, jobs: int):
     """Yields the record of each (arch, shape) of ``cells`` as its traces
     finish, on ``jobs`` worker processes: an extrapolated cell's two
@@ -279,7 +353,14 @@ def line(rec: dict) -> str:
     head = f"[dryrun] {rec['arch']} x {rec['shape']} x {rec['mesh']}:"
     if rec["status"] != "ok":
         return f"{head} {rec['status']} ({rec.get('reason') or rec['error']})"
-    m, r = rec["memory"], rec["roofline"]
+    m = rec["memory"]
+    if "roofline" not in rec:  # a mesh cell: arguments only
+        parts = ", ".join(f"{k} {v / 1e9:.3f}"
+                          for k, v in rec["arguments_by_part"].items())
+        return (f"{head} ok, fits={rec['fits']} args "
+                f"{m['argument_size_in_bytes'] / 1e9:.3f} GB a device "
+                f"({parts} GB), temp and collectives not reckoned")
+    r = rec["roofline"]
     return (f"{head} ok, fits={rec['fits']} args "
             f"{m['argument_size_in_bytes'] / 1e9:.2f} GB temp "
             f"{m['temp_size_in_bytes'] / 1e9:.2f} GB, flops "
@@ -520,11 +601,23 @@ def main(argv=None):
                     help="worker processes tracing cells in parallel")
     ap.add_argument("--execute", action="store_true",
                     help="then run each cell that fits on the card")
+    ap.add_argument("--mesh", choices=["single", *MESHES], default="single",
+                    help="reckon per-device arguments on an H100 mesh "
+                         "(mesh.py) instead of tracing on one card")
     args = ap.parse_args(argv)
 
     archs = ARCH_IDS if (args.all or not args.arch) else args.arch
     shapes = list(SHAPES) if (args.all or not args.shape) else args.shape
     t0 = time.perf_counter()
+    if args.mesh != "single":
+        mesh = MESHES[args.mesh]()
+        results = [mesh_cell(a, s, mesh) for a in archs for s in shapes]
+        for rec in results:
+            print(line(rec), flush=True)
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+        return int(any(r["status"] == "error" for r in results))
     results = sweep(archs, shapes, args.out, jobs=args.jobs)
     n = {s: sum(r["status"] == s for r in results)
          for s in ("ok", "skipped", "error")}

@@ -459,6 +459,13 @@ class Model:
             o = lm._norm(pl, o, cfg.norm, "pn1")
         return lm._ffn(pl, cfg, x + o)
 
+    def _plan_kv_heads(self) -> "int | None":
+        """The global kv heads of a tensor-parallel local model whose
+        heads shard (None otherwise): the paged kernels launch under the
+        plan of the global width (``lm.tp_width``)."""
+        tp = lm.tp_width(self.cfg, "kv_heads")
+        return self.cfg.n_kv_heads * tp if tp > 1 else None
+
     def _rope(self, length: int, device):
         key = (length, str(device))
         if key not in self._ropes:
@@ -664,6 +671,7 @@ class Model:
         rows = torch.arange(B, device=tables.device)
         page = tables[rows, (pos // bs).long()].long().clamp(min=0)
         off = (pos % bs).long()
+        plan = self._plan_kv_heads()
 
         def attend(q1, k1, v1, kv, window):
             q1 = q1.contiguous()
@@ -676,11 +684,13 @@ class Model:
                 ksc[page, off] = k1s
                 vsc[page, off] = v1s
                 return ops.paged_decode_quant(q1, kp, vp, ksc, vsc, tables,
-                                              pos, window=window)
+                                              pos, window=window,
+                                              plan_kv_heads=plan)
             kp, vp = kv
             kp[page, off] = k1.to(kp.dtype)
             vp[page, off] = v1.to(vp.dtype)
-            return ops.paged_decode(q1, kp, vp, tables, pos, window=window)
+            return ops.paged_decode(q1, kp, vp, tables, pos, window=window,
+                                    plan_kv_heads=plan)
 
         names = _QUANT_NAMES if quant else _NAMES
         x = self._run_layers(params, x, pos, tuple(cache[n] for n in names),
@@ -722,6 +732,7 @@ class Model:
         live = (page >= 0) & (blk < NB)
         # dead rows point at the null page, which no live row writes
         idx = (torch.where(live, page, 0), positions % bs)
+        plan = self._plan_kv_heads()
 
         def attend(q, k, v, kv, window):
             q = q.contiguous()
@@ -733,11 +744,13 @@ class Model:
                                   (vsc, v1s)):
                     _masked_write(leaf, idx, new, live)
                 return ops.paged_verify_quant(q, kp, vp, ksc, vsc, tables,
-                                              pos, window=window)
+                                              pos, window=window,
+                                              plan_kv_heads=plan)
             kp, vp = kv
             _masked_write(kp, idx, k, live)
             _masked_write(vp, idx, v, live)
-            return ops.paged_verify(q, kp, vp, tables, pos, window=window)
+            return ops.paged_verify(q, kp, vp, tables, pos, window=window,
+                                    plan_kv_heads=plan)
 
         names = _QUANT_NAMES if quant else _NAMES
         # rope positions clamp into the table, as a JAX gather does
@@ -830,6 +843,7 @@ class Model:
         off = positions[:n] % bs
         qpos = positions[None]  # [1, C]
         pos = torch.tensor([pos0], dtype=torch.int32, device=dev)
+        plan = self._plan_kv_heads()
 
         def attend(q, k, v, kv, window):
             q = q.contiguous()
@@ -842,11 +856,13 @@ class Model:
                 ksc[page, off] = k1s
                 vsc[page, off] = v1s
                 return ops.paged_verify_quant(q, kp, vp, ksc, vsc, tables,
-                                              pos, window=window)
+                                              pos, window=window,
+                                              plan_kv_heads=plan)
             kp, vp = kv
             kp[page, off] = k[0, :n].to(kp.dtype)
             vp[page, off] = v[0, :n].to(vp.dtype)
-            return ops.paged_verify(q, kp, vp, tables, pos, window=window)
+            return ops.paged_verify(q, kp, vp, tables, pos, window=window,
+                                    plan_kv_heads=plan)
 
         names = _QUANT_NAMES if quant else _NAMES
         # rope positions clamp into the table, as a JAX gather does: a

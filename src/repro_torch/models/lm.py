@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
@@ -97,10 +98,12 @@ def _norm_spec(L, dim, kind, prefix):
     return out
 
 
-def _head_rms(x, scale):
+def _head_rms(x, scale, tp: int = 1):
     """Per-head qk-norm, the same function as the rmsnorm kernel's per
-    row of Dh. x [..., Dh], scale [Dh]."""
-    return rmsnorm(x, scale, eps=1e-6)
+    row of Dh. x [..., Dh], scale [Dh]; ``tp``-sharded heads launch under
+    the plan of all the heads' rows."""
+    rows = x.numel() // x.shape[-1] * tp if tp > 1 else None
+    return rmsnorm(x, scale, eps=1e-6, plan_rows=rows)
 
 
 def _act(name):
@@ -111,8 +114,41 @@ def _act(name):
     raise ValueError(name)
 
 
+def tp_width(cfg: ArchConfig, part: str) -> int:
+    """How many ranks split ``part`` (a ``tp_shards`` entry) of a
+    tensor-parallel local config (``distributed/tp.py``), else 1.  A
+    kernel that runs at a shard's shapes launches under the plan of the
+    global width (``plan_*`` arguments), so that each rank computes its
+    slice of the unsharded call's output bit for bit."""
+    if cfg.tp_axis and part in cfg.tp_shards:
+        return coll.axis_size(cfg.tp_axis)
+    return 1
+
+
+def _col_gathered(x, w, cfg: ArchConfig, dt):
+    """``x @ w`` where ``x``'s last dim and ``w``'s output columns are
+    both tensor-parallel: ``w`` holds the full contraction dim but 1/tp
+    of the output columns.
+
+    Two all-gathers, pure data movement, rebuild the replicated input and
+    output around one local matmul over the full contraction, so every
+    output element is a whole dot product computed on one rank.  It
+    equals the unsharded product's element only where the matmul is
+    column-sliceable, as the JAX package assumes of XLA's dot; cuBLAS
+    is not at every shard shape (``PERF.md``), so bf16 greedy tokens can
+    leave the unsharded engine's at a near-tie.  A row-parallel
+    product with a sum of partials would move less but rounds its split-K
+    partial sums differently and flips greedy argmax on near-ties."""
+    full = coll.all_gather(x, cfg.tp_axis, -1)
+    return coll.all_gather(full @ w.to(dt), cfg.tp_axis, -1)
+
+
 def _attn_out(pl_attn, cfg: ArchConfig, o, dt):
-    """Attention output projection ``o @ wo``."""
+    """Attention output projection ``o @ wo``.  Tensor-parallel heads hand
+    in the local heads' outputs; wo holds all H*Dh rows but 1/tp of the
+    d_model output columns (``_col_gathered``)."""
+    if cfg.tp_axis and "heads" in cfg.tp_shards:
+        return _col_gathered(o, pl_attn["wo"], cfg, dt)
     return o @ pl_attn["wo"].to(dt)
 
 
@@ -292,18 +328,24 @@ def _qkv(pl, cfg, xn, B, S):
     k = k.reshape(B, S, Hkv, Dh)
     v = v.reshape(B, S, Hkv, Dh)
     if "qn" in pl:
-        q = _head_rms(q, pl["qn"])
-        k = _head_rms(k, pl["kn"])
+        tp = tp_width(cfg, "heads")
+        q = _head_rms(q, pl["qn"], tp)
+        k = _head_rms(k, pl["kn"], tp)
     return q, k, v
 
 
 def _mlp(pl, cfg, xn):
     dt = xn.dtype
     act = _act(cfg.act)
+    tp = bool(cfg.tp_axis) and "mlp" in cfg.tp_shards
     if "w1" in pl:  # plain, with biases (whisper)
         h = act(xn @ pl["w1"].to(dt) + pl["b1"].to(dt))
+        if tp:  # b2 is replicated, added once to the gathered output
+            return _col_gathered(h, pl["w2"], cfg, dt) + pl["b2"].to(dt)
         return h @ pl["w2"].to(dt) + pl["b2"].to(dt)
     h = act(xn @ pl["w_gate"].to(dt)) * (xn @ pl["w_up"].to(dt))
+    if tp:
+        return _col_gathered(h, pl["w_down"], cfg, dt)
     return h @ pl["w_down"].to(dt)
 
 
@@ -363,7 +405,8 @@ def _attn_layer(cfg: ArchConfig, pl, x, rope, window: int, positions,
     if pkv is not None:
         ka = torch.cat([pkv[0].to(k.dtype), k], 1)
         va = torch.cat([pkv[1].to(v.dtype), v], 1)
-    o = flash_attention(q, ka, va, window=window)
+    o = flash_attention(q, ka, va, window=window,
+                        plan_heads=cfg.n_heads * tp_width(cfg, "heads"))
     o = _attn_out(pl["attn"], cfg, o.reshape(B, S, -1), x.dtype)
     if cfg.post_norms:
         o = _norm(pl, o, cfg.norm, "pn1")

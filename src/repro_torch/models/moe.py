@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer with sort-based token dispatch (port of
-``repro/models/moe.py`` for one device).
+``repro/models/moe.py``).
 
 Each token picks its ``top_k`` experts from an fp32 softmax router; the
 (token, expert) slots are sorted by expert (stable), each expert takes the
@@ -20,13 +20,25 @@ order), so a step's gradients are the same bits every time (PyTorch's own
 backward of an index is a scatter-add, whose order on the card is not
 fixed).
 
-Tensor-parallel and expert-parallel MoE (``tp_axis``) are not ported.
+Tensor-parallel serving (``tp_axis``, ``distributed/tp.py``): the router
+stays replicated and the full-E dispatch runs on every rank, so gating,
+top-k and the sort are the same bits everywhere.  With ``"experts"`` in
+``tp_shards`` a rank holds E/tp experts: it runs its experts' rows of the
+dispatch buffer through the grouped matmul and an all-gather along E
+rebuilds the [E, C, d] expert outputs (expert parallelism).  With
+``"expert_ff"`` it holds 1/tp of every expert's ff columns and of the down
+projection's d output columns: the ff activations are gathered, the down
+projection runs over the full ff, and its output columns are gathered
+(the shared expert likewise with ``"shared_ff"``).  Every gathered value
+is one rank's full-contraction product, launched under the plan of the
+global (E, N), so the layer computes the unsharded values.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops
 from repro_torch.nn.spec import TensorSpec
 
@@ -119,11 +131,18 @@ def _gather(src, idx, mask, back_idx, back_mask, fold):
     return torch.where(mask[..., None], src[idx], 0)
 
 
-def _shared_expert(p, x, act):
-    """The shared expert's MLP in x's type, times its fp32 sigmoid gate."""
+def _shared_expert(p, x, act, tp_axis: str = ""):
+    """The shared expert's MLP in x's type, times its fp32 sigmoid gate;
+    with ``tp_axis`` its ff columns are sharded (gather, down projection
+    over the full ff to 1/tp of the d columns, gather)."""
     dt = x.dtype
     sgx = act(x @ p["shared_gate"].to(dt)) * (x @ p["shared_up"].to(dt))
-    shared = sgx @ p["shared_down"].to(dt)
+    if tp_axis:
+        shared = coll.all_gather(
+            coll.all_gather(sgx, tp_axis, 1) @ p["shared_down"].to(dt),
+            tp_axis, 1)
+    else:
+        shared = sgx @ p["shared_down"].to(dt)
     gate = torch.sigmoid(x.float() @ p["shared_router"].float())
     return shared.float() * gate
 
@@ -133,12 +152,9 @@ def moe_apply(p, x, *, top_k: int, norm_topk: bool,
               tp_axis: str = "", tp_shards=()):
     """x [T, d] -> [T, d].  ``p`` holds one layer's weights (no leading L
     dim).  ``dispatch_axes`` only aligns the capacity to 128, as the JAX
-    function does before pinning it to mesh axes (one device here: no
-    pin)."""
-    if tp_axis:
-        raise NotImplementedError(
-            "tensor- and expert-parallel MoE is not ported to repro_torch "
-            "yet (ROADMAP queue 1 item 12)")
+    function does before pinning it to mesh axes (no pin here: the
+    tensor-parallel modes of ``tp_axis``/``tp_shards`` place the experts,
+    see the module's docstring)."""
     T, d = x.shape
     E = p["router"].shape[-1]
     C = capacity(T, E, top_k, capacity_factor,
@@ -167,9 +183,26 @@ def moe_apply(p, x, *, top_k: int, norm_topk: bool,
 
     # ---- the three grouped expert contractions (the CUDA kernel)
     dt = x.dtype
-    g = ops.grouped_matmul(xe, p["w_gate"].to(dt))
-    u = ops.grouped_matmul(xe, p["w_up"].to(dt))
-    ye = ops.grouped_matmul(act(g) * u, p["w_down"].to(dt))
+    wg, wu, wd = (p[k].to(dt) for k in ("w_gate", "w_up", "w_down"))
+    if tp_axis and "experts" in tp_shards:
+        E_loc = wg.shape[0]  # this rank's experts, in rank order
+        xe_loc = xe[coll.axis_index(tp_axis) * E_loc:][:E_loc]
+        g = ops.grouped_matmul(xe_loc, wg, plan_shape=(E, wg.shape[2]))
+        u = ops.grouped_matmul(xe_loc, wu, plan_shape=(E, wu.shape[2]))
+        ye = coll.all_gather(
+            ops.grouped_matmul(act(g) * u, wd, plan_shape=(E, d)),
+            tp_axis, 0)
+    elif tp_axis and "expert_ff" in tp_shards:
+        tp = coll.axis_size(tp_axis)
+        g = ops.grouped_matmul(xe, wg, plan_shape=(E, wg.shape[2] * tp))
+        u = ops.grouped_matmul(xe, wu, plan_shape=(E, wu.shape[2] * tp))
+        gu = coll.all_gather(act(g) * u, tp_axis, 2)
+        ye = coll.all_gather(
+            ops.grouped_matmul(gu, wd, plan_shape=(E, d)), tp_axis, 2)
+    else:
+        g = ops.grouped_matmul(xe, wg)
+        u = ops.grouped_matmul(xe, wu)
+        ye = ops.grouped_matmul(act(g) * u, wd)
 
     # ---- combine: each (token, k) slot gathers its expert's output
     vals = _gather(ye.reshape(E * C, d), rows, kept, slot_of, valid,
@@ -177,7 +210,8 @@ def moe_apply(p, x, *, top_k: int, norm_topk: bool,
     y = torch.einsum("tkd,tk->td", vals.float(),
                      gate_vals * kept.reshape(T, top_k))
     if "shared_gate" in p:
-        y = y + _shared_expert(p, x, act)
+        y = y + _shared_expert(
+            p, x, act, tp_axis if "shared_ff" in tp_shards else "")
     return y.to(dt)
 
 

@@ -54,8 +54,10 @@ Port notes.  A live handle's weights are the port's seeded init
 ``ArchConfig`` in place of ``reduced(get_config(arch))`` (full width on
 the card), and ``torch_device=`` where the engine runs (None = the CUDA
 card; ``device`` stays the profiled hardware the virtual clock charges).
-Tensor-parallel handles (``tp > 1``) are not ported (ROADMAP queue 1
-item 12).  Every latency the harness reports is virtual: the engines'
+A live handle with ``tp > 1`` serves over ``distributed.tp.serving_mesh``:
+the whole cluster then runs SPMD under a process group of ``tp`` ranks
+(``distributed.tp.spawn``), rank by rank, the ``tp = 1`` handles the same
+on every rank.  Every latency the harness reports is virtual: the engines'
 ``clock`` reads the handle's ``vtime``.
 """
 from __future__ import annotations
@@ -408,8 +410,9 @@ class EngineHandle(ServerHandle):
         routing axis: the tick costs switch to the cost model's TP
         rooflines (bytes and FLOPs divided by ``tp`` plus the per-layer
         collective term on ``ici_bw``), so the router prices mesh width
-        like every other knob.  A live engine over a ``tp``-wide mesh is
-        not ported (ROADMAP queue 1 item 12): the sim backend prices it.
+        like every other knob.  A live handle's engine serves over
+        ``serving_mesh(tp)``: the caller runs under a process group of
+        ``tp`` ranks (``distributed.tp.spawn``).
 
         ``torch_device`` — where the live engine runs (``device`` is the
         profiled hardware the clock charges); None means the CUDA card.
@@ -454,10 +457,6 @@ class EngineHandle(ServerHandle):
                                     **engine_kw)
             self.engine.kv_dtype = kv_dtype
         elif backend == "live":
-            if tp > 1:
-                raise NotImplementedError(
-                    "a live engine over a tensor-parallel mesh (tp > 1) is "
-                    "not ported to repro_torch yet (ROADMAP queue 1 item 12)")
             model = build_model(cfg)
             if params is None:
                 params = model.init(seed, device=torch_device)
@@ -471,6 +470,9 @@ class EngineHandle(ServerHandle):
                 # is whatever the two numerical paths agree on, and the
                 # emitted stream is bit-identical regardless
                 engine_kw.setdefault("draft_params", params)
+            if tp > 1:
+                from repro_torch.distributed.tp import serving_mesh
+                engine_kw.setdefault("mesh", serving_mesh(tp))
             self.engine = ServingEngine(model, params, max_batch=max_batch,
                                         max_seq=max_seq, kv_dtype=kv_dtype,
                                         clock=lambda: self.vtime,
@@ -1365,8 +1367,8 @@ def build_continuum(spec, *, seed: int = 0, time_scale: float = 1.0,
     ``tp`` makes mesh width a tier knob: an int shards only the cloud
     class (the tier with interconnect worth spending), a
     ``{class_idx: tp}`` dict shards per class.  The sim backend prices
-    the width through the cost model's TP tick terms; live handles refuse
-    ``tp > 1`` (ROADMAP queue 1 item 12).
+    the width through the cost model's TP tick terms; live handles serve
+    over ``serving_mesh(tp)``, under a process group of ``tp`` ranks.
 
     ``configs`` maps an arch id to the ``ArchConfig`` its handles serve in
     place of ``reduced(get_config(arch))`` (full width on the card);

@@ -69,8 +69,15 @@ Admission batching (``sorted_batch_sizes``, ``max_live_batches``,
 ``batching_wait_secs``) admits queued requests in groups on the engine
 clock, as the JAX engine does.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-tensor-parallel meshes (``mesh``).
+Tensor-parallel serving (``mesh=serving_mesh(tp)``, paged backend only):
+the engine runs SPMD, one process per rank of ``distributed/tp.py``'s
+group, every rank the same host logic on the same requests.  Its steps go
+through ``ShardedServing``: the rank's shard of the weights, a pool of
+``Hkv / tp`` kv heads (the whole pool where they do not divide), the
+kernels at shard shapes and all-gathers between them, and the same logits
+on every rank.  The page bookkeeping is unchanged (CoW, scatters and the
+trie index the unsharded page axis), snapshots carry the whole kv-head
+axis and the global geometry, and the draft model stays unsharded.
 """
 from __future__ import annotations
 
@@ -83,6 +90,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.distributed.tp import ServingMesh, ShardedServing
 from repro_torch.kernels.quant import dequantize_kv, quantize_kv
 from repro_torch.models.api import Model, build_model
 from repro_torch.serving import segments as sg
@@ -101,11 +109,6 @@ _BATCH_DIM = {"k": 1, "v": 1, "xk": 1, "xv": 1, "pos_map": 0,
               "conv": 2, "ssm": 2, "mconv": 2, "mC": 2, "mn": 2, "mm": 2,
               "sc": 1, "sn": 1, "sm": 1, "sh": 1}
 _SEQ_DIM = {"k": 2, "v": 2, "pos_map": 1}
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 {item})")
 
 
 def bucket_length(n: int, *, minimum: int = 16, maximum: int | None = None
@@ -213,6 +216,10 @@ class ServingEngine:
         lifecycle spans and per-tick counters.  ``device`` — where the
         cache and the steps run; None means the CUDA card and raises when
         there is none.  ``params`` must already be on that device.
+        ``mesh`` — ``distributed.tp.serving_mesh(tp)``, this rank's view
+        of a tensor-parallel group (paged backend only): ``params`` is the
+        full tree or this rank's shard (``weights.init_shard``), and the
+        steps run through ``ShardedServing`` (the module's docstring).
         """
         self.paged = model.supports_paged if paged is None else bool(paged)
         if self.paged and not model.supports_paged:
@@ -228,7 +235,14 @@ class ServingEngine:
             if int(spec_k) < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if mesh is not None:
-            raise _unported("tensor-parallel serving (mesh)", "item 12")
+            if not isinstance(mesh, ServingMesh):
+                raise TypeError(
+                    f"mesh must be a distributed.tp.serving_mesh(tp), not "
+                    f"{type(mesh).__name__}")
+            if not self.paged:
+                raise ValueError(
+                    "mesh= (tensor-parallel serving) needs the paged cache "
+                    "backend; use paged=True")
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(
                 f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
@@ -242,6 +256,15 @@ class ServingEngine:
             raise ValueError(f"params are on {table.device}, the engine on "
                              f"{self.device}")
         self.model = model
+        # ---- tensor-parallel serving: the steps go through the sharded
+        # view of the model (the rank's shard of the weights and pool)
+        self.mesh = mesh
+        if mesh is not None:
+            self._tp = ShardedServing(model, mesh)
+            params = self._tp.shard_params(params)
+        else:
+            self._tp = None
+        self._serving = self._tp if self._tp is not None else model
         self.params = params
         self._now = clock if clock is not None else time.perf_counter
         self.max_batch = max_batch
@@ -357,8 +380,8 @@ class ServingEngine:
                         "pages_cached", "prefix_hits", "prefix_misses",
                         "evictions", "cow_copies"):
                 m.view(key, lambda k=key: self.pool.stats()[k])
-            abstract = model.abstract_paged_cache(num_pages, page_size,
-                                                  kv_dtype=kv_dtype)
+            abstract = self._serving.abstract_paged_cache(
+                num_pages, page_size, kv_dtype=kv_dtype)
             self.cache = {name: torch.zeros(s.shape, dtype=s.dtype,
                                             device=self.device)
                           for name, s in abstract.items()}
@@ -410,7 +433,7 @@ class ServingEngine:
         the device so one int32 per slot crosses to the host."""
         if self.paged:
             self._step_shapes.add(tuple(batch["block_tables"].shape))
-            logits, self.cache = self.model.serve_step_paged(
+            logits, self.cache = self._serving.serve_step_paged(
                 self.params, self.cache, batch)
         else:
             self._step_shapes.add(tuple(batch["tokens"].shape))
@@ -480,7 +503,7 @@ class ServingEngine:
             batch["length"] = self._to_device(np.asarray([T], np.int32))
         mm = self._with_embeds(batch, req, 0, T, Sb)
         self._note_trace(("prefill", Sb, mm))
-        return self.model.prefill(self.params, batch)
+        return self._serving.prefill(self.params, batch)
 
     # ----------------------------------------------------- dense internals
     def _admit_dense(self, slot: int, req: Request) -> int:
@@ -640,7 +663,7 @@ class ServingEngine:
                     np.asarray([n_sfx], np.int32))
             mm = self._with_embeds(batch, req, n_reuse, T, Sb)
             self._note_trace(("prefill_sfx", n_reuse, Sb, mm))
-            logits, (sk, sv) = self.model.prefill_with_prefix(
+            logits, (sk, sv) = self._serving.prefill_with_prefix(
                 self.params, batch, pk, pv)
             self._c_suffix_prefills.inc()
         self._scatter_kv(table, np.arange(n_reuse, T), sk, sv, n_sfx)
@@ -722,7 +745,7 @@ class ServingEngine:
         for p in pages:
             self.pool.retain(p)
         try:
-            leaves = self.model.export_paged_kv(self.cache, pages)
+            leaves = self._serving.export_paged_kv(self.cache, pages)
         finally:
             for p in pages:
                 self.pool.release(p)
@@ -784,7 +807,7 @@ class ServingEngine:
             table.free()
             return False
         if n_hit < nb:
-            self.cache = self.model.import_paged_kv(
+            self.cache = self._serving.import_paged_kv(
                 self.cache, table.pages[n_hit:nb], snap.leaves,
                 snap.kv_dtype, from_block=n_hit)
         if self.prefix_caching:
@@ -850,7 +873,7 @@ class ServingEngine:
                  "pos": task.done, "length": n}
         if self.paged:
             batch["block_tables"] = self._to_device(self.tables[slot][None])
-            chunk_fn = self.model.prefill_chunk_paged
+            chunk_fn = self._serving.prefill_chunk_paged
         else:
             batch["slot"] = slot
             chunk_fn = self.model.prefill_chunk_dense
@@ -1311,7 +1334,7 @@ class ServingEngine:
             vt[i, 0] = self.slots[i].output[-1]
             vt[i, 1:] = drafts[i]
             tables[i] = self.tables[i]
-        logits, self.cache = self.model.verify_step_paged(
+        logits, self.cache = self._serving.verify_step_paged(
             self.params, self.cache,
             {"tokens": self._to_device(vt),
              "pos": self._to_device(np.minimum(base, self.max_seq)

@@ -33,6 +33,7 @@ except ImportError:  # JAX (the reference) is not installed
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.baselines import all_cloud_policy, greedy_policy
+from repro_torch.distributed import runs, tp
 from repro_torch.models.api import build_model
 from repro_torch.serving import cluster as cluster_mod
 from repro_torch.serving import (Cluster, EngineBackend, QLMIORouter,
@@ -230,10 +231,22 @@ def test_engine_virtual_clock_and_relative_drain_deadline():
 
 
 def test_unported_handle_knobs_raise():
-    """A live handle over a tensor-parallel mesh is not ported and says
-    which ROADMAP item brings it; the sim backend prices ``tp`` as the
-    JAX package does."""
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """A live handle over a tensor-parallel mesh is served (JAX
+    test_continuum_live_tp_engine): ``tp={0: 2}`` builds its engine on
+    ``serving_mesh(2)`` in each rank of a gloo group of two, and it emits
+    the unsharded handle's tokens.  Outside such a group a live ``tp``
+    handle refuses; the sim backend prices ``tp`` as the JAX package
+    does."""
+    kw = dict(max_batch=2, max_seq=64, torch_device="cpu")
+    got = tp.spawn(runs.live_tp_handle, 2, "gloo", [(0, 1)], kw)
+    assert got["mesh_tp"] == got["engine_tp"] == got["tp"] == 2
+    assert got["tp_shards"] and got["decode_tick_s"] > 0
+    flat = build_continuum([(0, 1)], backend="live", **kw)[0]
+    req = Request(0, np.arange(1, 10, dtype=np.int64), max_new_tokens=4)
+    flat.engine.submit(req)
+    flat.engine.run_until_drained()
+    assert got["tokens"] == tuple(req.output) and len(req.output) == 4
+    with pytest.raises(ValueError, match="process group"):
         build_continuum([(2, 1)], tp=2, torch_device="cpu")
     sim = build_continuum([(2, 1)], tp=2, backend="sim")[0]
     assert sim.tp == 2 and sim.decode_tick_s > 0

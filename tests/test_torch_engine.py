@@ -187,16 +187,19 @@ def _reduced_engine(arch="qwen2-0.5b", **kw):
     dict(paged=False, kv_dtype="int8"),  # refused as by the JAX engine
     # a recurrent draft: refused as by the JAX engine
     dict(draft_config=reduced(get_config("zamba2-2.7b"))),
+    # tensor-parallel serving is ported (tests/test_torch_tp.py): a mesh
+    # that is not a distributed.tp.serving_mesh is refused
     dict(mesh=object()),
     # admission batching is ported: served (tests/test_torch_disagg.py
     # holds its groups to the JAX engine's)
     dict(sorted_batch_sizes=[1, 2], max_live_batches=1)])
 def test_unported_knobs_raise(knob):
-    """Knobs the port does not serve raise: unported ones
-    ``NotImplementedError`` naming their ROADMAP item; a paged xlstm
-    engine, an int8 dense cache and a draft outside the attention family
-    ``ValueError``, as in the JAX engine (engine.py's backend check,
-    test_kv_quant.py:183-186, engine.py's draft check).  The dense
+    """Knobs the port does not serve raise: a paged xlstm engine, an int8
+    dense cache and a draft outside the attention family ``ValueError``,
+    as in the JAX engine (engine.py's backend check,
+    test_kv_quant.py:183-186, engine.py's draft check), a mesh that is
+    not a ``serving_mesh`` ``TypeError``.  Tensor-parallel meshes are
+    served (tests/test_torch_tp.py).  The dense
     backend and monolithic prefill of the attention family, MoE drafts,
     zamba2, xlstm, whisper and admission batching are ported
     (tests/test_torch_dense_engine.py, test_moe_draft_is_served,
@@ -221,7 +224,7 @@ def test_unported_knobs_raise(knob):
             with pytest.raises(ValueError, match=match):
                 _reduced_engine(**knob)
             return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="serving_mesh"):
         _reduced_engine(**knob)
 
 

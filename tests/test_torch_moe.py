@@ -285,9 +285,24 @@ def test_ffn_scan_chunks_and_dispatch_axes_match_jax(need_jax, arch,
 
 
 def test_moe_apply_refuses_tensor_parallel():
-    p = {k: _t(v) for k, v in _moe_params().items()}
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        moe.moe_apply(p, _t(_tokens()), top_k=4, norm_topk=True,
+    """``tp_axis`` is served (``distributed/tp.py``): in the two ranks of
+    a gloo group, expert parallelism (4 of 8 experts a rank) and the
+    expert-ff fallback (half of every expert's and the shared expert's ff
+    columns a rank) give the unsharded layer's output bit for bit (fp32,
+    drops at capacity factor 1.25 included).  Outside ``ShardedServing``'s
+    binding of its axis a tensor-parallel layer refuses to run."""
+    from repro_torch.distributed import runs, tp
+    p_np, x_np = _moe_params(), _tokens()
+    kw = dict(top_k=4, norm_topk=True, capacity_factor=1.25)
+    modes = {"experts": ("experts",),
+             "expert_ff": ("expert_ff", "shared_ff")}
+    got = tp.spawn(runs.moe_layers, 2, "gloo", p_np, x_np, kw, modes)
+    p = {k: _t(v) for k, v in p_np.items()}
+    want = moe.moe_apply(p, _t(x_np), **kw)
+    for name in modes:
+        assert torch.equal(got[name], want), name
+    with pytest.raises(RuntimeError, match="not bound"):
+        moe.moe_apply(p, _t(x_np), top_k=4, norm_topk=True,
                       tp_axis="model", tp_shards=("experts",))
 
 
