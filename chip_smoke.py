@@ -14,9 +14,9 @@ exits non-zero without printing a result:
      times anything);
   2. build: compiles ``kernels/csrc/paged_decode.cu``, ``paged_verify.cu``,
      ``flash_attention.cu``, ``rmsnorm.cu``, ``flash_decode.cu``,
-     ``moe_gmm.cu``, ``ssd_scan.cu``, ``flash_attention_bwd.cu``,
-     ``moe_gmm_bwd.cu`` and ``ssd_scan_bwd.cu`` for
-     sm_90a, all nvcc runs at once
+     ``moe_gmm.cu``, ``ssd_scan.cu``, ``dense_matmul.cu``,
+     ``flash_attention_bwd.cu``, ``moe_gmm_bwd.cu`` and ``ssd_scan_bwd.cu``
+     for sm_90a, all nvcc runs at once
      (seconds; each kernel's registers, shared memory and spills; where
      ``cuobjdump`` is installed, each library's count of HMMA tensor-core
      instructions, at least one in ``paged_verify.cu`` and in
@@ -44,7 +44,11 @@ exits non-zero without printing a result:
      shapes and one row, bf16 and fp32), nor in the
      grouped-matmul backward (HMMA instructions in its SASS) or the
      SSD-scan backward, whose passes' shared memory and scratch at
-     zamba2's width it prints);
+     zamba2's width it prints, nor in the dense product, whose SASS holds
+     HMMA and HGMMA instructions and whose plan (variant, K splits x
+     steps) it prints at qwen2-0.5b's projections for a decode tick, a
+     verify pass, a chunk, a 1024-token prompt and a training batch, and
+     at llama3.2-3b's at TP 4 beside a shard's own plan);
   3. each kernel against its plain PyTorch version on the card: paged
      decode and verify with bf16 and int8 pools and bf16 and fp32 queries
      at qwen2-0.5b, gemma3-1b, llama3.2-3b and chameleon-34b head layouts
@@ -113,6 +117,9 @@ exits non-zero without printing a result:
      encoder (1500 frames), cross-attention (448 x 1500) and decoder; each
      within its stated fraction of the output's largest magnitude, two
      calls bit-equal; the new wrappers under sync debug mode "error";
+     the dense product in bf16 and fp32 at every column-cut projection
+     (K, N) of each config in ARCH_IDS at full width, rows 8, 32, 64 and
+     512, and in bf16 at phase 11's B x S of each trained config;
   4. kernel, plain version and one library call's times at the main
      path's shapes (decode: B 8, B 1 at a 1000-token context, B 8 with
      two free slots; verify: the speculative B 8, T 4, the same with two
@@ -152,7 +159,10 @@ exits non-zero without printing a result:
      kernels it replaced (``flash_bwd_parent``), run in turn
      (parent, kernel, kernel, parent), with SDPA's backward, and the
      RMSNorm backward at [8192, 896] and [4096, 5120] beside its first
-     version (``rms_bwd_parent``) in turn, with ``F.rms_norm``'s),
+     version (``rms_bwd_parent``) in turn, with ``F.rms_norm``'s; the
+     dense product at llama3.2-3b's, qwen2-0.5b's and chameleon-34b's
+     decode tick (M 8) and 1024-token prompt (gate/up, wq, down) and
+     qwen2-0.5b's training batch (M 8192) against ``torch.matmul``),
      beside the least time the card could take,
      and the kernel held to its plain version there;
   5. the text path: qwen2-0.5b at full width, cut to its first
@@ -161,7 +171,9 @@ exits non-zero without printing a result:
      through ``ServingEngine`` with a bf16 and an int8 pool; decode
      launches must equal n_layers x decode steps, verify launches
      (chunked-prefill attention) n_layers x prefill chunks, RMSNorm
-     launches the norms of every step;
+     launches the norms of every step, and (here and in every engine
+     phase after it) the dense product's launches the column-cut
+     projections of every step (``dense_per_step``: 7 a layer);
   6. speculation: the same 12 requests with ``spec_k=3``, a bf16 pool
      drafted by the target's own weights and an int8 pool drafted by a
      4-layer cut of the target; verify launches must equal n_layers x
@@ -214,7 +226,7 @@ exits non-zero without printing a result:
      (max_batch 2, max_seq 96, page 16, prefill_chunk 64), through
      ``serving/cluster.py``; fig10's smoke budget (32 users of
      ``generate(0, 200)``, an arrival every 0.01 virtual s) replayed under
-     all-cloud, greedy and fig10's QLMIO rule (a numpy copy) at quality
+     all-cloud, greedy and fig10's QLMIO rule (``sim/policies.py``) at quality
      weight 1.0: every request gets its full budget, QLMIO's mean e2e is
      below all-cloud's at a completion rate >= 0.95 x its, each policy's
      decisions equal its decisions under the cost-model backend, and each
@@ -288,9 +300,11 @@ exits non-zero without printing a result:
      granite-moe-1b-a400m's expert-parallel and expert-ff shapes) on
      rank r's heads, experts or columns under the global width's plan
      equals rank r's slice of the unsharded call exactly (whether the
-     shard's own plan would is printed); whether cuBLAS's product of a
-     shard's columns equals the unsharded product's columns, bf16 and
-     fp32, at the projections' shard shapes (printed, not held).  Then
+     shard's own plan would is printed); the dense product of a shard's
+     columns under the global plan equals the unsharded product's
+     columns bitwise in all 60 cases of the projections' shard shapes,
+     bf16 and fp32 (``tp_dense_slices``, held; cuBLAS's count printed
+     beside it).  Then
      ``distributed.tp.spawn`` groups of 2 and 4 ranks on the one card
      (gloo, every gather staged through host memory) serve llama3.2-3b at
      full width and depth (4 requests of 48-128 tokens, 16 new each; bf16
@@ -299,10 +313,7 @@ exits non-zero without printing a result:
      granite-moe-1b-a400m at full width (expert parallel) and, in fp32 at
      reduced size, the expert-ff fallback (6 experts, TP 4) and
      replicated attention (1 kv head, TP 2); every rank's tokens the
-     same, the fp32 ones the unsharded engine's exactly, the bf16 ones
-     too or, from a first divergence on, each sharded token within the
-     bf16 tolerance of the top logit of the unsharded model teacher-forced
-     with the sharded tokens (the steps and gaps printed); a request
+     same and the unsharded engine's exactly, bf16 and fp32; a request
      evacuated at TP 4 resumes on an unsharded engine with the
      uninterrupted stream;
      each run's kernels launched; the backend, each rank's peak memory,
@@ -356,8 +367,9 @@ exits non-zero without printing a result:
      backward's device time in each family's step among them);
  12. one JSON line for the kernels (each with its device time and the
      library call's at its phase-4 shape beside the contract's keys, and
-     the launches of phase 9f's, 9g's and phase 11's runs by path; the four
-     backward kernels with phase 11's launches), then the result line.
+     the launches of phase 9f's, 9g's, 9h's and phase 11's runs by path;
+     the dense product with phase 5's bf16 launches; the four backward
+     kernels with phase 11's launches), then the result line.
 
 Needs a CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
 ``src`` directory beside this file.
@@ -396,10 +408,11 @@ from repro_torch.core.predictors import (Predictor,  # noqa: E402
                                          PredictorConfig)
 from repro_torch.core.qlmio import QLMIO, QLMIOConfig  # noqa: E402
 from repro_torch.data.lm_data import LMDataConfig, SyntheticLM  # noqa: E402
-from repro_torch.data.taskgen import (CATEGORIES, make_taskset,  # noqa: E402
+from repro_torch.data.taskgen import (make_taskset,  # noqa: E402
                                       splits)
 from repro_torch.distributed import runs, tp  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import dense_matmul as dense_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention, moe_gmm  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import paged_decode, paged_verify  # noqa: E402
@@ -409,6 +422,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode_quant_ref, flash_decode_ref)
+from repro_torch.kernels.dense_matmul import dense_matmul_ref  # noqa: E402
 from repro_torch.kernels.moe_gmm import grouped_matmul_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import (  # noqa: E402
     paged_decode_quant_ref, paged_decode_ref)
@@ -436,6 +450,8 @@ from repro_torch.nn.spec import init_params, tree_leaves  # noqa: E402
 from repro_torch.sim.cemllm import (make_servers,  # noqa: E402
                                     make_servers_from_spec, run_policy)
 from repro_torch.sim.miobench import SERVER_CLASSES, generate  # noqa: E402
+from repro_torch.sim.policies import (analytic_predictors,  # noqa: E402
+                                   qlmio_policy)
 from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
 from repro_torch.train.optimizer import leaves as opt_leaves  # noqa: E402
@@ -484,7 +500,8 @@ TOL = {"paged_decode": dict(atol=5e-2, rtol=5e-2),
        "rmsnorm": dict(atol=5e-2, rtol=5e-2),
        "flash_decode": dict(atol=5e-2, rtol=5e-2),
        "flash_decode_quant": dict(atol=5e-3, rtol=5e-3),
-       "grouped_matmul": dict(atol=1e-2, rtol=5e-2)}
+       "grouped_matmul": dict(atol=1e-2, rtol=5e-2),
+       "dense_matmul": dict(atol=1e-2, rtol=5e-2)}
 # 3. The grouped matmul sums up to 2048 products of unit normals in fp32 in
 #    another order than the plain version's einsum: 1e-3 absolute on top
 #    of EXACT_TOL's relative part (outputs of magnitude ~30-45), and
@@ -499,6 +516,15 @@ GMM_EXACT_TOL = {torch.bfloat16: dict(atol=1e-3, rtol=2 ** -7),
 #    compared tensor's RMS (SCAN_TOL); a wrong mask, decay or chunk
 #    boundary moves outputs by far more.  max_abs_err is this error.
 SCAN_TOL = dict(atol_rms=1e-4, rtol=1e-4)
+# 6. The dense product (unit-normal x, weights scaled by K^-0.5 as the
+#    model draws them, outputs of magnitude ~1): against the plain version
+#    on the values widened to fp32, the same fp32 sums in another order
+#    (1e-4 absolute and, fp32, relative) and one rounding to bf16 (2^-7
+#    relative, DENSE_EXACT_TOL); in the working type TOL's 1e-2 / 5e-2 for
+#    bf16 (cuBLAS rounds its own fp32 sum) and 1e-4 for fp32.
+DENSE_EXACT_TOL = {torch.bfloat16: dict(atol=1e-4, rtol=2 ** -7),
+                   torch.float32: dict(atol=1e-4, rtol=1e-4)}
+DENSE_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 # 5. A row with no visible key (a free slot) gets the plain version's
 #    uniform softmax over every key it reads: the same weighted value rows
 #    summed in another order, so EXACT_TOL's parts scale the plain version
@@ -513,6 +539,7 @@ SOURCES = {"paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
            "moe_gmm": "src/repro_torch/kernels/csrc/moe_gmm.cu",
            "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "dense_matmul": "src/repro_torch/kernels/csrc/dense_matmul.cu",
            "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "moe_gmm_bwd": "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
@@ -528,7 +555,10 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:92",
             "flash_decode": "src/repro/kernels/flash_decode.py:71",
             "flash_decode_quant": "src/repro/kernels/flash_decode.py:125",
             "grouped_matmul": "src/repro/kernels/moe_gmm.py:38",
-            "ssd_scan": "src/repro/kernels/mamba2_scan.py:60"}
+            "ssd_scan": "src/repro/kernels/mamba2_scan.py:60",
+            "dense_matmul": "src/repro/models/lm.py:121-137 (XLA's dot of "
+                            "the column-cut projections, lm.py:289-291, "
+                            "303-315, moe.py:160-166; no Pallas kernel)"}
 WRAPPERS = {"paged_decode": ops.paged_decode,
             "paged_decode_quant": ops.paged_decode_quant,
             "paged_verify": ops.paged_verify,
@@ -538,7 +568,8 @@ WRAPPERS = {"paged_decode": ops.paged_decode,
             "flash_decode": ops.flash_decode,
             "flash_decode_quant": ops.flash_decode_quant,
             "grouped_matmul": ops.grouped_matmul,
-            "ssd_scan": ops.ssd_scan}
+            "ssd_scan": ops.ssd_scan,
+            "dense_matmul": ops.dense_matmul}
 PLAINS = {"paged_decode": paged_decode_ref,
           "paged_decode_quant": paged_decode_quant_ref,
           "paged_verify": paged_verify_ref,
@@ -548,7 +579,8 @@ PLAINS = {"paged_decode": paged_decode_ref,
           "flash_decode": flash_decode_ref,
           "flash_decode_quant": flash_decode_quant_ref,
           "grouped_matmul": grouped_matmul_ref,
-          "ssd_scan": ssd_scan_ref}
+          "ssd_scan": ssd_scan_ref,
+          "dense_matmul": dense_matmul_ref}
 SPEC_K = 3
 # the layers of qwen2-0.5b (24) that phases 5-9 run: cut from 24 to 12
 # to make room for the MoE phases within the run's time
@@ -1325,6 +1357,7 @@ def phase_build():
     print("[build]   grouped matmul: " + "; ".join(
         f"{str(dt)[6:]} C {C}: {moe_gmm.variant(dt, C)}"
         for dt in (torch.bfloat16, torch.float32) for C in (8, 16, 24, 320)))
+    dense_build_report(infos["dense_matmul"])
     print("[build]   flash decode: " + "; ".join(
         f"{str(q)[6:]} q, {str(c)[6:]} cache: {flash_decode.variant(q, c)}"
         for q, c in itertools.product((torch.bfloat16, torch.float32),
@@ -1483,6 +1516,146 @@ def phase_build():
               + f"; verify, fp32 q: {rows} query rows a CTA, "
               f"{paged_verify.fp32_smem_bytes(D, 16, rows * 1024)} bytes "
               "with the scores of 1024 keys")
+
+
+# the dense product's rows in phase 3: a decode tick (B 8), a verify pass
+# (B 8 x T 4), a prefill chunk and a prompt, and (DENSE_TRAIN_ROWS) phase
+# 11's B x S of each trained config (whisper's encoder: B x 1500 frames)
+DENSE_ROWS = (8, 32, 64, 512)
+DENSE_TRAIN_ROWS = {"qwen2-0.5b": (8192,), "granite-moe-1b-a400m": (8192,),
+                    "zamba2-2.7b": (4096,), "whisper-large-v3": (1792, 6000)}
+# phase 2's plans: the main path's rows (a decode tick, a verify pass, a
+# chunk, a 1024-token prompt, a training batch)
+DENSE_PLAN_ROWS = (8, 32, 64, 1024, 8192)
+
+
+def dense_projections(cfg) -> dict:
+    """{(K, N): label} of the products ``cfg``'s forward runs through the
+    dense kernel (``models/lm.py`` ``dense``): q, k/v and o, and the MLP's
+    (an MoE layer's shared expert's) up and down; zamba2's shared block
+    reads concat(x, x0) [2d]; xlstm none."""
+    if cfg.block_kind == "xlstm":
+        return {}
+    d = cfg.d_model
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    din = 2 * d if cfg.block_kind == "mamba_hybrid" else d
+    ff = cfg.shared_ff if cfg.n_experts else cfg.d_ff
+    gelu = cfg.act == "gelu"
+    named = [((din, q), "wq"), ((din, kv), "wk/wv"), ((q, d), "wo")]
+    if ff:
+        named += [((d, ff), "w1" if gelu else "gate/up"),
+                  ((ff, d), "w2" if gelu else "down")]
+    out: dict = {}
+    for kn, label in named:  # projections of one shape share a line
+        out[kn] = f"{out[kn]}/{label}" if kn in out else label
+    return out
+
+
+def dense_build_report(info):
+    """Phase 2 for the dense product: no register spill, tensor-core
+    instructions of both bf16 variants in the SASS (HMMA of the mma.sync
+    tiles, HGMMA of the wgmma kernel), and the plan (variant, K splits x
+    steps) at the main path's rows for qwen2-0.5b's projections, with
+    llama3.2-3b's at TP 4 (a rank's N / 4 columns under the global plan,
+    beside the plan the shard's own N would give)."""
+    spills = ptxas_spills(info["ptxas"])
+    spilled = [f"{name} ({n} bytes)" for name, _, n in spills if n]
+    check(not spilled, "dense_matmul.cu: register spills: "
+          + ", ".join(spilled))
+    hgmma = hmma_count(info["path"], "HGMMA")
+    hmma = hmma_count(info["path"])
+    check(hgmma is None or (hgmma > 0 and hmma > 0),
+          f"dense_matmul.cu: {hmma} HMMA and {hgmma} HGMMA instructions")
+    print(f"[build]   dense matmul: "
+          + (f"{len(spills)} kernels, none spills" if spills
+             else "already built, ptxas not rerun")
+          + ("" if hgmma is None
+             else f"; {hmma} HMMA and {hgmma} HGMMA instructions"))
+
+    def short(p):
+        return (f"{p.variant}" + (f" x{8 * p.rows8}" if p.rows8 else "")
+                + f" {p.splits}x{p.kt_per}")
+
+    cfg = get_config("qwen2-0.5b")
+    for (K, N), label in dense_projections(cfg).items():
+        print(f"[build]   dense matmul plan, qwen2-0.5b {label} [{K}, {N}] "
+              "(variant, K splits x steps): " + "; ".join(
+                  f"M {M} {short(dense_kernel.plan(dt, M, K, N))}"
+                  for dt in (torch.bfloat16,) for M in DENSE_PLAN_ROWS)
+              + f"; fp32 M 8 "
+              f"{short(dense_kernel.plan(torch.float32, 8, K, N))}")
+    cfg = get_config(TP_ARCH)
+    bf16 = torch.bfloat16
+    for (K, N), label in dense_projections(cfg).items():
+        print(f"[build]   dense matmul plan, {TP_ARCH} {label} [{K}, {N}] at "
+              f"TP 4 (N {N // 4} a rank): " + "; ".join(
+                  f"M {M} {short(dense_kernel.plan(bf16, M, K, N))} (own "
+                  f"{short(dense_kernel.plan(bf16, M, K, N // 4))})"
+                  for M in (4, 16, 64, 128)))
+
+
+def hold_dense(out, x, w, where) -> tuple:
+    """Holds a dense-product output to its plain version on the values
+    widened to fp32 (DENSE_EXACT_TOL) and in the working type (TOL's bf16
+    entry, DENSE_FP32_TOL); returns both largest errors."""
+    check(out.dtype == x.dtype and out.shape == (x.shape[0], w.shape[1]),
+          f"dense_matmul {where}: output {out.dtype} {tuple(out.shape)}")
+    a = out.float()
+    check(bool(torch.isfinite(a).all()), f"dense_matmul {where}: "
+          "non-finite output")
+    exact = dense_matmul_ref(x.float(), w.float())
+    err32 = float((a - exact).abs().max())
+    check(within(a, exact, DENSE_EXACT_TOL[x.dtype]),
+          f"dense_matmul {where}: max |err| {err32} vs the fp32 plain "
+          "version")
+    want = dense_matmul_ref(x, w).float()
+    err = float((a - want).abs().max())
+    tol = TOL["dense_matmul"] if x.dtype == torch.bfloat16 else DENSE_FP32_TOL
+    check(within(a, want, tol), f"dense_matmul {where}: max |err| {err} vs "
+          "the plain version")
+    return err32, err
+
+
+def compare_dense() -> float:
+    """The dense product against its plain version at every column-cut
+    (K, N) of each config in ARCH_IDS at full width (``dense_projections``),
+    rows DENSE_ROWS in bf16 and fp32 and, for the trained configs, phase
+    11's B x S in bf16; returns the largest error in the working type."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(41)
+    shapes: dict = {}
+    for arch in ARCH_IDS:
+        for kn, label in dense_projections(get_config(arch)).items():
+            rows = shapes.setdefault(kn, {"rows": set(), "who": []})
+            rows["rows"].update(DENSE_ROWS + DENSE_TRAIN_ROWS.get(arch, ()))
+            rows["who"].append(f"{arch} {label}")
+    worst, n = 0.0, 0
+    for (K, N), spec in sorted(shapes.items()):
+        w = torch.randn(K, N, generator=g, device=dev) * K ** -0.5
+        rows = sorted(spec["rows"])
+        x = torch.randn(rows[-1], K, generator=g, device=dev)
+        errs = []
+        for dt in (torch.bfloat16, torch.float32):
+            wd = w.to(dt)
+            for M in rows:
+                if dt == torch.float32 and M not in DENSE_ROWS:
+                    continue  # training is bf16
+                xd = x[:M].to(dt)
+                err32, err = hold_dense(ops.dense_matmul(xd, wd), xd, wd,
+                                        f"[{M}, {K}] x [{K}, {N}] {dt}")
+                worst = max(worst, err)
+                errs.append(err32)
+                n += 1
+        print(f"[compare] dense matmul [{K}, {N}] ({', '.join(spec['who'])})"
+              f": rows {rows} bf16, {list(DENSE_ROWS)} fp32 agree with the "
+              f"plain version; max |err| vs fp32 plain {max(errs):.3g}")
+        del w, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[compare] dense matmul: {n} products at {len(shapes)} "
+          f"projection shapes of {len(ARCH_IDS)} configs agree; max |err| "
+          f"vs the plain version {worst:.3g}")
+    return worst
 
 
 def phase_compare(rng) -> dict:
@@ -1692,6 +1865,7 @@ def phase_compare(rng) -> dict:
     torch.cuda.empty_cache()
     worst["grouped_matmul"] = compare_gmm()
     worst["ssd_scan"] = compare_scan(rng)
+    worst["dense_matmul"] = compare_dense()
     return worst
 
 
@@ -1994,6 +2168,8 @@ def _time_call(name, label, args, kw, nbytes, nops, peak, library,
     first = wrapper(*layers[0], **kw)
     if name == "grouped_matmul":
         err32, err = hold_gmm(first, *layers[0], f"{label} shapes")
+    elif name == "dense_matmul":
+        err32, err = hold_dense(first, *layers[0], f"{label} shapes")
     else:
         err32, err = hold(name, first, layers[0], kw, rows,
                           f"{label} shapes", dead)
@@ -2110,6 +2286,52 @@ def phase_timing_new(smi: str) -> dict:
     out.update(_time_flash_decode(smi))
     out.update(_time_gmm(smi))
     out.update(_time_scan(smi))
+    out.update(_time_dense(smi))
+    return out
+
+
+# the dense product's timing shapes (phase 4): (arch, projection, rows):
+# a decode tick (B 8) and a 1024-token prompt for qwen2-0.5b, llama3.2-3b
+# (the kernels-line entry: its decode gate/up) and chameleon-34b, and
+# qwen2-0.5b's training batch (B 8 x S 1024)
+DENSE_TIMING = [(arch, proj, M)
+                for arch in ("llama3.2-3b", "qwen2-0.5b", "chameleon-34b")
+                for proj in ("gate/up", "wq", "down") for M in (8, 1024)]
+DENSE_TIMING += [("qwen2-0.5b", proj, 8192) for proj in ("gate/up", "down")]
+
+
+def _time_dense(smi: str) -> dict:
+    """The dense product at DENSE_TIMING's shapes, bf16, against
+    ``torch.matmul`` (cuBLAS; the port no longer calls it for these
+    products).  Each row names the variant and plan that ran.  Weights of
+    enough layers to exceed the L2 cache twice over (at most 24) are taken
+    in turn, so each call reads them from HBM as the model does.  The
+    bound counts x, w and the output once against 2 M K N operations at
+    the bf16 tensor-core peak."""
+    dev = torch.device("cuda")
+    out = {}
+    for arch, proj, M in DENSE_TIMING:
+        (K, N), = [kn for kn, label in
+                   dense_projections(get_config(arch)).items()
+                   if label == proj or proj in label.split("/")]
+        L = max(1, min(24, -(-100_000_000 // (2 * K * N))))
+        w = (torch.randn(L, K, N, device=dev) * K ** -0.5).bfloat16()
+        x = torch.randn(M, K, device=dev, dtype=torch.bfloat16)
+        p = dense_kernel.plan(torch.bfloat16, M, K, N)
+
+        def library(i=0, x=x, w=w, L=L):
+            torch.matmul(x, w[i % L])
+
+        row = _time_call(
+            "dense_matmul", f"{arch} {proj} M={M} K={K} N={N} bf16; "
+            f"{p.variant}{f' x{8 * p.rows8}' if p.rows8 else ''}, "
+            f"{p.splits} K splits of {p.kt_per} steps",
+            [(x, w[i]) for i in range(L)], {}, 2 * (M * K + K * N + M * N),
+            2 * M * K * N, torch.bfloat16, library, smi)
+        out.setdefault("dense_matmul", row)
+        out.setdefault("dense_rows", []).append(
+            dict(row, arch=arch, proj=proj, M=M, K=K, N=N))
+        del w, x
     return out
 
 
@@ -2411,6 +2633,31 @@ def norms_per_step(cfg) -> int:
     return cfg.n_layers * per_layer + 1
 
 
+def dense_per_step(cfg) -> int:
+    """Dense-product launches of one step of ``cfg``'s model (a decode
+    step, a prefill chunk, a verify pass, a monolithic prefill, a draft
+    step or a draft prefill): q, k, v and o of every layer and its gated
+    MLP's three (an MoE layer: its shared expert's, where it has one);
+    zamba2's shared block (the same seven) once a group; whisper's decoder
+    layers 8 a decode step (self q, k, v and o, cross q and o, w1 and w2;
+    a prefill adds ``whisper_prefill_dense``); xlstm none."""
+    if cfg.block_kind == "xlstm":
+        return 0
+    if cfg.block_kind == "mamba_hybrid":
+        return 7 * lm.zamba2_groups(cfg)[0]
+    if cfg.cross_attention:
+        return 8 * cfg.n_layers
+    mlp = 3 * bool(cfg.shared_ff) if cfg.n_experts else 3
+    return (4 + mlp) * cfg.n_layers
+
+
+def whisper_prefill_dense(cfg) -> int:
+    """A whisper prefill's dense launches: the encoder's 6 a layer (q, k,
+    v, o, w1, w2) and the decoder's 10 (a decode step's 8 and the cross
+    k and v of the frames)."""
+    return 6 * cfg.encoder_layers + 10 * cfg.n_layers
+
+
 def encoder_norms() -> int:
     """RMSNorm launches of one encode call: ln1 and ln2 of every block and
     the final norm."""
@@ -2436,10 +2683,13 @@ def phase_main_path(model, params, smi: str):
         want[f"paged_decode{q}"] = L * steps
         want[f"paged_verify{q}"] = L * chunks
         want["rmsnorm"] = norms_per_step(model.cfg) * (steps + chunks)
+        want["dense_matmul"] = dense_per_step(model.cfg) * (steps + chunks)
         check(counts == want, f"{kv_dtype} pool launched {counts}, want "
               f"{want} ({steps} decode steps, {chunks} prefill chunks)")
         launches.update({n: counts[n] for n in (f"paged_decode{q}",
                                                 f"paged_verify{q}")})
+        if kv_dtype == "bf16":
+            launches["dense_matmul"] = counts["dense_matmul"]
         streams[kv_dtype] = [tuple(r.output) for r in reqs]
         print(f"[main] {kv_dtype} pool: 12 requests, prompts "
               f"{sum(len(r.tokens) for r in reqs)} tokens "
@@ -2450,7 +2700,9 @@ def phase_main_path(model, params, smi: str):
               f"launches: paged_decode{q} {want[f'paged_decode{q}']} = "
               f"{L} x {steps}, paged_verify{q} {want[f'paged_verify{q}']} "
               f"= {L} x {chunks}, rmsnorm {want['rmsnorm']} = "
-              f"{norms_per_step(model.cfg)} x ({steps} + {chunks}) ({smi})")
+              f"{norms_per_step(model.cfg)} x ({steps} + {chunks}), "
+              f"dense_matmul {want['dense_matmul']} = "
+              f"{dense_per_step(model.cfg)} x ({steps} + {chunks}) ({smi})")
     return launches, streams
 
 
@@ -2494,6 +2746,9 @@ def phase_speculation(model, params, streams, smi: str) -> dict:
         want["rmsnorm"] = (norms_per_step(cfg) * (ticks + chunks)
                            + norms_per_step(dcfg) * (SPEC_K * ticks
                                                      + installs))
+        want["dense_matmul"] = (dense_per_step(cfg) * (ticks + chunks)
+                                + dense_per_step(dcfg) * (SPEC_K * ticks
+                                                          + installs))
         check(counts == want, f"speculative {kv_dtype} pool launched "
               f"{counts}, want {want} ({ticks} verify passes, {chunks} "
               f"prefill chunks, {installs} draft prefills)")
@@ -2531,7 +2786,10 @@ def phase_speculation(model, params, streams, smi: str) -> dict:
               f"steps, rmsnorm "
               f"{want['rmsnorm']} = {norms_per_step(cfg)} x ({ticks} + "
               f"{chunks}) + {norms_per_step(dcfg)} x ({SPEC_K} x {ticks} + "
-              f"{installs}) ({smi})")
+              f"{installs}), dense_matmul {want['dense_matmul']} = "
+              f"{dense_per_step(cfg)} x ({ticks} + {chunks}) + "
+              f"{dense_per_step(dcfg)} x ({SPEC_K} x {ticks} + {installs}) "
+              f"({smi})")
     return launches
 
 
@@ -2654,6 +2912,8 @@ def phase_multimodal(model, params, smi: str) -> dict:
                            + encoder_norms() * 3
                            + norms_per_step(cfg) * (SPEC_K * ticks
                                                     + installs))
+        want["dense_matmul"] = dense_per_step(cfg) * (
+            steps + chunks + ticks + SPEC_K * ticks + installs)
         want[f"paged_decode{q}"] = L * steps
         want[f"paged_verify{q}"] = L * (chunks + ticks)
         label = f"{kv_dtype} pool" + (f", spec_k={SPEC_K} self-draft"
@@ -2724,6 +2984,8 @@ def phase_dense(model, params, streams, smi: str) -> dict:
         prefills, sfx = st["prefills"], st["suffix_prefills"]
         want = {n: 0 for n in WRAPPERS}
         want["rmsnorm"] = nps * (steps + chunks + prefills)
+        want["dense_matmul"] = dense_per_step(cfg) * (steps + chunks
+                                                      + prefills)
         want["flash_attention"] = L * prefills
         q = "_quant" if kv_dtype == "int8" else ""
         decode = "flash_decode" if not eng.paged else f"paged_decode{q}"
@@ -2751,6 +3013,8 @@ def phase_dense(model, params, streams, smi: str) -> dict:
               f"launches: {decode} {want[decode]} = {L} x {steps}, "
               f"flash_attention {want['flash_attention']} = {L} x "
               f"{prefills}, rmsnorm {want['rmsnorm']} = {nps} x ({steps} + "
+              f"{chunks} + {prefills}), dense_matmul "
+              f"{want['dense_matmul']} = {dense_per_step(cfg)} x ({steps} + "
               f"{chunks} + {prefills}) ({smi})")
     mono = got["dense, monolithic"]
     same = [sum(a == b for a, b in zip(got[other], mono))
@@ -2778,8 +3042,8 @@ def phase_profile(model, params, smi: str):
 def _profile_window(model, params, label, kw, smi: str):
     """One profiled window of ``phase_profile``: an engine made with the
     keywords ``kw``; prints its busy share, span totals, top kernels and
-    the device time and launches of the decode, verify, flash-attention
-    and RMSNorm kernels."""
+    the device time and launches of the decode, verify, flash-attention,
+    RMSNorm and dense-product kernels."""
 
     def window(telemetry, profiler):
         eng, reqs = _warm_engine(model, params, "bf16", telemetry, **kw)
@@ -2841,7 +3105,9 @@ def _profile_window(model, params, label, kw, smi: str):
         ("flash attention (every instantiation)", "flash_attention",
          lambda k: "flash_fp32" in k or "flash_attention_" in k),
         ("RMSNorm", "rmsnorm", lambda k: "rmsnorm_kernel" in k),
-        ("SSD scan (its passes)", "ssd_scan", lambda k: "ssd_" in k))
+        ("SSD scan (its passes)", "ssd_scan", lambda k: "ssd_" in k),
+        ("dense product (its tiles and split-K sums)", "dense_matmul",
+         lambda k: "dense_" in k))
     for what, name, match in groups:
         sel = [e for e in kernels if match(e.key)]
         print(f"[profile] {label}: {what}: "
@@ -2902,6 +3168,8 @@ def phase_moe(model, params, smi: str) -> dict:
                                                             + dsteps)
         want["rmsnorm"] = nps * passes + norms_per_step(dcfg) * (installs
                                                                  + dsteps)
+        want["dense_matmul"] = (dense_per_step(cfg) * passes
+                                + dense_per_step(dcfg) * (installs + dsteps))
         want["flash_attention"] = L * prefills + Ld * installs
         want["flash_decode"] = Ld * dsteps
         if eng.paged:
@@ -3006,6 +3274,7 @@ def phase_hybrid(model, params, smi: str) -> int:
     want["flash_attention"] = G * prefills
     want["flash_decode"] = G * steps
     want["rmsnorm"] = nps * (prefills + steps)
+    want["dense_matmul"] = dense_per_step(cfg) * (prefills + steps)
     check(counts == want, f"{HYBRID_ARCH} launched {counts}, want {want} "
           f"({prefills} prefills, {steps} decode steps)")
     check(not st["paged"] and not st["chunked"] and not st["bucketed"]
@@ -3025,7 +3294,9 @@ def phase_hybrid(model, params, smi: str) -> int:
           f"ssd_scan {want['ssd_scan']} = {L} x {prefills}, flash_attention "
           f"{want['flash_attention']} = {G} x {prefills}, flash_decode "
           f"{want['flash_decode']} = {G} x {steps}, rmsnorm "
-          f"{want['rmsnorm']} = {nps} x ({prefills} + {steps}) ({smi})")
+          f"{want['rmsnorm']} = {nps} x ({prefills} + {steps}), "
+          f"dense_matmul {want['dense_matmul']} = {dense_per_step(cfg)} x "
+          f"({prefills} + {steps}) ({smi})")
     return counts["ssd_scan"]
 
 
@@ -3314,7 +3585,9 @@ def phase_xlstm(smi: str) -> dict:
           f"(lengths {list(XLSTM_PROMPTS)}) in {prefills} prefills, "
           f"{st['decode_tokens']} decode tokens in {steps} decode steps, "
           f"{wall:.3f} s wall; {_latency_line(st, wall)}; launches: rmsnorm "
-          f"{want['rmsnorm']} = {nps} x ({prefills} + {steps}) ({smi})")
+          f"{want['rmsnorm']} = {nps} x ({prefills} + {steps}), "
+          f"dense_matmul {counts['dense_matmul']} (xlstm's projections are "
+          f"not column-cut) ({smi})")
     # in bf16 the two paths round differently (a 34-row and a 1-row GEMM,
     # the conv's bf16 sums against its one-row einsum) and 48 recurrent
     # blocks carry it: the JAX package's own xlstm in bf16 exceeds 2e-2
@@ -3382,6 +3655,8 @@ def phase_whisper(smi: str) -> dict:
     want = {n: 0 for n in WRAPPERS}
     want["flash_attention"] = (Le + 2 * L) * prefills
     want["flash_decode"] = 2 * L * steps
+    want["dense_matmul"] = (whisper_prefill_dense(cfg) * prefills
+                            + dense_per_step(cfg) * steps)
     check(counts == want, f"{WHISPER_ARCH} launched {counts}, want {want} "
           f"({prefills} prefills, {steps} decode steps)")
     check(not st["paged"] and not st["chunked"] and st["bucketed"]
@@ -3401,7 +3676,10 @@ def phase_whisper(smi: str) -> dict:
           f"{steps} decode steps, {wall:.3f} s wall; "
           f"{_latency_line(st, wall)}; launches: flash_attention "
           f"{want['flash_attention']} = ({Le} + 2 x {L}) x {prefills}, "
-          f"flash_decode {want['flash_decode']} = 2 x {L} x {steps} ({smi})")
+          f"flash_decode {want['flash_decode']} = 2 x {L} x {steps}, "
+          f"dense_matmul {want['dense_matmul']} = "
+          f"{whisper_prefill_dense(cfg)} x {prefills} + "
+          f"{dense_per_step(cfg)} x {steps} ({smi})")
     two = np.concatenate(frames[:2])
     consistency(model, params, {"encoder_frames": torch.from_numpy(two)
                                 .to(dev)}, tag, smi)
@@ -3536,38 +3814,6 @@ def phase_reduced_parity():
                       f"on the card")
 
 
-def analytic_predictors(bench):
-    """fig10's idealized MILP/MGQP (benchmarks/fig10_continuum_replay.py:62,
-    a numpy copy: this script imports nothing of the JAX package): the
-    cost model evaluated without noise, [n_tasks, n_classes] latency
-    estimates and success probabilities."""
-    C = len(SERVER_CLASSES)
-    aff = cm.category_affinity(len(CATEGORIES), C)
-    t_hat = np.zeros((bench.tasks.n, C))
-    b_hat = np.zeros((bench.tasks.n, C))
-    for c, (dev, mdl) in enumerate(SERVER_CLASSES):
-        t_hat[:, c] = cm.latency_s(cm.DEVICES[dev], cm.MODELS[mdl],
-                                   bench.tasks.text_len,
-                                   bench.tasks.difficulty)
-        b_hat[:, c] = cm.success_prob(cm.MODELS[mdl], bench.tasks.difficulty,
-                                      aff[bench.tasks.category, c])
-    return t_hat, b_hat
-
-
-def qlmio_policy(t_hat, b_hat, servers, w):
-    """fig10's QLMIO scoring rule (router Eq. 21 shape) over episode state
-    (benchmarks/fig10_continuum_replay.py:79, a numpy copy)."""
-    cls = servers.cls
-
-    def policy(ep):
-        total = t_hat[ep.current_task, cls] + ep.queue_s
-        u = -total / max(total.min(), 1e-6) + w * (
-            3.0 * b_hat[ep.current_task, cls] - 2.0)
-        return int(np.argmax(u))
-
-    return policy
-
-
 def recorded(policy, picks: list):
     """``policy``, appending each decision to ``picks``."""
     def wrapped(ep):
@@ -3582,7 +3828,8 @@ def fleet_launches(handles) -> dict:
     the fleet, as phases 5 and 8 count them: paged decode n_layers a decode
     step and paged verify n_layers a prefill chunk, each in its pool's
     instance, flash attention n_layers a monolithic prefill, RMSNorm the
-    norms of every step, chunk and prefill."""
+    norms and the dense product the projections of every step, chunk and
+    prefill."""
     want = {n: 0 for n in WRAPPERS}
     for h in handles:
         cfg, st = h.cfg, h.engine.stats()
@@ -3595,6 +3842,8 @@ def fleet_launches(handles) -> dict:
         want[f"paged_verify{q}"] += cfg.n_layers * chunks
         want["flash_attention"] += cfg.n_layers * prefills
         want["rmsnorm"] += norms_per_step(cfg) * (steps + chunks + prefills)
+        want["dense_matmul"] += dense_per_step(cfg) * (steps + chunks
+                                                       + prefills)
     return want
 
 
@@ -4215,7 +4464,7 @@ def phase_launch_serve(smi: str) -> dict:
     fail = int(SERVE_ARGV[SERVE_ARGV.index("--fail-server") + 1])
     dispatched = np.bincount([r["server"] for r in router.log],
                              minlength=len(servers))
-    decode = verify = 0
+    decode = verify = dense = 0
     for i, s in enumerate(servers):
         st = s.engine.stats()
         lat = st["latency"]
@@ -4228,6 +4477,9 @@ def phase_launch_serve(smi: str) -> dict:
                   f"{dispatched[i]} dispatches failed on a healthy server")
         decode += st["decode_steps"] * s.cfg.n_layers
         verify += st["prefill_chunks"] * s.cfg.n_layers
+        dense += dense_per_step(s.cfg) * (st["decode_steps"]
+                                          + st["prefill_chunks"]
+                                          + st["prefills"])
         print(f"[serve] {s.name}: {s.cfg.n_layers} layers of d "
               f"{s.cfg.d_model}; {dispatched[i]} dispatches, {ok} ok, "
               f"{len(done)} requests served (hedge losers included); "
@@ -4246,6 +4498,9 @@ def phase_launch_serve(smi: str) -> dict:
           f"paged verify launched {launches['paged_verify']} times, the "
           f"engines' prefill chunks x layers are {verify}")
     check(launches["rmsnorm"] > 0, "RMSNorm never launched")
+    check(launches["dense_matmul"] == dense > 0,
+          f"the dense product launched {launches['dense_matmul']} times, "
+          f"the engines' steps x their projections are {dense}")
     print(f"[serve] fleet: {len(router.log)} tasks in {wall:.1f} s "
           f"(weights drawn on the card included); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
@@ -4316,6 +4571,8 @@ def hold_first_calls(calls: dict, where: str):
         kw = {k: v for k, v in kw.items() if not k.startswith("plan_")}
         if kernel == "flash_attention":
             err32, _ = hold_flash_chunked(out, args, kw, where)
+        elif kernel == "dense_matmul":
+            err32, _ = hold_dense(out, *args, f"{where}, first call")
         else:
             err32, _ = hold(kernel, out, args, kw, slice(None),
                             f"{where}, first call")
@@ -5146,16 +5403,20 @@ BWD_NAMES = {name + "_bwd" for name in TRAIN_WRAPPERS}
 
 
 def _counts() -> dict:
+    """The training kernels' forward and backward launches, and the dense
+    product's (forward only: its backward is ``torch.matmul``)."""
     out = {}
     for name, w in TRAIN_WRAPPERS.items():
         out[name] = w.launches
         out[name + "_bwd"] = w.bwd_launches
+    out["dense_matmul"] = ops.dense_matmul.launches
     return out
 
 
 def zero_train_counts():
     for w in TRAIN_WRAPPERS.values():
         w.launches = w.bwd_launches = 0
+    ops.dense_matmul.launches = 0
 
 
 def zero_bwd_counts():
@@ -5186,11 +5447,16 @@ def family_train_launches(cfg) -> dict:
 
     def add(name, fwd, bwd):
         want[name] += fwd
-        want[name + "_bwd"] += bwd
+        if bwd is not None:
+            want[name + "_bwd"] += bwd
 
+    # the dense product: every projection of a recomputed layer twice (a
+    # Function's forward runs before the checkpoint's early stop, so the
+    # layer's last product is recomputed too), zamba2's shared block once
     if cfg.cross_attention:
         n = cfg.encoder_layers + 2 * cfg.n_layers
         add("flash_attention", 2 * n, n)
+        add("dense_matmul", 2 * whisper_prefill_dense(cfg), None)
         return want
     add("rmsnorm", 1, 1)
     if cfg.block_kind == "mamba_hybrid":
@@ -5198,6 +5464,7 @@ def family_train_launches(cfg) -> dict:
         add("ssd_scan", 2 * G * P, G * P)
         add("rmsnorm", 2 * 2 * G * P + 2 * G, 2 * G * P + 2 * G)
         add("flash_attention", G, G)
+        add("dense_matmul", dense_per_step(cfg), None)
         return want
     if cfg.block_kind == "xlstm":
         G, P = lm.xlstm_groups(cfg)
@@ -5207,6 +5474,7 @@ def family_train_launches(cfg) -> dict:
     norms = 2 + 2 * cfg.post_norms + 2 * cfg.qk_norm
     add("flash_attention", 2 * L, L)
     add("rmsnorm", 2 * norms * L, norms * L)
+    add("dense_matmul", 2 * dense_per_step(cfg), None)
     if cfg.n_experts:
         calls = cfg.moe_scan_chunks or 1
         add("grouped_matmul", 2 * 3 * L * calls, 3 * L * calls)
@@ -5352,7 +5620,9 @@ KERNEL_MATCH = {"flash_attention": (("flash_attention_tc", "flash_fp32"), 1),
                 "grouped_matmul_bwd": (("gmm_bwd_",), 1),
                 "ssd_scan": (("ssd_block_states", "ssd_state_passing",
                               "ssd_block_outputs"), 3),
-                "ssd_scan_bwd": (("ssd_bwd_",), 4)}
+                "ssd_scan_bwd": (("ssd_bwd_",), 4),
+                "dense_matmul": (("dense_wgmma", "dense_mma_sync",
+                                  "dense_f32"), 1)}
 
 
 def train_batch(cfg, B: int, S: int, step: int) -> dict:
@@ -5651,11 +5921,6 @@ TP_REDUCED_PROJECTIONS = [("reduced wq/wo/shared", 64, 64),
                           ("reduced w_gate/w_up", 64, 128),
                           ("reduced w_down", 128, 64)]
 TP_REDUCED_ROWS = (2, 16)
-# a bf16 stream may part from the unsharded one at a near-tie: teacher-
-# forced with the sharded tokens, the unsharded model holds each of them
-# from there on within the bf16 kernels' tolerance of its top logit (TOL's
-# bf16 entries, test_kernels.py's _tol for bf16)
-TP_TIE_TOL = TOL["paged_decode"]
 
 
 def tp_prompts(vocab: int, seed: int) -> list:
@@ -5804,97 +6069,73 @@ def tp_kernel_slices() -> dict:
     return own
 
 
-def tp_cublas_slices() -> dict:
-    """Whether ``x @ w[:, cols]`` equals ``(x @ w)[:, cols]`` bitwise at
-    each projection's shard shapes (TP_PROJECTIONS x TP_ROWS x TP 2, 4),
-    bf16 and fp32 (TF32 off); printed, not held: cuBLAS picks its kernel
-    by shape, and the token checks say what a difference costs."""
+def tp_dense_slices() -> dict:
+    """The dense product of a shard's columns under the global width's
+    plan (``dense_matmul(x, w[:, cols], plan_n=N)``) equals the unsharded
+    product's columns bit for bit at each projection's shard shapes
+    (TP_PROJECTIONS x TP_ROWS and the reduced shapes x TP_REDUCED_ROWS, at
+    TP 2 and 4: 60 cases), bf16 and fp32: held.  Beside it, printed, how
+    many of the same cases cuBLAS (``x @ w[:, cols]``) gives bitwise:
+    cuBLAS picks its kernel by shape, the reason the port's projections
+    run the hand-written kernel."""
     g = torch.Generator(device="cuda").manual_seed(37)
     out = {}
     shapes = ([(p, TP_ROWS) for p in TP_PROJECTIONS]
               + [(p, TP_REDUCED_ROWS) for p in TP_REDUCED_PROJECTIONS])
     for dt in (torch.bfloat16, torch.float32):
-        same, differ = 0, []
+        cases, cublas = 0, []
         for (name, K, N), rows in shapes:
-            w = torch.randn(K, N, generator=g, device="cuda").to(dt)
+            w = (torch.randn(K, N, generator=g, device="cuda")
+                 * K ** -0.5).to(dt)
             for M in rows:
                 x = torch.randn(M, K, generator=g, device="cuda").to(dt)
-                full = x @ w
+                full, lib = ops.dense_matmul(x, w), x @ w
                 for width in TP_WIDTHS:
                     n = N // width
-                    ok = all(torch.equal(
-                        x @ w[:, r * n:(r + 1) * n].contiguous(),
-                        full[:, r * n:(r + 1) * n]) for r in range(width))
-                    same += ok
-                    if not ok:
-                        differ.append(f"{name} M {M} TP {width}")
-        out[str(dt)[6:]] = {"equal": same, "of": same + len(differ),
-                            "differ": differ}
-        print(f"[tp] cuBLAS column slices, {str(dt)[6:]}: {same} of "
-              f"{same + len(differ)} shard products bitwise equal to the "
-              f"unsharded product's columns"
-              + (f"; differ: {', '.join(differ)}" if differ else ""))
+                    same = True
+                    for r in range(width):
+                        cols = slice(r * n, (r + 1) * n)
+                        shard = w[:, cols].contiguous()
+                        check(torch.equal(ops.dense_matmul(x, shard,
+                                                           plan_n=N),
+                                          full[:, cols]),
+                              f"dense_matmul {name} {str(dt)[6:]} M {M} TP "
+                              f"{width} rank {r}: the shard's product under "
+                              "the global plan is not the unsharded "
+                              "product's columns")
+                        same &= torch.equal(x @ shard, lib[:, cols])
+                    cases += 1
+                    if not same:
+                        cublas.append(f"{name} M {M} TP {width}")
+        out[str(dt)[6:]] = {"cases": cases, "cublas_equal": cases
+                            - len(cublas), "cublas_differ": cublas}
+        print(f"[tp] dense product column slices, {str(dt)[6:]}: all "
+              f"{cases} shard products under the global plan bitwise equal "
+              f"to the unsharded product's columns (held); cuBLAS's: "
+              f"{cases - len(cublas)} of {cases}"
+              + (f" (differ: {', '.join(cublas)})" if cublas else ""))
     return out
 
 
-def forced_gaps(model, params, prompt, out, t) -> "tuple":
-    """The unsharded model teacher-forced with the sharded stream ``out``
-    (one monolithic forward over ``prompt`` + ``out``): at each step j
-    from ``t`` on, its top logit less its logit of ``out[j]``, and
-    |top|, as host tensors."""
-    toks = np.concatenate([np.asarray(prompt, np.int64),
-                           np.asarray(out[:-1], np.int64)])
-    with torch.no_grad():
-        h = lm.forward_hidden(model.cfg, params, {"tokens": torch.as_tensor(
-            toks, device=TP_DEVICE)[None]})
-        logits = lm.last_logits(model.cfg, params, h[0, len(prompt) - 1 + t:])
-    top = logits.max(-1).values
-    chosen = logits.gather(-1, torch.as_tensor(
-        np.asarray(out[t:], np.int64), device=TP_DEVICE)[:, None])[:, 0]
-    return (top - chosen).cpu(), top.abs().cpu()
-
-
-def hold_tp_tokens(label: str, prompts: list, base: list, got: list,
-                   exact: bool, model, params) -> int:
-    """Each request's tokens equal the unsharded engine's; where ``exact``
-    is False a request may part from it at a near-tie: from the first
-    step that differs to the last, the unsharded model teacher-forced
-    with the sharded tokens (``forced_gaps``) must hold each sharded
-    token within ``TP_TIE_TOL`` of its top logit.  Returns the requests
-    that diverged."""
-    tol = TP_TIE_TOL
-    n = 0
+def hold_tp_tokens(label: str, base: list, got: list):
+    """Each request's tokens equal the unsharded engine's exactly (the JAX
+    package's guarantee, tests/test_tensor_parallel.py:126-196)."""
     for i, (b, o) in enumerate(zip(base, got)):
-        if tuple(b) == tuple(o):
-            continue
         t = next((j for j, (x, y) in enumerate(zip(b, o)) if x != y),
                  min(len(b), len(o)))
-        check(not exact and t < min(len(b), len(o)) and len(b) == len(o),
-              f"{label}: request {i}'s tokens differ at step {t}: "
-              f"{tuple(o)} vs the unsharded {tuple(b)}")
-        gap, top = forced_gaps(model, params, prompts[i], o, t)
-        limit = tol["atol"] + tol["rtol"] * top
-        worst = int(torch.argmax(gap - limit))
-        print(f"[tp] {label}: request {i} first differs at step {t}; "
-              f"teacher-forced over steps {t}-{len(o) - 1}: "
-              f"{int((gap > 0).sum())} of {len(gap)} sharded tokens below "
-              f"the unsharded top, gaps "
-              f"{', '.join(f'{g:.4e}' for g in gap.tolist())} (bf16 "
-              f"tolerance {float(limit[worst]):.4e} at step {t + worst})")
-        check(bool((gap <= limit).all()), f"{label}: request {i}'s token "
-              f"at step {t + worst} is {float(gap[worst]):.4e} below the "
-              f"unsharded top, past the bf16 tolerance "
-              f"{float(limit[worst]):.4e}")
-        n += 1
-    return n
+        check(tuple(b) == tuple(o), f"{label}: request {i}'s tokens differ "
+              f"at step {t}: {tuple(o)} vs the unsharded {tuple(b)}")
 
 
 # the kernels each TP run must launch (in rank 0)
-TP_NEEDS = {"bf16 chunked": ("paged_decode", "paged_verify", "rmsnorm"),
-            "monolithic": ("flash_attention", "paged_decode"),
-            "int8": ("paged_decode_quant", "paged_verify_quant"),
+TP_NEEDS = {"bf16 chunked": ("paged_decode", "paged_verify", "rmsnorm",
+                             "dense_matmul"),
+            "monolithic": ("flash_attention", "paged_decode",
+                           "dense_matmul"),
+            "int8": ("paged_decode_quant", "paged_verify_quant",
+                     "dense_matmul"),
             "speculative": ("paged_verify", "flash_decode",
-                            "flash_attention")}
+                            "flash_attention", "dense_matmul")}
 
 
 def phase_tp(smi: str) -> dict:
@@ -5902,7 +6143,7 @@ def phase_tp(smi: str) -> dict:
     the kernels line."""
     with timed("tensor-parallel: shard-slice checks"):
         tp_kernel_slices()
-        tp_cublas_slices()
+        tp_dense_slices()
     full = {}
     for arch in (TP_ARCH, MOE_ARCH):
         model = build_model(get_config(arch))
@@ -5937,15 +6178,11 @@ def phase_tp(smi: str) -> dict:
             case = cases[name]
             check(got["ranks_agree"], f"TP {width} {name}: the ranks emitted "
                   "different tokens")
-            # the full-width bf16 runs; the reduced fp32 ones are exact
             arch = next((a for a in full if name.startswith(a)), None)
-            exact = arch is None
-            model, params = full.get(arch, (None, None))
-            btoks = base[name]["tokens"]
-            hold_tp_tokens(f"TP {width} {name}", case["prompts"], btoks,
-                           got["tokens"], exact, model, params)
+            hold_tp_tokens(f"TP {width} {name}", base[name]["tokens"],
+                           got["tokens"])
             run = name.removeprefix(f"{arch} ") if arch else name
-            for k in TP_NEEDS.get(run, ()) + (
+            for k in TP_NEEDS.get(run, ("dense_matmul",)) + (
                     ("grouped_matmul",) if arch == MOE_ARCH else ()):
                 check(got["launches"][k] > 0, f"TP {width} {name}: {k} was "
                       "not launched")
@@ -5953,7 +6190,9 @@ def phase_tp(smi: str) -> dict:
             print(f"[tp] TP {width} {name}: {got['tp_shards']}, pool "
                   f"{got['pool_shape']}, {got['param_bytes'] / 1e9:.3f} GB "
                   f"of weights a rank; {got['gathers']} gathers "
-                  f"({got['gather_bytes'] / 1e6:.1f} MB) on rank 0; "
+                  f"({got['gather_bytes'] / 1e6:.1f} MB) and "
+                  f"{got['launches']['dense_matmul']} dense products on "
+                  f"rank 0; "
                   f"{rate[width][name]:.1f} tokens/s ({rate[1][name]:.1f} "
                   "unsharded); peak memory by rank "
                   + ", ".join(f"{(p or 0) / 2 ** 30:.2f}"
@@ -5976,8 +6215,7 @@ def phase_tp(smi: str) -> dict:
 def tp_migration(got: dict, case: dict, model, params):
     """The request evacuated at TP 4 resumes on an unsharded engine: the
     snapshot holds every kv head and the global geometry, and the stream
-    equals the uninterrupted unsharded one (a near-tie aside, as the
-    token checks allow)."""
+    equals the uninterrupted unsharded one exactly."""
     snap, req = got["snapshot"], got["request"]
     cfg = case["cfg"]
     check(snap.geometry == (cfg.n_layers, cfg.n_kv_heads, cfg.hd) and
@@ -5998,8 +6236,7 @@ def tp_migration(got: dict, case: dict, model, params):
     eng.run_until_drained()
     check(eng.stats()["prefill_chunks"] == prefills,
           "the resumed request ran a prefill pass")
-    hold_tp_tokens("migration TP 4 -> TP 1", [prompt], [base.output],
-                   [req.output], False, model, params)
+    hold_tp_tokens("migration TP 4 -> TP 1", [base.output], [req.output])
     print(f"[tp] migration: evacuated at TP 4 after {j} tokens, "
           f"{snap.num_pages} pages of {snap.geometry}, resumed unsharded "
           f"to {len(req.output)} tokens, no prefill pass")

@@ -41,7 +41,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the kernel wrappers a serve counts the launches of (``ops``)
 KERNELS = ("paged_decode", "paged_decode_quant", "paged_verify",
            "paged_verify_quant", "flash_attention", "flash_decode",
-           "flash_decode_quant", "rmsnorm", "grouped_matmul", "ssd_scan")
+           "flash_decode_quant", "rmsnorm", "grouped_matmul", "ssd_scan",
+           "dense_matmul")
 
 
 def case_params(model, case: dict, sharded=None):

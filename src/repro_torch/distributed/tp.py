@@ -12,11 +12,12 @@ binding of the ``model`` axis to the rank's process group
 Every collective is an **all-gather, pure data movement**: no rank sums
 partials, so each output element is computed whole on one rank.  The
 hand-written kernels then give the unsharded call's slice bit for bit
-(below); the projections are cuBLAS products of a shard's columns, which
-cuBLAS does not promise to round as it rounds those columns of the
-unsharded product (on the H100 some shard shapes differ in the last bit,
-``PERF.md``), so at full width bf16 greedy tokens can leave the unsharded
-engine's at a near-tie.  The layout:
+(below), the projections included: a shard's columns run the
+column-stable dense kernel (``kernels/dense_matmul.py``) under the global
+width's plan, which equals those columns of the unsharded product (cuBLAS,
+which picks its kernel by shape, does not at every shard shape), so a
+sharded engine emits the unsharded engine's tokens exactly, bf16 too, as
+the JAX package guarantees.  The layout:
 
   * attention: q/kv heads split over ``model`` (column-parallel qkv, exact
     local per-head attention); ``wo`` holds all H*Dh rows and 1/tp of the
@@ -34,8 +35,9 @@ engine's at a near-tie.  The layout:
     and takes the same greedy token with no collective.
 
 The kernels run at shard shapes (fewer heads, experts or columns per
-call) under the launch plan of the global width (``api.py`` passes it), so
-a rank's output is the unsharded call's slice bit for bit.
+call) under the launch plan of the global width (``api.py`` and
+``lm.dense`` pass it), so a rank's output is the unsharded call's slice
+bit for bit.
 
 The local model is an ordinary ``Model`` whose config holds the per-rank
 dimensions plus ``tp_axis``/``tp_shards`` (``dataclasses.replace``, as in

@@ -383,6 +383,7 @@ MIN_CALLS, MAX_CALLS, TIMED_S = 2, 5, 2.0
 # names it by its function) -> (its kernel in ``kernels/ops.py``, the
 # attribute there that counts its launches)
 COUNTERS = {
+    "dense_matmul_fwd": ("dense_matmul", "launches"),
     "paged_decode": ("paged_decode", "launches"),
     "paged_decode_quant": ("paged_decode_quant", "launches"),
     "paged_verify": ("paged_verify", "launches"),

@@ -633,12 +633,14 @@ class Model:
             _masked_write(vc, (rows, wpos), v[:, 0], live)
             o = ops.flash_decode(q[:, 0].contiguous(), kc, vc, pos_map,
                                  pos32)
-            x = x + o.reshape(B, -1) @ pl["attn"]["wo"].to(x.dtype)
+            x = x + lm.dense(o.reshape(B, -1), pl["attn"]["wo"].to(x.dtype),
+                             cfg)
             xn = lm._norm(pl, x[:, None], cfg.norm, "lnx")
             q2 = lm.cross_q(cfg, pl["xattn"], xn)
             o2 = ops.flash_decode(q2[:, 0].contiguous(), cache["xk"][i],
                                   cache["xv"][i], xpos, xq)
-            x = x + o2.reshape(B, -1) @ pl["xattn"]["wo"].to(x.dtype)
+            x = x + lm.dense(o2.reshape(B, -1),
+                             pl["xattn"]["wo"].to(x.dtype), cfg)
             xn = lm._norm(pl, x[:, None], cfg.norm, "ln2")
             x = x + lm._mlp(pl["mlp"], cfg, xn)[:, 0]
         x = lm._norm(params, x, cfg.norm, "final")

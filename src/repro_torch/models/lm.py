@@ -9,7 +9,10 @@ cross-attention.
 Parameters are a plain dict with the JAX tree's keys; per-layer leaves are
 stacked on dim 0.  Norms accumulate in fp32 (RMS norms through the fused
 RMSNorm kernel on the card); matmuls run in the activation dtype, with
-weights cast at the use site as in the JAX package.  Whole-prompt attention
+weights cast at the use site as in the JAX package, and every projection
+whose weight tensor parallelism cuts by columns (q, k, v, o, the MLP's,
+whisper's cross-attention) through the column-stable dense kernel
+(``dense``); the LM head stays ``x @ w``.  Whole-prompt attention
 (the decoders' causal attention, whisper's encoder and cross-attention)
 runs the flash-attention kernel on the card.  Training
 (``forward_hidden``, ``chunked_xent``, ``train_loss``) covers every family
@@ -32,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import collectives as coll
+from repro_torch.kernels.dense_matmul import dense_matmul
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
@@ -125,22 +129,34 @@ def tp_width(cfg: ArchConfig, part: str) -> int:
     return 1
 
 
-def _col_gathered(x, w, cfg: ArchConfig, dt):
+def dense(x, w, cfg: ArchConfig, part: str = ""):
+    """``x @ w`` over x's last dim through the column-stable dense kernel
+    (``kernels/dense_matmul.py``; its plain version on the CPU).  ``part``
+    names the ``tp_shards`` entry that cuts w's columns: a rank holding
+    1/tp of them launches under the plan of the global width, so that its
+    product is those columns of the unsharded product bit for bit."""
+    K, N = w.shape
+    plan_n = N * tp_width(cfg, part) if part else None
+    y = dense_matmul(x.reshape(-1, K).contiguous(), w, plan_n=plan_n)
+    return y.reshape(x.shape[:-1] + (N,))
+
+
+def _col_gathered(x, w, cfg: ArchConfig, dt, part: str):
     """``x @ w`` where ``x``'s last dim and ``w``'s output columns are
-    both tensor-parallel: ``w`` holds the full contraction dim but 1/tp
-    of the output columns.
+    both tensor-parallel (``part`` of ``tp_shards``): ``w`` holds the
+    full contraction dim but 1/tp of the output columns.
 
     Two all-gathers, pure data movement, rebuild the replicated input and
-    output around one local matmul over the full contraction, so every
-    output element is a whole dot product computed on one rank.  It
-    equals the unsharded product's element only where the matmul is
-    column-sliceable, as the JAX package assumes of XLA's dot; cuBLAS
-    is not at every shard shape (``PERF.md``), so bf16 greedy tokens can
-    leave the unsharded engine's at a near-tie.  A row-parallel
-    product with a sum of partials would move less but rounds its split-K
-    partial sums differently and flips greedy argmax on near-ties."""
+    output around one local product over the full contraction, so every
+    output element is a whole dot product computed on one rank.  The
+    dense kernel under the global width's plan (``dense``) makes it the
+    unsharded product's element bit for bit, as the JAX package assumes
+    of XLA's dot.  A row-parallel product with a sum of partials would
+    move less but rounds its split-K partial sums differently and flips
+    greedy argmax on near-ties."""
     full = coll.all_gather(x, cfg.tp_axis, -1)
-    return coll.all_gather(full @ w.to(dt), cfg.tp_axis, -1)
+    return coll.all_gather(dense(full, w.to(dt), cfg, part), cfg.tp_axis,
+                           -1)
 
 
 def _attn_out(pl_attn, cfg: ArchConfig, o, dt):
@@ -148,8 +164,8 @@ def _attn_out(pl_attn, cfg: ArchConfig, o, dt):
     in the local heads' outputs; wo holds all H*Dh rows but 1/tp of the
     d_model output columns (``_col_gathered``)."""
     if cfg.tp_axis and "heads" in cfg.tp_shards:
-        return _col_gathered(o, pl_attn["wo"], cfg, dt)
-    return o @ pl_attn["wo"].to(dt)
+        return _col_gathered(o, pl_attn["wo"], cfg, dt, "heads")
+    return dense(o, pl_attn["wo"].to(dt), cfg)
 
 
 # ---------------------------------------------------------------- specs
@@ -317,9 +333,9 @@ def _rope_tables(cfg: ArchConfig, max_len: int, device=None):
 def _qkv(pl, cfg, xn, B, S):
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = xn.dtype
-    q = xn @ pl["wq"].to(dt)
-    k = xn @ pl["wk"].to(dt)
-    v = xn @ pl["wv"].to(dt)
+    q = dense(xn, pl["wq"].to(dt), cfg, "heads")
+    k = dense(xn, pl["wk"].to(dt), cfg, "kv_heads")
+    v = dense(xn, pl["wv"].to(dt), cfg, "kv_heads")
     if "bq" in pl:
         q = q + pl["bq"].to(dt)
         k = k + pl["bk"].to(dt)
@@ -339,14 +355,16 @@ def _mlp(pl, cfg, xn):
     act = _act(cfg.act)
     tp = bool(cfg.tp_axis) and "mlp" in cfg.tp_shards
     if "w1" in pl:  # plain, with biases (whisper)
-        h = act(xn @ pl["w1"].to(dt) + pl["b1"].to(dt))
+        h = act(dense(xn, pl["w1"].to(dt), cfg, "mlp") + pl["b1"].to(dt))
         if tp:  # b2 is replicated, added once to the gathered output
-            return _col_gathered(h, pl["w2"], cfg, dt) + pl["b2"].to(dt)
-        return h @ pl["w2"].to(dt) + pl["b2"].to(dt)
-    h = act(xn @ pl["w_gate"].to(dt)) * (xn @ pl["w_up"].to(dt))
+            return (_col_gathered(h, pl["w2"], cfg, dt, "mlp")
+                    + pl["b2"].to(dt))
+        return dense(h, pl["w2"].to(dt), cfg) + pl["b2"].to(dt)
+    h = (act(dense(xn, pl["w_gate"].to(dt), cfg, "mlp"))
+         * dense(xn, pl["w_up"].to(dt), cfg, "mlp"))
     if tp:
-        return _col_gathered(h, pl["w_down"], cfg, dt)
-    return h @ pl["w_down"].to(dt)
+        return _col_gathered(h, pl["w_down"], cfg, dt, "mlp")
+    return dense(h, pl["w_down"].to(dt), cfg)
 
 
 def moe(pl, cfg, xt, dispatch_axes=None):
@@ -499,7 +517,7 @@ def _shared_attn_apply(cfg: ArchConfig, ps, x, x0, rope, positions, *,
     else:
         o, kv = attend(q[:, 0], k[:, 0], v[:, 0]), None
     o = o.reshape(x.shape[:-1] + (-1,))
-    y = x + o @ ps["attn"]["wo"].to(dt)
+    y = x + dense(o, ps["attn"]["wo"].to(dt), cfg)
     yn = _norm(ps, y, cfg.norm, "ln2")
     return y + _mlp(ps["mlp"], cfg, yn).reshape(x.shape), kv
 
@@ -639,7 +657,7 @@ def _whisper_enc_layer(cfg: ArchConfig, pl, x):
     xn = _norm(pl, x, cfg.norm, "ln1")
     q, k, v = _qkv(pl["attn"], cfg, xn, B, Se)
     o = flash_attention(q, k, v, causal=False)
-    x = x + o.reshape(B, Se, -1) @ pl["attn"]["wo"].to(x.dtype)
+    x = x + dense(o.reshape(B, Se, -1), pl["attn"]["wo"].to(x.dtype), cfg)
     return x + _mlp(pl["mlp"], cfg, _norm(pl, x, cfg.norm, "ln2"))
 
 
@@ -664,7 +682,7 @@ def cross_q(cfg: ArchConfig, pl_xattn, xn):
     decoder stream xn [B, S, d] (the JAX package's ``_qkv`` computes this
     layer's k and v of xn too, and drops them)."""
     B, S, _ = xn.shape
-    q = xn @ pl_xattn["wq"].to(xn.dtype)
+    q = dense(xn, pl_xattn["wq"].to(xn.dtype), cfg)
     if "bq" in pl_xattn:
         q = q + pl_xattn["bq"].to(xn.dtype)
     return q.reshape(B, S, cfg.n_heads, cfg.hd)
@@ -676,8 +694,8 @@ def cross_kv(cfg: ArchConfig, pl_xattn, enc):
     B, Se, _ = enc.shape
     dt = enc.dtype
     shape = (B, Se, cfg.n_kv_heads, cfg.hd)
-    k = (enc @ pl_xattn["wk"].to(dt)).reshape(shape)
-    v = (enc @ pl_xattn["wv"].to(dt)).reshape(shape)
+    k = dense(enc, pl_xattn["wk"].to(dt), cfg).reshape(shape)
+    v = dense(enc, pl_xattn["wv"].to(dt), cfg).reshape(shape)
     if "bk" in pl_xattn:
         k = k + pl_xattn["bk"].to(dt).reshape(shape[2:])
         v = v + pl_xattn["bv"].to(dt).reshape(shape[2:])
@@ -690,12 +708,13 @@ def _whisper_dec_layer(cfg: ArchConfig, pl, x, enc):
     xn = _norm(pl, x, cfg.norm, "ln1")
     q, k, v = _qkv(pl["attn"], cfg, xn, B, S)
     o = flash_attention(q, k, v, causal=True)
-    x = x + o.reshape(B, S, -1) @ pl["attn"]["wo"].to(x.dtype)
+    x = x + dense(o.reshape(B, S, -1), pl["attn"]["wo"].to(x.dtype), cfg)
     xn = _norm(pl, x, cfg.norm, "lnx")
     q2 = cross_q(cfg, pl["xattn"], xn)
     k2, v2 = cross_kv(cfg, pl["xattn"], enc.to(x.dtype))
     o2 = flash_attention(q2, k2, v2, causal=False)
-    x = x + o2.reshape(B, S, -1) @ pl["xattn"]["wo"].to(x.dtype)
+    x = x + dense(o2.reshape(B, S, -1), pl["xattn"]["wo"].to(x.dtype),
+                  cfg)
     x = x + _mlp(pl["mlp"], cfg, _norm(pl, x, cfg.norm, "ln2"))
     return x, (k, v, k2, v2)
 

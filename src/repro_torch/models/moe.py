@@ -134,15 +134,24 @@ def _gather(src, idx, mask, back_idx, back_mask, fold):
 def _shared_expert(p, x, act, tp_axis: str = ""):
     """The shared expert's MLP in x's type, times its fp32 sigmoid gate;
     with ``tp_axis`` its ff columns are sharded (gather, down projection
-    over the full ff to 1/tp of the d columns, gather)."""
+    over the full ff to 1/tp of the d columns, gather).  Its three
+    products run the column-stable dense kernel
+    (``kernels/dense_matmul.py``), a rank's under the global width's
+    plan."""
     dt = x.dtype
-    sgx = act(x @ p["shared_gate"].to(dt)) * (x @ p["shared_up"].to(dt))
+    tp = coll.axis_size(tp_axis) if tp_axis else 1
+
+    def dense(a, w):
+        return ops.dense_matmul(a.contiguous(), w.to(dt),
+                                plan_n=w.shape[-1] * tp if tp > 1 else None)
+
+    sgx = act(dense(x, p["shared_gate"])) * dense(x, p["shared_up"])
     if tp_axis:
         shared = coll.all_gather(
-            coll.all_gather(sgx, tp_axis, 1) @ p["shared_down"].to(dt),
+            dense(coll.all_gather(sgx, tp_axis, 1), p["shared_down"]),
             tp_axis, 1)
     else:
-        shared = sgx @ p["shared_down"].to(dt)
+        shared = dense(sgx, p["shared_down"])
     gate = torch.sigmoid(x.float() @ p["shared_router"].float())
     return shared.float() * gate
 

@@ -641,9 +641,11 @@ def test_fig10_replay_matches_jax(fig10, n_users):
 
 
 def test_chip_smoke_qlmio_rule_is_fig10s(fig10):
-    """``chip_smoke.py``'s numpy copy of fig10's predictors and QLMIO rule
-    gives fig10's arrays and decisions on the full smoke trace, at every
-    quality weight of fig10's sweeps."""
+    """The port's copy of fig10's predictors and QLMIO rule
+    (``repro_torch.sim.policies``, which ``chip_smoke.py`` and
+    ``examples/pt_serve_continuum.py`` import) gives fig10's arrays and
+    decisions on the full smoke trace, at every quality weight of fig10's
+    sweeps."""
     bench_mod, smoke = fig10
     jbench = jmb.generate(seed=0, n_tasks=200)
     bench = generate(seed=0, n_tasks=200)

@@ -149,10 +149,17 @@ def _port_products(arch, kind) -> collections.Counter:
 #    autodiff of ``ssd_chunked`` make different products; per Mamba2
 #    layer (4; h 8 heads of p 16, state n 16, one chunk of S 64): +2 of
 #    2 B S h p = 32,768, -1 of 2 B S^2 h = 131,072, +1 of 2 B S^2 n =
-#    262,144 and +4 of 2 B S^2 h p / 4 = 524,288.
-SCORES, LOGITS, COMBINE = 1_048_576, 8_388_608, 65_536
+#    262,144 and +4 of 2 B S^2 h p / 4 = 524,288;
+#  * down: the MLP's down projection (``dense_matmul``, an autograd
+#    Function) is recomputed under remat where ``x @ w`` was not: a
+#    Function packs its saved tensors after its forward has run, so the
+#    non-reentrant checkpoint's early stop, which ends the recompute once
+#    the last saved tensor is packed, comes after the layer's last
+#    product and not before it; one 2 B S ff d = 2,097,152 product per
+#    dense attention layer (2; an MoE layer ends in its combine).
+SCORES, LOGITS, COMBINE, DOWN = 1_048_576, 8_388_608, 65_536, 2_097_152
 TRAIN_GAPS = {
-    "qwen2-0.5b": {SCORES: 2, LOGITS: 1},
+    "qwen2-0.5b": {SCORES: 2, LOGITS: 1, DOWN: 2},
     "granite-moe-1b-a400m": {SCORES: 2, LOGITS: 1, COMBINE: 2},
     "zamba2-2.7b": {LOGITS: 1, 32_768: 4 * 2, 131_072: -4 * 1,
                     262_144: 4 * 1, 524_288: 4 * 4},
@@ -287,7 +294,8 @@ def test_sweep_resumes_and_records(tmp_path):
     (rec,) = recs
     assert rec["status"] == "ok" and rec["fits"] is True
     assert rec["kernel_calls"] == {"flash_decode": 24,
-                                   "rmsnorm_fwd": 2 * 24 + 1}
+                                   "rmsnorm_fwd": 2 * 24 + 1,
+                                   "dense_matmul_fwd": 7 * 24}
     assert rec["roofline"]["bottleneck"] == "memory"
 
 
@@ -337,7 +345,8 @@ def test_parallel_sweep_gives_the_sequential_records(monkeypatch):
     (rec,) = [r for r in par if key(r) == ("qwen2-0.5b", "decode_32k")]
     assert rec["extrapolated_from"] == [8192, 16384]
     assert rec["kernel_calls"] == {"flash_decode": 24,
-                                   "rmsnorm_fwd": 2 * 24 + 1}
+                                   "rmsnorm_fwd": 2 * 24 + 1,
+                                   "dense_matmul_fwd": 7 * 24}
     assert [r["status"] for r in sorted(par, key=key)] == \
         ["ok", "skipped", "ok", "ok"]
 
@@ -348,7 +357,8 @@ def test_counters_cover_every_kernel_wrapper():
     # every decorated wrapper runs the decorator's one inner function
     code = kernel_wrapper(len).__code__
     wrapped = set()
-    for mod in ("flash_attention", "flash_decode", "moe_gmm",
+    for mod in ("dense_matmul", "flash_attention", "flash_decode",
+                "moe_gmm",
                 "paged_decode", "paged_verify", "rmsnorm", "ssd_scan"):
         m = importlib.import_module(f"repro_torch.kernels.{mod}")
         wrapped |= {name for name, f in vars(m).items()
@@ -360,8 +370,10 @@ def test_counters_cover_every_kernel_wrapper():
 
 
 # the kernel wrappers each decode step calls
-WRAPPERS_CALLED = {"qwen2-0.5b": {"rmsnorm_fwd", "flash_decode"},
-                   "zamba2-2.7b": {"rmsnorm_fwd", "flash_decode"},
+WRAPPERS_CALLED = {"qwen2-0.5b": {"rmsnorm_fwd", "flash_decode",
+                                  "dense_matmul_fwd"},
+                   "zamba2-2.7b": {"rmsnorm_fwd", "flash_decode",
+                                   "dense_matmul_fwd"},
                    "xlstm-1.3b": {"rmsnorm_fwd"}}
 
 
