@@ -1554,10 +1554,11 @@ def dense_projections(cfg) -> dict:
 def dense_build_report(info):
     """Phase 2 for the dense product: no register spill, tensor-core
     instructions of both bf16 variants in the SASS (HMMA of the mma.sync
-    tiles, HGMMA of the wgmma kernel), and the plan (variant, K splits x
-    steps) at the main path's rows for qwen2-0.5b's projections, with
-    llama3.2-3b's at TP 4 (a rank's N / 4 columns under the global plan,
-    beside the plan the shard's own N would give)."""
+    tiles, HGMMA of the wgmma kernel), and the plan (variant, tile rows x
+    width, K splits x steps, work units) at the main path's rows for
+    qwen2-0.5b's projections, with llama3.2-3b's at TP 4 (a rank's N / 4
+    columns under the global plan, beside the plan the shard's own N
+    would give)."""
     spills = ptxas_spills(info["ptxas"])
     spilled = [f"{name} ({n} bytes)" for name, _, n in spills if n]
     check(not spilled, "dense_matmul.cu: register spills: "
@@ -1573,14 +1574,15 @@ def dense_build_report(info):
              else f"; {hmma} HMMA and {hgmma} HGMMA instructions"))
 
     def short(p):
-        return (f"{p.variant}" + (f" x{8 * p.rows8}" if p.rows8 else "")
-                + f" {p.splits}x{p.kt_per}")
+        return dense_plan_text(p)
 
     cfg = get_config("qwen2-0.5b")
     for (K, N), label in dense_projections(cfg).items():
         print(f"[build]   dense matmul plan, qwen2-0.5b {label} [{K}, {N}] "
-              "(variant, K splits x steps): " + "; ".join(
-                  f"M {M} {short(dense_kernel.plan(dt, M, K, N))}"
+              "(variant [tile rows x width] K splits x steps, work units): "
+              + "; ".join(
+                  f"M {M} {short(dense_kernel.plan(dt, M, K, N))} "
+                  f"({dense_kernel.plan(dt, M, K, N).ctas(M, N)})"
                   for dt in (torch.bfloat16,) for M in DENSE_PLAN_ROWS)
               + f"; fp32 M 8 "
               f"{short(dense_kernel.plan(torch.float32, 8, K, N))}")
@@ -1592,6 +1594,12 @@ def dense_build_report(info):
                   f"M {M} {short(dense_kernel.plan(bf16, M, K, N))} (own "
                   f"{short(dense_kernel.plan(bf16, M, K, N // 4))})"
                   for M in (4, 16, 64, 128)))
+
+
+def dense_plan_text(p) -> str:
+    """A dense-product plan as phases 2 and 4 print it: the variant, the
+    tile [rows of x x columns] and the K splits x steps a split."""
+    return f"{p.variant} [{p.rows} x {p.width}] {p.splits}x{p.kt_per}"
 
 
 def hold_dense(out, x, w, where) -> tuple:
@@ -2292,11 +2300,14 @@ def phase_timing_new(smi: str) -> dict:
 
 # the dense product's timing shapes (phase 4): (arch, projection, rows):
 # a decode tick (B 8) and a 1024-token prompt for qwen2-0.5b, llama3.2-3b
-# (the kernels-line entry: its decode gate/up) and chameleon-34b, and
-# qwen2-0.5b's training batch (B 8 x S 1024)
+# (the kernels-line entry: its decode gate/up) and chameleon-34b, the k/v
+# projections of the first two, and qwen2-0.5b's training batch (B 8 x S
+# 1024)
 DENSE_TIMING = [(arch, proj, M)
                 for arch in ("llama3.2-3b", "qwen2-0.5b", "chameleon-34b")
-                for proj in ("gate/up", "wq", "down") for M in (8, 1024)]
+                for proj in ("gate/up", "wq", "down")
+                + (("wk/wv",) if arch != "chameleon-34b" else ())
+                for M in (8, 1024)]
 DENSE_TIMING += [("qwen2-0.5b", proj, 8192) for proj in ("gate/up", "down")]
 
 
@@ -2324,8 +2335,8 @@ def _time_dense(smi: str) -> dict:
 
         row = _time_call(
             "dense_matmul", f"{arch} {proj} M={M} K={K} N={N} bf16; "
-            f"{p.variant}{f' x{8 * p.rows8}' if p.rows8 else ''}, "
-            f"{p.splits} K splits of {p.kt_per} steps",
+            f"{dense_plan_text(p)} ({p.ctas(M, N)} work units; tile width "
+            f"{p.width}, {p.splits} K splits of {p.kt_per} steps)",
             [(x, w[i]) for i in range(L)], {}, 2 * (M * K + K * N + M * N),
             2 * M * K * N, torch.bfloat16, library, smi)
         out.setdefault("dense_matmul", row)
@@ -3106,14 +3117,16 @@ def _profile_window(model, params, label, kw, smi: str):
          lambda k: "flash_fp32" in k or "flash_attention_" in k),
         ("RMSNorm", "rmsnorm", lambda k: "rmsnorm_kernel" in k),
         ("SSD scan (its passes)", "ssd_scan", lambda k: "ssd_" in k),
-        ("dense product (its tiles and split-K sums)", "dense_matmul",
+        ("dense product (one kernel a call)", "dense_matmul",
          lambda k: "dense_" in k))
     for what, name, match in groups:
         sel = [e for e in kernels if match(e.key)]
+        n = sum(e.count for e in sel)
         print(f"[profile] {label}: {what}: "
               f"{sum(dev_us(e) for e in sel) / 1e3:.3f} ms of device time, "
-              f"{sum(e.count for e in sel)} kernel launches, {calls[name]} "
-              "wrapper calls")
+              f"{n} kernel launches, {calls[name]} wrapper calls"
+              + (f" ({n / calls[name]:.2f} kernels a call)"
+                 if name == "dense_matmul" and calls[name] else ""))
 
 
 def moe_model():

@@ -17,46 +17,57 @@
 // encoder, decoder and cross-attention projections).
 //
 // The contract.  The arithmetic of each output element depends only on
-// the launch plan (kernels/dense_matmul.py plan: the variant and the K
-// split, from (dtype, M, K, plan_n) and the SM count) and on that
-// element's row of x and column of w, never on where the column lies in
-// the tile or on how many columns there are.  So for every width tp that
-// divides N,
+// the launch plan (kernels/dense_matmul.py plan: the variant, the tile
+// width, the K split, from (dtype, M, K, plan_n) and the SM count) and on
+// that element's row of x and column of w, never on where the column lies
+// in the tile or on how many columns there are.  So for every width tp
+// that divides N,
 //   dense_matmul(x, w[:, r N/tp : (r+1) N/tp], plan_n=N)
 //     == dense_matmul(x, w)[:, r N/tp : (r+1) N/tp]          bit for bit.
 // Each element is summed over K in ascending order: 16-deep blocks inside
 // the tensor-core instruction (the same instruction at every column), the
 // blocks in order, and where the plan splits K, each split's fp32 partial
-// summed in split order by a second pass.  No atomics: two calls give the
-// same bits on any card.
+// summed in split order (split 0's, plus split 1's, ...) by the last CTA
+// of the output tile to arrive, which an int32 arrival counter elects
+// (the counter elects and sums nothing).  No atomics in the sums: two
+// calls give the same bits on any card.
 //
 // What bounds it on an H100: bytes at a decode tick, a verify pass or a
 // chunk (M <= 64: each weight element is read once for 2 M flops, under
 // the ~295 flops a byte at which the bf16 tensor cores take over), and
 // operations at prompt and training rows (llama3.2-3b's w_gate at M 8192:
-// 4.1e11 flops against 64 MB).  The variants, chosen by the plan:
+// 4.1e11 flops against 64 MB).  One launch a call.  The variants, chosen
+// by the plan:
 //   * bf16, M <= 64 (and bf16 rows that TMA cannot describe at any M):
 //     mma.sync tiles (tc_bf16.cuh) of out^T = w^T x^T, so that 16 columns
 //     of N fill the mma's 16 rows and the tokens its 8 columns (8, 16, 32
 //     or 64 rows of x a CTA, by M), instead of padding M to 16.  A CTA of
-//     4 warps owns 64 columns (16 a warp) and streams w in 64-deep steps
-//     through a 4-stage cp.async ring.  Where the global N gives fewer CTAs
-//     than the card has SMs, K is split across CTAs so that the global N
-//     fills the 132 SMs; each split writes an fp32 partial and a second
-//     pass sums them in split order and rounds once;
-//   * bf16, M > 64, rows 16-byte aligned (prompts, training): the
-//     persistent wgmma + TMA mainloop of wgmma_bf16.cuh (as the
-//     grouped-matmul backward runs it): one CTA an SM walks [128 x 256]
-//     output tiles (the same tile at every N, the ragged edge zero-filled
-//     by TMA and left unwritten by the TMA stores); a producer warpgroup
-//     issues the TMA loads of x (K-major, [128 rows][64]) and w (read as it
-//     lies, [K, N] row-major: MN-major, four [64 k][64 n] boxes) into a
-//     3-stage ring; two consumer warpgroups run wgmma m64n256k16 over the
-//     whole K of the tile, in order, with no split; the epilogue goes
-//     through swizzled shared boxes and TMA stores;
+//     4 warps owns 64 or 128 columns (16 a warp in each 64) and streams
+//     w in [64 k][64 n] TMA boxes (w's tensor map; 128-byte swizzle, read
+//     back by ldmatrix.trans at the swizzled address) through a ring of
+//     4-11 stages with an mbarrier each, two CTAs an SM; w rows TMA
+//     cannot describe are staged by scalar loads into the same layout, so
+//     the same products.  x comes by cp.async.  The width and K split are
+//     the plan's: a lone CTA streams w well under an SM's share of the
+//     card's bandwidth, the more so the narrower its rows;
+//   * bf16, M > 64, rows 16-byte aligned (prompts, training): a
+//     persistent wgmma + TMA mainloop (wgmma_bf16.cuh; the grouped-matmul
+//     backward's): one CTA an SM walks work units (an output tile and a
+//     split of K) of [128 x 256] tiles (wgmma m64n256k16, 3 stages of
+//     48 KB, never split: their 128 accumulators a thread leave no room
+//     for the sum) or [128 x 128] tiles (m64n128k16, 6 stages of 32 KB,
+//     split or not), the width and split from the plan; a producer
+//     warpgroup issues the TMA loads of x (K-major, [128 rows][64]) and w
+//     (read as it lies, [K, N] row-major: MN-major, [64 k][64 n] boxes)
+//     into the ring; two consumer warpgroups run the unit's K steps in
+//     order; the epilogue goes through swizzled shared boxes and TMA
+//     stores (the ragged edge zero-filled by the loads and left unwritten
+//     by the stores);
 //   * fp32, any M: CUDA-core FMAs, never TF32, [32 x 64] tiles, K walked
-//     in 32-deep steps in order, split under the same rule as the bf16
-//     mma.sync tiles.
+//     in 32-deep steps in order, split under the mma.sync tiles' rule.
+// A split K: each split CTA writes its fp32 partial, and the tile's last
+// CTA to arrive sums them (split_sum).  w's tensor map is encoded once for
+// each (pointer, K, N); x's and out's are encoded each wgmma call.
 // Operands are read in place (a layer's view of a stacked [L, K, N] leaf),
 // with no padded copy.
 #include <cuda.h>
@@ -64,53 +75,124 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "tc_bf16.cuh"
 #include "wgmma_bf16.cuh"
+
+// One call's launch, prepared once for a (dtype, shapes, alignment) by
+// kernels/dense_matmul.py (its _Launch, field for field).
+struct DenseLaunch {
+  int dtype;    // 0 fp32, 1 bf16 (x, w and out alike)
+  int variant;  // kernels/dense_matmul.py VARIANTS
+  int rows8;    // mma.sync: rows of x a CTA in blocks of 8 (1, 2, 4, 8)
+  int width;    // columns a tile: 64, or the wgmma kernel's 128 or 256
+  int M, K, N;  // x [M, K], w [K, N] (a shard's N), out [M, N]
+  int vec_x, vec_w;  // 1: every row of x / w starts 16-byte aligned
+  int splits, kt_per;  // K splits, K steps a split
+  int sms;             // the wgmma kernel's persistent grid at most
+  float* work;         // splits > 1: the splits' fp32 partials
+  int* arrived;        // splits > 1: a zeroed counter a tile
+};
 
 namespace {
 
 using tc::bf16;
 constexpr int kThreads = 128;
+constexpr int kDriverError = 100000;  // + the driver's errors
 constexpr int kPad = 8;  // bf16 elements of padding per shared row
 
 // The variant codes of kernels/dense_matmul.py VARIANTS.
 enum Variant { kF32 = 0, kMmaSync = 1, kWgmma = 2 };
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
+// atomicAdd(p, 1) with acquire-release semantics at GPU scope.
+__device__ __forceinline__ int arrive_acq_rel(int* p) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(p)
+               : "memory");
+  return old;
 }
 
-// One output element: into out, or with a split of K the fp32 partial of
-// split sp into work [splits, M, N].
-template <typename T>
-struct Epilogue {
-  T* out;
-  float* work;
-  int splits;
-  size_t total;  // M * N
-  __device__ __forceinline__ void put(int sp, size_t i, float v) const {
-    if (splits > 1)
-      work[sp * total + i] = v;
-    else
-      out[i] = from_float<T>(v);
+// A split of K's end of a tile, for the n threads that hold its
+// accumulators (R values each, R a multiple of 4; thread t of them):
+// writes this split's fp32 partial, in the threads' own order (float4 j
+// of thread t of split q at ((tile * splits + q) * R / 4 + j) * n + t, so
+// each float4 store and load is coalesced), then counts the split's
+// arrival.  The last split of the tile to arrive sums every split's
+// partial in split order into acc (split 0's, plus split 1's, ...; its own
+// read back like the others), resets the tile's counter for the next call
+// and returns true; the others return false.  The sums' loads go out B
+// float4 at a time before their adds (a few L2 round trips a tile, not
+// one a split).  sync(): a barrier of the n threads;
+// flag: a shared int.
+template <int R, int B = 8, typename Sync>
+__device__ __forceinline__ bool split_sum(float* acc, float* work,
+                                          int* arrived, int* flag, int tile,
+                                          int sp, int splits, int n, int t,
+                                          Sync sync) {
+  constexpr int J = R / 4;  // float4 a thread a split
+  const float4* base = reinterpret_cast<const float4*>(work) +
+                       static_cast<size_t>(tile) * splits * J * n + t;
+  float4* mine = reinterpret_cast<float4*>(work) +
+                 (static_cast<size_t>(tile) * splits + sp) * J * n + t;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    __stcg(mine + j * n, make_float4(acc[4 * j], acc[4 * j + 1],
+                                     acc[4 * j + 2], acc[4 * j + 3]));
+  // the threads' stores, then one acquire-release arrival at GPU scope:
+  // it releases them to the tile's last CTA and, there, acquires the
+  // others' (the barriers carry both to the other threads)
+  sync();
+  if (t == 0) *flag = arrive_acq_rel(arrived + tile) == splits - 1;
+  sync();
+  if (!*flag) return false;
+  auto add = [&](int j, float4 v) {
+    acc[4 * j] += v.x;
+    acc[4 * j + 1] += v.y;
+    acc[4 * j + 2] += v.z;
+    acc[4 * j + 3] += v.w;
+  };
+#pragma unroll
+  for (int j = 0; j < J; ++j) {  // split 0's partial as it is
+    const float4 v = __ldcg(base + j * n);
+    acc[4 * j] = v.x;
+    acc[4 * j + 1] = v.y;
+    acc[4 * j + 2] = v.z;
+    acc[4 * j + 3] = v.w;
   }
-};
-
-// out = T(sum of the splits' fp32 partials), in split order.
-template <typename T>
-__global__ void dense_reduce(const float* __restrict__ work,
-                             T* __restrict__ out, size_t total, int splits) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < splits; ++p) s += work[p * total + i];
-    out[i] = from_float<T>(s);
+  if constexpr (J <= B) {  // B / J splits' partials a round
+    constexpr int U = B / J;
+    for (int q0 = 1; q0 < splits; q0 += U) {
+      float4 v[U][J];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          if (q0 + u < splits)
+            v[u][j] = __ldcg(base + (static_cast<size_t>(q0 + u) * J + j) * n);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          if (q0 + u < splits) add(j, v[u][j]);
+    }
+  } else {  // a split's partial in rounds of B float4
+    static_assert(J % B == 0, "whole rounds");
+    for (int q = 1; q < splits; ++q)
+#pragma unroll
+      for (int j0 = 0; j0 < J; j0 += B) {
+        float4 v[B];
+#pragma unroll
+        for (int c = 0; c < B; ++c)
+          v[c] = __ldcg(base + (static_cast<size_t>(q) * J + j0 + c) * n);
+#pragma unroll
+        for (int c = 0; c < B; ++c) add(j0 + c, v[c]);
+      }
   }
+  if (t == 0) arrived[tile] = 0;
+  return true;
 }
 
 // ------------------------------------------------ fp32: CUDA-core kernel
@@ -139,14 +221,15 @@ __device__ __forceinline__ void load_run(const float* src, int n, bool vec,
 
 // Grid (N / 64, M / 32, splits); split sp walks K steps kt0 .. kt0 +
 // kt_per - 1 (the last split fewer), each thread a 4 x 4 block.
-__global__ void __launch_bounds__(kThreads) dense_f32(
+__global__ void __launch_bounds__(kThreads, 4) dense_f32(
     const float* __restrict__ x, const float* __restrict__ w,
-    Epilogue<float> ep, int M, int K, int N, int vec_x, int vec_w,
-    int kt_per) {
+    float* __restrict__ out, float* work, int* arrived, int M, int K, int N,
+    int vec_x, int vec_w, int splits, int kt_per) {
   // x tile transposed (xs[k][m]) so a thread reads its 4 rows as one
   // float4; w tile as it lies (ws[k][n])
   __shared__ __align__(16) float xs[kF32K][kF32M];
   __shared__ __align__(16) float ws[kF32K][kF32N];
+  __shared__ int last;
   const int n0 = blockIdx.x * kF32N, m0 = blockIdx.y * kF32M;
   const int sp = blockIdx.z;
   const int kt0 = sp * kt_per;
@@ -175,11 +258,7 @@ __global__ void __launch_bounds__(kThreads) dense_f32(
     }
   };
 
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  float acc[16] = {};  // rows 4 tm + r, columns 4 tn + c at 4 r + c
   const bool active = m0 + 4 * tm < M;
 
   if (nt > 0) load(kt0 * kF32K);
@@ -208,12 +287,18 @@ __global__ void __launch_bounds__(kThreads) dense_f32(
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+          for (int c = 0; c < 4; ++c)
+            acc[4 * r + c] = fmaf(av[r], bv[c], acc[4 * r + c]);
       }
     }
     __syncthreads();  // the tiles are overwritten by the next step
   }
 
+  if (splits > 1 &&
+      !split_sum<16, 4>(acc, work, arrived, &last,
+                     blockIdx.y * gridDim.x + blockIdx.x, sp, splits,
+                     kThreads, tid, [] { __syncthreads(); }))
+    return;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int m = m0 + 4 * tm + r;
@@ -221,263 +306,12 @@ __global__ void __launch_bounds__(kThreads) dense_f32(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + 4 * tn + j;
-      if (n < N) ep.put(sp, static_cast<size_t>(m) * N + n, acc[r][j]);
+      if (n < N) out[static_cast<size_t>(m) * N + n] = acc[4 * r + j];
     }
   }
 }
 
 // ------------------------------------ bf16, M <= 64: mma.sync tiles
-
-constexpr int kSmallBN = 64, kSmallBK = 64, kSmallStages = 4;
-
-// Stages rows [r0, r0 + ROWS) x cols [c0, c0 + COLS) of the row-major
-// [nrows, ncols] operand g into s (row stride COLS + kPad), zeros outside
-// the operand.  vec: 16-byte cp.async copies (ncols a multiple of 8, g
-// 16-byte aligned), the edge zero-filled through the source size; else
-// scalar loads and shared stores.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void stage(bf16* s, const bf16* __restrict__ g,
-                                      int nrows, int ncols, int r0, int c0,
-                                      bool vec) {
-  constexpr int kRuns = COLS / 8;
-  for (int i = threadIdx.x; i < ROWS * kRuns; i += kThreads) {
-    const int r = i / kRuns, c = (i % kRuns) * 8;
-    const int gr = r0 + r, gc = c0 + c;
-    bf16* dst = s + r * (COLS + kPad) + c;
-    if (vec) {
-      const bool in = gr < nrows && gc < ncols;
-      tc::cp_async16(dst, in ? g + static_cast<size_t>(gr) * ncols + gc : g,
-                     in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (gr < nrows && gc + e < ncols)
-                     ? g[static_cast<size_t>(gr) * ncols + gc + e]
-                     : __float2bfloat16(0.f);
-    }
-  }
-}
-
-template <int NB8>
-constexpr int small_smem_bytes() {
-  return kSmallStages * (8 * NB8 * (kSmallBK + kPad) +
-                         kSmallBK * (kSmallBN + kPad)) * 2;
-}
-
-// out^T [n, m] = w^T x^T over 8 NB8 rows of x a CTA.  Grid (N / 64, M /
-// (8 NB8), splits); warp w owns columns n0 + 16 w .. + 15, the A fragment
-// (16 n x 16 k of w^T, one ldmatrix.trans) reused over NB8 blocks of 8
-// rows.
-template <int NB8>
-__global__ void __launch_bounds__(kThreads) dense_mma_sync(
-    const bf16* __restrict__ x, const bf16* __restrict__ w,
-    Epilogue<bf16> ep, int M, int K, int N, int vec_x, int vec_w,
-    int kt_per) {
-  constexpr int TM = 8 * NB8, BN = kSmallBN, BK = kSmallBK;
-  constexpr int STAGES = kSmallStages;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto xs = reinterpret_cast<bf16(*)[TM][BK + kPad]>(smem_raw);
-  auto ws = reinterpret_cast<bf16(*)[BK][BN + kPad]>(
-      smem_raw + STAGES * TM * (BK + kPad) * 2);
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * TM, sp = blockIdx.z;
-  const int kt0 = sp * kt_per;
-  const int nt = min((K + BK - 1) / BK - kt0, kt_per);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  auto load = [&](int t) {
-    const int st = t % STAGES, k0 = (kt0 + t) * BK;
-    stage<TM, BK>(&xs[st][0][0], x, M, K, m0, k0, vec_x != 0);
-    stage<BK, BN>(&ws[st][0][0], w, K, N, k0, n0, vec_w != 0);
-  };
-
-  float acc[NB8][4] = {};
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < nt) load(t);
-    tc::cp_async_commit();
-  }
-  for (int t = 0; t < nt; ++t) {
-    tc::cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage t landed; stage t - 1 is free again
-    if (t + STAGES - 1 < nt) load(t + STAGES - 1);
-    tc::cp_async_commit();
-    const int st = t % STAGES;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      // A = w^T [16 n x 16 k]: the transpose of w's [k][n] rows
-      unsigned a[4];
-      tc::ldsm_x4_trans(
-          a, &ws[st][kk * 16 + (lane & 7) + (lane >> 4) * 8]
-                [warp * 16 + ((lane >> 3) & 1) * 8]);
-#pragma unroll
-      for (int j = 0; j < NB8; ++j) {  // B = x^T [16 k x 8 m]
-        unsigned b[2];
-        tc::ldsm_x2(b, &xs[st][j * 8 + (lane & 7)]
-                         [kk * 16 + ((lane >> 3) & 1) * 8]);
-        tc::mma_bf16(acc[j], a, b[0], b[1]);
-      }
-    }
-  }
-  tc::cp_async_wait<0>();
-
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NB8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = n0 + warp * 16 + g + (i >> 1) * 8;
-      const int m = m0 + j * 8 + t4 * 2 + (i & 1);
-      if (m < M && n < N)
-        ep.put(sp, static_cast<size_t>(m) * N + n, acc[j][i]);
-    }
-}
-
-template <int NB8>
-cudaError_t launch_small(const bf16* x, const bf16* w,
-                         const Epilogue<bf16>& ep, int M, int K, int N,
-                         int vec_x, int vec_w, int kt_per,
-                         cudaStream_t stream) {
-  constexpr int bytes = small_smem_bytes<NB8>();
-  auto kernel = dense_mma_sync<NB8>;
-  if (bytes > 48 * 1024) {  // once a process (a call a projection at decode)
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (attr != cudaSuccess) return attr;
-  }
-  kernel<<<dim3((N + kSmallBN - 1) / kSmallBN, (M + 8 * NB8 - 1) / (8 * NB8),
-                ep.splits),
-           kThreads, bytes, stream>>>(x, w, ep, M, K, N, vec_x, vec_w,
-                                      kt_per);
-  return cudaGetLastError();
-}
-
-// --------------------- bf16, M > 64, TMA-aligned rows: wgmma kernel
-
-constexpr int WBM = 128, WBN = 256, WBK = 64, WSTAGES = 3;
-constexpr int kWThreads = 384;    // a producer and two consumer warpgroups
-constexpr int kConsumers = 256;   // arrivals that free a stage
-constexpr int kBox = 64 * WBK * 2;          // 8 KB: a box of 64 x 64
-constexpr int kA = WBM * WBK * 2;           // 16 KB: x's share of a stage
-constexpr int kStage = kA + WBN * WBK * 2;  // 48 KB: x, then w
-constexpr int kOut = 64 * WBN * 2;          // 32 KB: a consumer's rows out
-constexpr int kWSmem = WSTAGES * kStage + 2 * kOut + 2 * WSTAGES * 8 + 1024;
-
-// Grid: min(tiles, SMs) CTAs of kWThreads; tile t is rows (t % mt) 128 ..
-// and columns (t / mt) 256 .. (the row tiles of one column tile adjacent,
-// so they read its w from L2).  Tensor maps (bf16, 3-D with one "expert",
-// 128-byte swizzle): x_k over x [M][K], boxes 64 x 128 (K-major A); w_mn
-// over w [K][N], 64 x 64 (MN-major B, four a stage); o over out [M][N],
-// 64 x 64.
-__global__ void __launch_bounds__(kWThreads, 1) dense_wgmma(
-    const __grid_constant__ CUtensorMap x_k,
-    const __grid_constant__ CUtensorMap w_mn,
-    const __grid_constant__ CUtensorMap o, int mt, int tiles, int kb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // the ring's base on a 1024-byte boundary (the swizzle atoms'), then
-  // each consumer's output rows, then the barriers
-  unsigned char* ring =
-      smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* outs = ring + WSTAGES * kStage;
-  uint64_t* full = reinterpret_cast<uint64_t*>(outs + 2 * kOut);
-  uint64_t* empty = full + WSTAGES;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < WSTAGES; ++s) {
-      wg::mbar_init(&full[s], 1);
-      wg::mbar_init(&empty[s], kConsumers);
-    }
-    wg::mbar_init_fence();
-  }
-  __syncthreads();
-  const int group = threadIdx.x / 128;
-  if (group == 0) {  // the producer
-    wg::setmaxnreg_dec<40>();
-    if (threadIdx.x != 0) return;
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = (t % mt) * WBM, n0 = (t / mt) * WBN;
-      for (int k = 0; k < kb; ++k) {
-        wg::mbar_wait(&empty[stage], phase ^ 1);
-        uint64_t* bar = &full[stage];
-        wg::mbar_expect_tx(bar, kStage);
-        unsigned char* a = ring + stage * kStage;
-        unsigned char* b = a + kA;
-        const int k0 = k * WBK;
-        wg::tma_load_3d(a, &x_k, bar, k0, m0, 0);  // x rows m0.., cols k0..
-        for (int j = 0; j < WBN / 64; ++j)  // w rows k0.. as [k][n]
-          wg::tma_load_3d(b + j * kBox, &w_mn, bar, n0 + 64 * j, k0, 0);
-        if (++stage == WSTAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
-  } else {  // a consumer: rows 64 cw .. 64 cw + 63 of every tile
-    wg::setmaxnreg_inc<232>();
-    const int cw = group - 1;
-    const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-    const int row = 16 * ((threadIdx.x / 32) & 3) + g;  // and row + 8
-    const bool leader = threadIdx.x % 128 == 0;
-    unsigned char* out = outs + cw * kOut;  // four boxes of [64][64] bf16
-    int stage = 0;
-    uint32_t phase = 0;
-    float acc[128];
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = (t % mt) * WBM, n0 = (t / mt) * WBN;
-      // the whole K of the tile in order; a stage is freed once the group
-      // after it has been issued and it has completed
-      int prev = -1;
-      for (int k = 0; k < kb; ++k) {
-        wg::mbar_wait(&full[stage], phase);
-        const unsigned char* a = ring + stage * kStage + cw * kBox;
-        const unsigned char* b = ring + stage * kStage + kA;
-        wg::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < WBK / 16; ++kk)
-          // x K-major: 16 values are 32 bytes of each 128-byte row; w
-          // MN-major: 16 reduction rows are two 1024-byte atoms
-          wg::wgmma_m64n256k16<0, 1>(
-              acc, wg::desc_sw128(a + kk * 32, 16, 1024),
-              wg::desc_sw128(b + kk * 2048, kBox, 1024), k > 0 || kk > 0);
-        wg::wgmma_commit();
-        if (prev >= 0) {
-          wg::wgmma_wait<1>();
-          wg::mbar_arrive(&empty[prev]);
-        }
-        prev = stage;
-        if (++stage == WSTAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      wg::wgmma_wait<0>();
-      wg::fence_regs(acc);
-      wg::mbar_arrive(&empty[prev]);
-      // the rows as bf16 into the 128-byte-swizzled boxes once the last
-      // tile's store has read them, then one TMA store a box (the edges
-      // past M or N are not written)
-      if (leader) wg::bulk_wait_read<0>();
-      wg::named_sync(1 + cw, 128);
-#pragma unroll
-      for (int j = 0; j < WBN / 8; ++j)
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const int r = row + 8 * v;
-          *reinterpret_cast<unsigned*>(
-              out + (j / 8) * kBox + r * 128 + (((j & 7) ^ g) << 4) +
-              4 * t4) = tc::pack_bf16(acc[4 * j + 2 * v],
-                                      acc[4 * j + 2 * v + 1]);
-        }
-      wg::fence_proxy_async();
-      wg::named_sync(1 + cw, 128);
-      if (leader) {
-        for (int q = 0; q < WBN / 64; ++q)
-          wg::tma_store_3d(&o, out + q * kBox, n0 + 64 * q, m0 + 64 * cw, 0);
-        wg::bulk_commit();
-      }
-    }
-    if (leader) wg::bulk_wait<0>();
-  }
-}
 
 // cuTensorMapEncodeTiled from the driver, found once through the runtime
 // (no -lcuda at link time); nullptr where the driver lacks it.
@@ -527,114 +361,505 @@ int tensor_map(CUtensorMap* map, const void* base, int rows, int inner,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-// Driver errors come back offset, apart from the runtime's.
-constexpr int kDriverError = 100000;
+// The weights' maps, encoded once for each (pointer, K, N): a map of the
+// same base, dimensions and strides is the same map, whatever tensor lies
+// there now.  Direct-mapped; a collision re-encodes.
+struct WeightMap {
+  const void* base = nullptr;
+  int K = 0, N = 0;
+  CUtensorMap map;
+};
+constexpr int kWeightMaps = 1024;
+WeightMap weight_maps[kWeightMaps];
+std::mutex weight_maps_mu;
 
-int launch_wgmma(const bf16* x, const bf16* w, bf16* out, int M, int K,
-                 int N, int sms, cudaStream_t stream) {
-  CUtensorMap x_k, w_mn, o;
-  int err = tensor_map(&x_k, x, M, K, 64, WBM);
-  if (err == 0) err = tensor_map(&w_mn, w, K, N, 64, WBK);
-  if (err == 0) err = tensor_map(&o, out, M, N, 64, 64);
-  if (err != 0) return kDriverError + err;
-  // setmaxnreg.inc waits for registers the producer releases: the
-  // consumers' 2 x 128 x (232 - r) must fit in its 128 x (r - 40), so the
-  // kernel must start with r >= 168 registers a thread (it does, built
-  // with __launch_bounds__(384, 1)); a build with fewer is refused here
-  // rather than left to hang
-  static const int regs = [] {
-    cudaFuncAttributes a;
-    return cudaFuncGetAttributes(&a, dense_wgmma) == cudaSuccess ? a.numRegs
-                                                                 : 0;
-  }();
-  if (regs < 168) return static_cast<int>(cudaErrorLaunchOutOfResources);
+// w [K][N]'s map (boxes of [64 k][64 n], the mma.sync tiles' and the
+// wgmma kernel's) into *map; returns 0 or the driver's error code.
+int weight_map(CUtensorMap* map, const void* w, int K, int N) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(w);
+  const size_t slot =
+      ((p >> 8) ^ (static_cast<size_t>(K) * 131 + N)) % kWeightMaps;
+  std::lock_guard<std::mutex> lock(weight_maps_mu);
+  WeightMap& e = weight_maps[slot];
+  if (e.base != w || e.K != K || e.N != N) {
+    const int err = tensor_map(&e.map, w, K, N, 64, 64);
+    if (err != 0) {
+      e.base = nullptr;
+      return err;
+    }
+    e.base = w;
+    e.K = K;
+    e.N = N;
+  }
+  *map = e.map;
+  return 0;
+}
+
+constexpr int kSmallBK = 64;
+constexpr int kWBox = kSmallBK * 64 * 2;  // 8 KB: w's [64 k][64 n] box
+
+// The ring at 8 NB8 rows of x and 64 H columns: each stage w's H boxes
+// of [64 k][64 n] (by TMA, 128-byte swizzled), x's [8 NB8][64 k] (by
+// cp.async, rows padded) and an mbarrier; as many stages as fit 110,592
+// bytes with the alignment's slack (4-11), so that two CTAs share an SM.
+template <int NB8, int H>
+constexpr int kSmallStageBytes =
+    H * kWBox + 8 * NB8 * (kSmallBK + kPad) * 2 + 8;
+template <int NB8, int H>
+constexpr int kSmallStages = (110592 - 1024) / kSmallStageBytes<NB8, H>;
+template <int NB8, int H>
+constexpr int kSmallSmem =
+    kSmallStages<NB8, H> * kSmallStageBytes<NB8, H> + 1024;
+
+// Stages rows [r0, r0 + ROWS) x cols [c0, c0 + COLS) of the row-major
+// [nrows, ncols] operand g into s (row stride COLS + kPad), zeros outside
+// the operand.  vec: 16-byte cp.async copies (ncols a multiple of 8, g
+// 16-byte aligned), the edge zero-filled through the source size; else
+// scalar loads and shared stores.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage(bf16* s, const bf16* __restrict__ g,
+                                      int nrows, int ncols, int r0, int c0,
+                                      bool vec) {
+  constexpr int kRuns = COLS / 8;
+  for (int i = threadIdx.x; i < ROWS * kRuns; i += kThreads) {
+    const int r = i / kRuns, c = (i % kRuns) * 8;
+    const int gr = r0 + r, gc = c0 + c;
+    bf16* dst = s + r * (COLS + kPad) + c;
+    if (vec) {
+      const bool in = gr < nrows && gc < ncols;
+      tc::cp_async16(dst, in ? g + static_cast<size_t>(gr) * ncols + gc : g,
+                     in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = (gr < nrows && gc + e < ncols)
+                     ? g[static_cast<size_t>(gr) * ncols + gc + e]
+                     : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The byte offset of w's (k, n) 16-byte chunk (n a multiple of 8) in a
+// stage: a box of [64 k][64 n] a 64 columns, rows of 128 bytes, chunk c
+// of row k at c ^ (k % 8), as the TMA box lands with the 128-byte
+// swizzle.
+__device__ __forceinline__ int wtile_at(int k, int n) {
+  return (n >> 6) * kWBox + k * 128 + ((((n & 63) >> 3) ^ (k & 7)) << 4);
+}
+
+// w's [64 k][64 H n] tile at (k0, n0) into the swizzled stage s with
+// scalar loads (rows TMA cannot describe), zeros outside w: the same
+// layout, so the same products, as the TMA boxes.
+template <int H>
+__device__ __forceinline__ void stage_w_scalar(unsigned char* s,
+                                               const bf16* __restrict__ w,
+                                               int K, int N, int k0, int n0) {
+  for (int i = threadIdx.x; i < kSmallBK * 8 * H; i += kThreads) {
+    const int r = i / (8 * H), c = (i % (8 * H)) * 8;
+    bf16* dst = reinterpret_cast<bf16*>(s + wtile_at(r, c));
+    const int gk = k0 + r;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      dst[e] = (gk < K && n0 + c + e < N)
+                   ? w[static_cast<size_t>(gk) * N + n0 + c + e]
+                   : __float2bfloat16(0.f);
+  }
+}
+
+// out^T [n, m] = w^T x^T over 8 NB8 rows of x and 64 H columns a CTA.
+// Grid (N / 64 H, M / (8 NB8), splits); warp w owns columns n0 + 64 h +
+// 16 w .. + 15 for h < H, each an A fragment (16 n x 16 k of w^T, one
+// ldmatrix.trans) reused over NB8 blocks of 8 rows.  w streams through
+// the ring by TMA (w_map; one thread issues a stage's H boxes, an
+// mbarrier a stage reports them landed) where vec_w, else by scalar
+// loads into the same layout; x by cp.async.
+template <int NB8, int H>
+__global__ void __launch_bounds__(kThreads, 2) dense_mma_sync(
+    const __grid_constant__ CUtensorMap w_map, const bf16* __restrict__ x,
+    const bf16* __restrict__ w, bf16* __restrict__ out, float* work,
+    int* arrived, int M, int K, int N, int vec_x, int vec_w, int splits,
+    int kt_per) {
+  constexpr int TM = 8 * NB8, BN = 64 * H, BK = kSmallBK;
+  constexpr int STAGES = kSmallStages<NB8, H>;
+  constexpr int kWStage = H * kWBox;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  // w's stages on a 1024-byte boundary (the swizzle atoms'), then x's,
+  // then the barriers
+  unsigned char* ws =
+      smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  auto xs = reinterpret_cast<bf16(*)[TM][BK + kPad]>(ws + STAGES * kWStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ws + STAGES * (kWStage + TM * (BK + kPad) * 2));
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * TM, sp = blockIdx.z;
+  const int kt0 = sp * kt_per;
+  const int nt = min((K + BK - 1) / BK - kt0, kt_per);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (vec_w && threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) wg::mbar_init(&full[st], 1);
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+  auto load = [&](int t) {
+    const int st = t % STAGES, k0 = (kt0 + t) * BK;
+    stage<TM, BK>(&xs[st][0][0], x, M, K, m0, k0, vec_x != 0);
+    if (!vec_w) {
+      stage_w_scalar<H>(ws + st * kWStage, w, K, N, k0, n0);
+    } else if (threadIdx.x == 0) {
+      wg::mbar_expect_tx(&full[st], kWStage);
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        wg::tma_load_3d(ws + st * kWStage + h * kWBox, &w_map, &full[st],
+                        n0 + 64 * h, k0, 0);
+    }
+  };
+
+  float acc[H][NB8][4] = {};
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < nt) load(t);
+    tc::cp_async_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % STAGES;
+    tc::cp_async_wait<STAGES - 2>();
+    if (vec_w) wg::mbar_wait(&full[st], (t / STAGES) & 1);
+    __syncthreads();  // stage t landed; stage t - 1 is free again
+    if (t + STAGES - 1 < nt) load(t + STAGES - 1);
+    tc::cp_async_commit();
+    const unsigned char* wt = ws + st * kWStage;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // A = w^T [16 n x 16 k]: the transpose of w's [k][n] rows
+      unsigned a[H][4];
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        tc::ldsm_x4_trans(
+            a[h], wt + wtile_at(kk * 16 + (lane & 7) + (lane >> 4) * 8,
+                                h * 64 + warp * 16 + ((lane >> 3) & 1) * 8));
+#pragma unroll
+      for (int j = 0; j < NB8; ++j) {  // B = x^T [16 k x 8 m]
+        unsigned b[2];
+        tc::ldsm_x2(b, &xs[st][j * 8 + (lane & 7)]
+                         [kk * 16 + ((lane >> 3) & 1) * 8]);
+#pragma unroll
+        for (int h = 0; h < H; ++h) tc::mma_bf16(acc[h][j], a[h], b[0], b[1]);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  if (splits > 1 &&
+      !split_sum<4 * NB8 * H>(&acc[0][0][0], work, arrived, &last,
+                              blockIdx.y * gridDim.x + blockIdx.x, sp,
+                              splits, kThreads, threadIdx.x,
+                              [] { __syncthreads(); }))
+    return;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < NB8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = n0 + h * 64 + warp * 16 + g + (i >> 1) * 8;
+        const int m = m0 + j * 8 + t4 * 2 + (i & 1);
+        if (m < M && n < N)
+          out[static_cast<size_t>(m) * N + n] =
+              __float2bfloat16(acc[h][j][i]);
+      }
+}
+
+template <int NB8, int H>
+int launch_small(const DenseLaunch& a, const bf16* x, const bf16* w,
+                 bf16* out, cudaStream_t stream) {
+  CUtensorMap w_map = {};  // unread where !vec_w
+  if (a.vec_w) {
+    const int err = weight_map(&w_map, w, a.K, a.N);
+    if (err != 0) return kDriverError + err;
+  }
+  auto kernel = dense_mma_sync<NB8, H>;
+  constexpr int bytes = kSmallSmem<NB8, H>;
+  // once a process (a call a projection at decode)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dense_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int mt = (M + WBM - 1) / WBM;
-  const int tiles = mt * ((N + WBN - 1) / WBN);
-  const int grid = tiles < sms ? tiles : sms;
-  dense_wgmma<<<grid, kWThreads, kWSmem, stream>>>(x_k, w_mn, o, mt, tiles,
-                                                   (K + WBK - 1) / WBK);
+  kernel<<<dim3((a.N + 64 * H - 1) / (64 * H),
+                (a.M + 8 * NB8 - 1) / (8 * NB8), a.splits),
+           kThreads, bytes, stream>>>(w_map, x, w, out, a.work, a.arrived,
+                                      a.M, a.K, a.N, a.vec_x, a.vec_w,
+                                      a.splits, a.kt_per);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-cudaError_t launch_reduce(const float* work, T* out, size_t total,
-                          int splits, cudaStream_t stream) {
-  const size_t want = (total + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  dense_reduce<T><<<blocks, 256, 0, stream>>>(work, out, total, splits);
-  return cudaGetLastError();
+// The mma.sync tiles of a.width columns, 64 or 128.
+template <int NB8>
+int launch_rows(const DenseLaunch& a, const bf16* x, const bf16* w,
+                bf16* out, cudaStream_t stream) {
+  if (a.width == 64) return launch_small<NB8, 1>(a, x, w, out, stream);
+  if (a.width == 128) return launch_small<NB8, 2>(a, x, w, out, stream);
+  return -1;
+}
+
+// --------------------- bf16, M > 64, TMA-aligned rows: wgmma kernel
+
+constexpr int WBM = 128, WBK = 64;
+constexpr int kWThreads = 384;    // a producer and two consumer warpgroups
+constexpr int kConsumers = 256;   // arrivals that free a stage
+constexpr int kBox = 64 * WBK * 2;  // 8 KB: a box of 64 x 64
+constexpr int kA = WBM * WBK * 2;   // 16 KB: x's share of a stage
+
+// The shared memory of the [128 x BN] tiles: the ring (x, then w), each
+// consumer's output rows, the ring's barriers and the split's flag, and
+// the slack that puts the ring on a 1024-byte boundary.
+template <int BN>
+struct WgTile {
+  static constexpr int kStages = BN == 256 ? 3 : 6;
+  static constexpr int kStage = kA + BN * WBK * 2;  // 48 or 32 KB
+  static constexpr int kOut = 64 * BN * 2;          // a consumer's rows out
+  static constexpr int kSmem =
+      kStages * kStage + 2 * kOut + 2 * kStages * 8 + 16 + 1024;
+};
+static_assert(WgTile<128>::kSmem <= 232448 && WgTile<256>::kSmem <= 232448,
+              "the ring fits a CTA's shared memory");
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&acc)[BN / 2], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  if constexpr (BN == 256)
+    wg::wgmma_m64n256k16<0, 1>(acc, da, db, accumulate);
+  else
+    wg::wgmma_m64n128k16<0, 1>(acc, da, db, accumulate);
+}
+
+// Grid: min(units, SMs) CTAs of kWThreads walking units u = tile * splits
+// + split (the splits of a tile adjacent); tile t is rows (t % mt) 128 ..
+// and columns (t / mt) BN .. (the row tiles of one column tile adjacent,
+// so they read its w from L2); split sp walks K steps sp kt_per .. (the
+// last fewer).  Tensor maps (bf16, 3-D with one "expert", 128-byte
+// swizzle): x_k over x [M][K], boxes 64 x 128 (K-major A); w_mn over w
+// [K][N], 64 x 64 (MN-major B, BN / 64 a stage); o over out [M][N],
+// 64 x 64.
+template <int BN>
+__global__ void __launch_bounds__(kWThreads, 1) dense_wgmma(
+    const __grid_constant__ CUtensorMap x_k,
+    const __grid_constant__ CUtensorMap w_mn,
+    const __grid_constant__ CUtensorMap o, int mt, int units, int kb,
+    int splits, int kt_per, float* work, int* arrived) {
+  using S = WgTile<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the ring's base on a 1024-byte boundary (the swizzle atoms'), then
+  // each consumer's output rows, then the barriers and the flag
+  unsigned char* ring =
+      smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* outs = ring + S::kStages * S::kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + 2 * S::kOut);
+  uint64_t* empty = full + S::kStages;
+  int* flag = reinterpret_cast<int*>(empty + S::kStages);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], kConsumers);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+  const int group = threadIdx.x / 128;
+  if (group == 0) {  // the producer
+    if constexpr (BN == 256) wg::setmaxnreg_dec<40>();
+    if (threadIdx.x != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int t = u / splits, k1 = min(kb, (u % splits + 1) * kt_per);
+      const int m0 = (t % mt) * WBM, n0 = (t / mt) * BN;
+      for (int k = (u % splits) * kt_per; k < k1; ++k) {
+        wg::mbar_wait(&empty[stage], phase ^ 1);
+        uint64_t* bar = &full[stage];
+        wg::mbar_expect_tx(bar, S::kStage);
+        unsigned char* a = ring + stage * S::kStage;
+        unsigned char* b = a + kA;
+        const int k0 = k * WBK;
+        wg::tma_load_3d(a, &x_k, bar, k0, m0, 0);  // x rows m0.., cols k0..
+        for (int j = 0; j < BN / 64; ++j)  // w rows k0.. as [k][n]
+          wg::tma_load_3d(b + j * kBox, &w_mn, bar, n0 + 64 * j, k0, 0);
+        if (++stage == S::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // a consumer: rows 64 cw .. 64 cw + 63 of every tile
+    // setmaxnreg.inc waits for registers the producer releases: only the
+    // 256-wide tile's 128 accumulators a thread need more than the
+    // launch's share
+    if constexpr (BN == 256) wg::setmaxnreg_inc<232>();
+    const int cw = group - 1;
+    const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+    const int row = 16 * ((threadIdx.x / 32) & 3) + g;  // and row + 8
+    const bool leader = threadIdx.x % 128 == 0;
+    unsigned char* out = outs + cw * S::kOut;  // boxes of [64][64] bf16
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[BN / 2];
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int t = u / splits, sp = u % splits;
+      const int m0 = (t % mt) * WBM, n0 = (t / mt) * BN;
+      const int k0 = sp * kt_per, k1 = min(kb, k0 + kt_per);
+      // the unit's K steps in order; a stage is freed once the group
+      // after it has been issued and it has completed
+      int prev = -1;
+      for (int k = k0; k < k1; ++k) {
+        wg::mbar_wait(&full[stage], phase);
+        const unsigned char* a = ring + stage * S::kStage + cw * kBox;
+        const unsigned char* b = ring + stage * S::kStage + kA;
+        wg::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WBK / 16; ++kk)
+          // x K-major: 16 values are 32 bytes of each 128-byte row; w
+          // MN-major: 16 reduction rows are two 1024-byte atoms
+          wgmma_tile<BN>(acc, wg::desc_sw128(a + kk * 32, 16, 1024),
+                         wg::desc_sw128(b + kk * 2048, kBox, 1024),
+                         k > k0 || kk > 0);
+        wg::wgmma_commit();
+        if (prev >= 0) {
+          wg::wgmma_wait<1>();
+          wg::mbar_arrive(&empty[prev]);
+        }
+        prev = stage;
+        if (++stage == S::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wg::wgmma_wait<0>();
+      wg::fence_regs(acc);
+      wg::mbar_arrive(&empty[prev]);
+      // a split unit: the tile's last split to arrive stores it (the
+      // 256-wide tile runs unsplit: its 128 accumulators a thread leave no
+      // registers for the sum)
+      if constexpr (BN == 128) {
+        if (splits > 1 &&
+            !split_sum<BN / 2>(acc, work, arrived, flag, t, sp, splits,
+                               kConsumers, threadIdx.x - 128,
+                               [] { wg::named_sync(3, kConsumers); }))
+          continue;
+      }
+      // the rows as bf16 into the 128-byte-swizzled boxes once the last
+      // tile's store has read them, then one TMA store a box (the edges
+      // past M or N are not written)
+      if (leader) wg::bulk_wait_read<0>();
+      wg::named_sync(1 + cw, 128);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int r = row + 8 * v;
+          *reinterpret_cast<unsigned*>(
+              out + (j / 8) * kBox + r * 128 + (((j & 7) ^ g) << 4) +
+              4 * t4) = tc::pack_bf16(acc[4 * j + 2 * v],
+                                      acc[4 * j + 2 * v + 1]);
+        }
+      wg::fence_proxy_async();
+      wg::named_sync(1 + cw, 128);
+      if (leader) {
+        for (int q = 0; q < BN / 64; ++q)
+          wg::tma_store_3d(&o, out + q * kBox, n0 + 64 * q, m0 + 64 * cw, 0);
+        wg::bulk_commit();
+      }
+    }
+    if (leader) wg::bulk_wait<0>();
+  }
+}
+
+template <int BN>
+int launch_wgmma(const DenseLaunch& a, const bf16* x, const bf16* w,
+                 bf16* out, cudaStream_t stream) {
+  using S = WgTile<BN>;
+  CUtensorMap x_k, w_mn, o;
+  int err = tensor_map(&x_k, x, a.M, a.K, 64, WBM);
+  if (err == 0) err = weight_map(&w_mn, w, a.K, a.N);
+  if (err == 0) err = tensor_map(&o, out, a.M, a.N, 64, 64);
+  if (err != 0) return kDriverError + err;
+  if constexpr (BN == 256) {
+    // setmaxnreg.inc waits for registers the producer releases: the
+    // consumers' 2 x 128 x (232 - r) must fit in its 128 x (r - 40), so
+    // the kernel must start with r >= 168 registers a thread (it does,
+    // built with __launch_bounds__(384, 1)); a build with fewer is
+    // refused here rather than left to hang
+    static const int regs = [] {
+      cudaFuncAttributes f;
+      return cudaFuncGetAttributes(&f, dense_wgmma<256>) == cudaSuccess
+                 ? f.numRegs
+                 : 0;
+    }();
+    if (regs < 168) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dense_wgmma<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int mt = (a.M + WBM - 1) / WBM;
+  const int units = mt * ((a.N + BN - 1) / BN) * a.splits;
+  const int grid = units < a.sms ? units : a.sms;
+  dense_wgmma<BN><<<grid, kWThreads, S::kSmem, stream>>>(
+      x_k, w_mn, o, mt, units, (a.K + WBK - 1) / WBK, a.splits, a.kt_per,
+      a.work, a.arrived);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16 (x, w and out alike).  variant: 0 the fp32
-// CUDA-core tiles, 1 the bf16 mma.sync tiles of 8 rows8 rows of x a CTA
-// (rows8 1, 2, 4 or 8), 2 the bf16 wgmma kernel; splits and kt_per (K
-// steps a split) from kernels/dense_matmul.py plan (1 for the wgmma
-// kernel).  x [M, K], w [K, N] and out [M, N] contiguous; vec_x / vec_w: 1
-// when every row of x / w starts on a 16-byte boundary (the wgmma kernel
-// needs both); work: fp32 [splits, M, N] when splits > 1 (else unused);
-// sms: the card's SMs (the wgmma kernel's persistent grid at most).  M, K
-// and N must be > 0.  Returns cudaGetLastError() after the launches,
-// 100000 + the driver's error where a tensor map cannot be encoded, or -1
-// for an argument the kernels do not take.
-int dense_matmul_launch(int dtype, int variant, int rows8, const void* x,
-                        const void* w, void* out, void* work, int M, int K,
-                        int N, int vec_x, int vec_w, int splits, int kt_per,
-                        int sms, void* stream) {
+// One call of the product under the launch *a (see DenseLaunch; from
+// kernels/dense_matmul.py plan): x [M, K], w [K, N] and out [M, N]
+// contiguous, M, K and N > 0; where a->splits > 1, a->work holds the
+// splits' fp32 partials (a->splits x the launch's tiles x a tile's
+// elements) and a->arrived a counter a tile, zero before the call and
+// zero again after it.  One kernel launch on `stream`.  Returns
+// cudaGetLastError() after it, 100000 + the driver's error where a tensor
+// map cannot be encoded, or -1 for a launch the kernels do not take.
+int dense_matmul_run(const DenseLaunch* a, const void* x, const void* w,
+                     void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (splits < 1 || kt_per < 1) return -1;
-  const size_t total = static_cast<size_t>(M) * N;
-  cudaError_t err;
-  if (dtype == 0 && variant == kF32) {
-    const Epilogue<float> ep{static_cast<float*>(out),
-                             static_cast<float*>(work), splits, total};
-    dense_f32<<<dim3((N + kF32N - 1) / kF32N, (M + kF32M - 1) / kF32M,
-                     splits),
+  if (a->splits < 1 || a->kt_per < 1 ||
+      (a->splits > 1 && (a->work == nullptr || a->arrived == nullptr)))
+    return -1;
+  if (a->dtype == 0 && a->variant == kF32) {
+    dense_f32<<<dim3((a->N + kF32N - 1) / kF32N, (a->M + kF32M - 1) / kF32M,
+                     a->splits),
                 kThreads, 0, s>>>(static_cast<const float*>(x),
-                                  static_cast<const float*>(w), ep, M, K, N,
-                                  vec_x, vec_w, kt_per);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-    return static_cast<int>(launch_reduce<float>(
-        static_cast<const float*>(work), static_cast<float*>(out), total,
-        splits, s));
+                                  static_cast<const float*>(w),
+                                  static_cast<float*>(out), a->work,
+                                  a->arrived, a->M, a->K, a->N, a->vec_x,
+                                  a->vec_w, a->splits, a->kt_per);
+    return static_cast<int>(cudaGetLastError());
   }
-  if (dtype != 1) return -1;
+  if (a->dtype != 1) return -1;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wb = static_cast<const bf16*>(w);
-  if (variant == kWgmma) {
-    if (splits != 1 || !vec_x || !vec_w) return -1;
-    return launch_wgmma(xb, wb, static_cast<bf16*>(out), M, K, N, sms, s);
+  bf16* ob = static_cast<bf16*>(out);
+  if (a->variant == kWgmma) {
+    if (!a->vec_x || !a->vec_w) return -1;
+    if (a->width == 256 && a->splits == 1)
+      return launch_wgmma<256>(*a, xb, wb, ob, s);
+    if (a->width == 128) return launch_wgmma<128>(*a, xb, wb, ob, s);
+    return -1;
   }
-  if (variant != kMmaSync) return -1;
-  const Epilogue<bf16> ep{static_cast<bf16*>(out), static_cast<float*>(work),
-                          splits, total};
-  switch (rows8) {
+  if (a->variant != kMmaSync) return -1;
+  switch (a->rows8) {
     case 1:
-      err = launch_small<1>(xb, wb, ep, M, K, N, vec_x, vec_w, kt_per, s);
-      break;
+      return launch_rows<1>(*a, xb, wb, ob, s);
     case 2:
-      err = launch_small<2>(xb, wb, ep, M, K, N, vec_x, vec_w, kt_per, s);
-      break;
+      return launch_rows<2>(*a, xb, wb, ob, s);
     case 4:
-      err = launch_small<4>(xb, wb, ep, M, K, N, vec_x, vec_w, kt_per, s);
-      break;
+      return launch_rows<4>(*a, xb, wb, ob, s);
     case 8:
-      err = launch_small<8>(xb, wb, ep, M, K, N, vec_x, vec_w, kt_per, s);
-      break;
+      return launch_rows<8>(*a, xb, wb, ob, s);
     default:
       return -1;
   }
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(launch_reduce<bf16>(
-      static_cast<const float*>(work), static_cast<bf16*>(out), total,
-      splits, s));
 }
 
 }  // extern "C"

@@ -38,7 +38,7 @@ try:
 except ImportError:  # JAX (the reference) is not installed
     jax = None
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.device import observe_kernels
 from repro_torch.kernels import dense_matmul as dm
 from repro_torch.kernels import ops
@@ -59,7 +59,29 @@ CASES = [(1, 64, 96), (4, 128, 64), (16, 96, 40), (64, 70, 90),
 # and granite-moe-1b-a400m's, and the reduced configs'
 PROJECTIONS = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
                (1024, 1024), (1024, 512), (64, 64), (64, 128), (128, 64)]
-ROWS = (1, 4, 8, 16, 17, 64, 65, 128, 512, 8192)
+ROWS = (1, 4, 8, 16, 17, 32, 64, 65, 128, 512, 1024, 8192)
+
+
+def _zoo_projections() -> list:
+    """Every column-cut (K, N) of every config of the zoo at full width: q,
+    k/v and o, the MLP's (the shared expert's) up and down (zamba2's shared
+    block reads [2d]; xlstm has none)."""
+    out = set()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        if cfg.block_kind == "xlstm":
+            continue
+        d = cfg.d_model
+        q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+        din = 2 * d if cfg.block_kind == "mamba_hybrid" else d
+        ff = cfg.shared_ff if cfg.n_experts else cfg.d_ff
+        out.update({(din, q), (din, kv), (q, d)})
+        if ff:
+            out.update({(d, ff), (ff, d)})
+    return sorted(out)
+
+
+ZOO = _zoo_projections()
 
 
 @pytest.fixture
@@ -122,16 +144,17 @@ def test_cpu_and_meta_run_the_plain_version():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K,N", PROJECTIONS)
+@pytest.mark.parametrize("K,N", sorted(set(PROJECTIONS) | set(ZOO)))
 def test_every_shard_launches_the_global_plan(dtype, K, N):
-    """At every row count, each rank's shard of w (N / tp columns, tp 2
-    and 4) passed with ``plan_n=N`` gets the unsharded call's variant and
-    K split; the split covers K in whole steps with no split empty."""
+    """At every row count, each rank's shard of w (N / tp columns, tp 1, 2
+    and 4) passed with ``plan_n=N`` gets the unsharded call's plan: the
+    variant, the tile width and the K split; the split covers K in whole
+    steps with no split empty."""
     for M in ROWS:
         x = torch.empty(M, K, dtype=dtype)
         want = dm.launch_plan(x, torch.empty(K, N, dtype=dtype))
         assert want == dm.plan(dtype, M, K, N)
-        for tp in (2, 4):
+        for tp in (1, 2, 4):
             shard = torch.empty(K, N // tp, dtype=dtype)
             assert dm.launch_plan(x, shard, plan_n=N) == want
         bk = dm.TILES[want.variant][2]
@@ -141,20 +164,27 @@ def test_every_shard_launches_the_global_plan(dtype, K, N):
         assert want.variant == ("fp32" if dtype == torch.float32 else
                                 "mma_sync" if M <= dm.SMALL_ROWS else
                                 "wgmma")
+        assert want.width in dm.WIDTHS[want.variant]
 
 
 def test_plan_fills_the_card_at_a_decode_tick():
-    """bf16 at M <= 64: the grid of the global N split over K until the
-    card's 132 SMs each have a CTA (llama3.2-3b's wq: 48 CTAs, 3 splits
-    of 16 steps); a rank's own N (12 CTAs at TP 4) would split K 10
-    ways."""
+    """bf16 at M <= 64: the tile width (64 or 128 columns) and the K split
+    of the global N by ``split_cost``, two CTAs an SM (264 slots on 132
+    SMs): a wave costs its CTAs' walk or the card's bandwidth, whichever
+    is longer, so llama3.2-3b's wq takes 128-column tiles in 4 splits of
+    12 steps (96 CTAs, each streaming 16 KB a step); a rank's own N (768
+    at TP 4) would take 64 columns in 16 splits."""
     p = dm.plan(torch.bfloat16, 4, 3072, 3072)
-    assert (p.variant, p.rows8, p.splits, p.kt_per) == ("mma_sync", 1, 3, 16)
+    assert (p.variant, p.rows8, p.width, p.splits, p.kt_per) == (
+        "mma_sync", 1, 128, 4, 12)
+    assert p.ctas(4, 3072) == 96 <= 2 * dm.SMS
     own = dm.plan(torch.bfloat16, 4, 3072, 768)
-    assert (own.splits, own.kt_per) == (10, 5)
-    # w_gate's 128 CTAs leave 4 SMs idle: 2 splits; 136 CTAs none
-    assert dm.plan(torch.bfloat16, 4, 3072, 8192).splits == 2
-    assert dm.plan(torch.bfloat16, 4, 3072, 8704).splits == 1
+    assert (own.width, own.splits, own.kt_per) == (64, 16, 3)
+    # w_gate's 64 tiles of 128 columns split in 2; chameleon-34b's
+    # gate/up has 172, more than the card streams at once: unsplit
+    assert (dm.plan(torch.bfloat16, 4, 3072, 8192).width,
+            dm.plan(torch.bfloat16, 4, 3072, 8192).splits) == (128, 2)
+    assert dm.plan(torch.bfloat16, 4, 8192, 22016).splits == 1
     assert [dm.plan(torch.bfloat16, m, 64, 64).rows8
             for m in (1, 8, 9, 16, 17, 32, 33, 64)] == [1, 1, 2, 2, 4, 4, 8,
                                                         8]
@@ -162,6 +192,45 @@ def test_plan_fills_the_card_at_a_decode_tick():
     # rows TMA cannot describe run the mma.sync tiles at any M
     assert dm.plan(torch.bfloat16, 300, 70, 96).variant == "mma_sync"
     assert dm.plan(torch.bfloat16, 300, 70, 96).rows8 == 8
+
+
+def test_prompt_plans_fill_the_card():
+    """bf16 at M 1024, the wgmma kernel's plans: qwen2-0.5b's projections
+    launch at least 96 units of work (CTAs) wherever K has the steps for
+    a split to pay, that is at least twice the 15 K steps a split's end
+    costs (``SPLIT``): down [4864, 896] (76 steps) splits in 2 over
+    [128 x 128] tiles, 112 units; gate/up [896, 4864] has 304 [128 x
+    128] tiles; wq [896, 896] and k/v [896, 128] (14 steps) run their
+    [128 x 128] tiles unsplit (56 and 8 units, where [128 x 256] tiles
+    give 32 and 8).  llama3.2-3b's and chameleon-34b's gate/up, wq and
+    down keep the default [128 x 256] tiles unsplit."""
+    qwen = {"wq": (896, 896), "gate/up": (896, 4864), "down": (4864, 896),
+            "wk/wv": (896, 128)}
+    for name, (K, N) in qwen.items():
+        p = dm.plan(torch.bfloat16, 1024, K, N)
+        ktiles = -(-K // dm.TILES["wgmma"][2])
+        if ktiles >= 2 * dm.SPLIT["wgmma"]:
+            assert p.ctas(1024, N) >= 96, (name, p)
+        else:
+            assert p.splits == 1 and p.width == 128, (name, p)
+    assert dm.plan(torch.bfloat16, 1024, 896, 896) == dm.Plan(
+        "wgmma", 0, 128, 1, 14)
+    assert dm.plan(torch.bfloat16, 1024, 4864, 896) == dm.Plan(
+        "wgmma", 0, 128, 2, 38)
+    assert dm.plan(torch.bfloat16, 1024, 896, 4864).ctas(1024, 4864) == 304
+    for K, N in ((3072, 8192), (3072, 3072), (8192, 3072), (8192, 22016),
+                 (8192, 8192), (22016, 8192)):
+        p = dm.plan(torch.bfloat16, 1024, K, N)
+        assert (p.width, p.splits) == (256, 1), (K, N, p)
+    # the training batch's products stay [128 x 256] unsplit
+    assert dm.plan(torch.bfloat16, 8192, 4864, 896).splits == 1
+    # the cost: waves times the K steps a CTA walks, plus a split's end
+    # each wave; a bytes-bound wave takes at least its CTAs' steps at the
+    # card's rate
+    assert dm.split_cost(56, 76, 2, 132, 1.0, 0.0, 15, 2) == 38 + 17
+    assert dm.split_cost(56, 76, 3, 132, 1.0, 0.0, 15, 4) == 2 * (26 + 19)
+    assert dm.split_cost(344, 128, 1, 264, 1.0, 0.01, 0, 0) == \
+        128 * (264 * 0.01 + 1)
 
 
 def test_a_shard_that_cannot_run_the_global_variant_raises():
@@ -297,8 +366,18 @@ def test_forward_routes_every_column_cut_weight(arch):
 # -------------------------------------------------------- on the card
 
 
+# every variant, split and unsplit: the mma.sync tiles 64 and 128 wide
+# split K (decode, verify, chunk rows; llama3.2-3b's w_gate) and unsplit
+# ([1, 70] x [70, 90], chameleon-34b's gate/up), the wgmma kernel's
+# [128 x 256] tiles (512 x [3072, 8192]), its [128 x 128] tiles unsplit
+# (qwen2-0.5b's wq and ragged k/v at M 1024, [1000, 896] x [896, 200]) and
+# split (its down, [8192, 1024]), fp32 split and unsplit at the same
+# shapes
 GPU_CASES = CASES + [(8, 3072, 1024), (64, 8192, 3072), (512, 3072, 8192),
-                     (300, 896, 4864), (1, 70, 90), (200, 70, 90)]
+                     (300, 896, 4864), (1, 70, 90), (200, 70, 90),
+                     (1024, 896, 896), (1024, 4864, 896), (1024, 896, 128),
+                     (1024, 8192, 1024), (1000, 896, 200), (8, 896, 128),
+                     (8, 3072, 8192), (4, 8192, 22016), (17, 70, 300)]
 
 
 @pytest.mark.gpu
@@ -323,15 +402,18 @@ def test_kernel_matches_plain(cuda, M, K, N, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("K,N", PROJECTIONS)
+@pytest.mark.parametrize("K,N", PROJECTIONS + [(896, 896), (4864, 896),
+                                               (896, 128), (8192, 1024)])
 def test_shard_products_are_the_unsharded_columns(cuda, K, N, dtype):
     """Rank r's product over its N / tp columns, under the global plan,
     equals those columns of the unsharded product bit for bit, at a
-    decode tick, a verify pass, a chunk and a prompt."""
+    decode tick, a verify pass, a chunk and prompts (at M 1024 the
+    wgmma kernel's [128 x 128] tiles, unsplit for qwen2-0.5b's wq and k/v,
+    in 2 splits for its down and for [8192, 1024])."""
     gen = torch.Generator(device=cuda).manual_seed(K + N)
     dt = getattr(torch, dtype)
     w = (torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5).to(dt)
-    for M in (4, 16, 64, 128):
+    for M in (4, 16, 64, 128, 1024):
         x = torch.randn(M, K, device=cuda, generator=gen).to(dt)
         full = ops.dense_matmul(x, w)
         for tp in (2, 4):
@@ -360,3 +442,31 @@ def test_kernel_reads_layer_views_and_refuses(cuda):
         ops.dense_matmul(x.half(), w[1].half())
     with pytest.raises(ValueError, match="several devices"):
         ops.dense_matmul(x, w[1].cpu())
+
+
+@pytest.mark.gpu
+def test_one_launch_a_call(cuda):
+    """Every call is one kernel launch, split plans included (the tile's
+    last CTA sums the partials: no second kernel, no ``zeros`` for the
+    counters), and calls repeated on reused counters give the same bits."""
+    cases = [(8, 3072, 3072, torch.bfloat16), (64, 8192, 3072, torch.bfloat16),
+             (1024, 4864, 896, torch.bfloat16), (1024, 8192, 1024,
+                                                 torch.bfloat16),
+             (8, 3072, 3072, torch.float32)]
+    for M, K, N, dt in cases:
+        assert dm.plan(dt, M, K, N).splits > 1, (M, K, N, dt)
+        x = torch.randn(M, K, device=cuda).to(dt)
+        w = (torch.randn(K, N, device=cuda) * K ** -0.5).to(dt)
+        first = ops.dense_matmul(x, w)
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            outs = [ops.dense_matmul(x, w) for _ in range(5)]
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if kernels:  # a session on the card's host now and then sees none
+            assert len(kernels) == 5, [e.name for e in kernels]
+            assert all("dense_" in e.name for e in kernels)
+        assert all(torch.equal(o, first) for o in outs)
